@@ -19,7 +19,23 @@
    policy equals the float64 banded path on the card and the plain CPU
    path; the same at rho = 0.9; verify_backends (Python event loop vs the
    kernel) at the serving size on a Poisson trace.
-5. Prints a `kernels` JSON line, then the one-line verdict.
+5. Attention kernels: flash (prefill) and decode held against their plain
+   versions at the reference test shapes (f32 at 2e-5, bf16 at 2e-2,
+   softcap 50 included) and at the serving path's shapes in bf16 and f32,
+   and timed there against their bound and torch's SDPA.
+6. Whole-model checks in f32: the reduced Qwen2.5-32B on the card
+   (kernels) against the CPU (plain versions) from the same weights, and
+   Qwen2.5-32B at full width with 2 layers, decode path (decode kernel)
+   against a fresh prefill (flash kernel), both at atol 3e-4.
+7. LLM serving path, counters zeroed just before and read just after:
+   Qwen2.5-32B at its published config (64 layers, bf16, random weights
+   from a seed) -- l(b) profile for b = 1..8 (prompt 128, 16 tokens),
+   SMDP solve on it through the Bellman kernel, then 32 Poisson requests
+   at rho = 0.6 served in wall-clock executor mode by the SMDP, greedy and
+   static schedulers.  Checks one flash launch per layer per segment, one
+   decode launch per layer per decode step, one Bellman launch per backup.
+   A profile of decode steps says where a step's time goes.
+8. Prints a `kernels` JSON line, then the one-line verdict.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA it exits
 with 2 and prints no result.
@@ -37,6 +53,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # CUDA cores
 F64_FLOPS = 34e12  # CUDA cores
+BF16_FLOPS = 989e12  # tensor cores, dense
 
 RHO, W2, B_MAX, S_MAX = 0.7, 1.6, 32, 128
 N_EPOCHS = 100_000
@@ -45,6 +62,17 @@ BATCHED_TEST_SHAPES = [(1, 64, 9, 40), (3, 130, 33, 130), (4, 128, 17, 260)]
 PATH_SHAPE = (S_MAX + 1, B_MAX + 1, S_MAX + 1)  # (T, A, K) of the Table-I solve
 LARGE_SHAPE = (4097, 33, 4097)  # solve()'s max_s_max = 4096
 SWEEP_SPECS = 17  # a 17-point w2 grid: the batched kernel's sweep launch
+
+# --- the LLM serving path (examples/serve_llm.py on Qwen2.5-32B) ---------
+LLM_ARCH = "qwen2.5-32b"
+LLM_B_MAX, LLM_PROMPT, LLM_GEN, LLM_REQUESTS, LLM_RHO = 8, 128, 16, 32, 0.6
+#: tests/test_kernels.py's attention shapes
+FLASH_TEST_SHAPES = [(2, 64, 64, 4, 2, 16, True, None), (1, 33, 70, 4, 4, 8, False, None),
+                     (2, 128, 128, 8, 2, 32, True, 50.0), (1, 17, 128, 2, 1, 64, True, None)]
+DECODE_TEST_SHAPES = [(2, 300, 8, 2, 16), (3, 128, 4, 4, 32), (1, 77, 8, 1, 64),
+                      (4, 64, 16, 4, 8)]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LOGIT_ATOL = 3e-4  # tests/test_models.py's decode-vs-forward bound
 
 
 def log(*parts):
@@ -348,6 +376,344 @@ def solve_checked(np, kernels, rho):
     return res, wall
 
 
+# ---------------------------------------------------------------------------
+# Attention kernels
+# ---------------------------------------------------------------------------
+
+
+def _normal(torch, rng, shape, dtype):
+    return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                           device="cuda").to(dtype)
+
+
+def _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype):
+    return (_normal(torch, rng, (B, Sq, H, D), dtype),
+            _normal(torch, rng, (B, Sk, KV, D), dtype),
+            _normal(torch, rng, (B, Sk, KV, D), dtype))
+
+
+def _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lengths):
+    """q, and K / V as one layer's slices of an (L, B, S, KV, D) cache."""
+    q = _normal(torch, rng, (B, H, D), dtype)
+    cache = _normal(torch, rng, (2, 2, B, S, KV, D), dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, cache[0, 1], cache[1, 0], lens
+
+
+def _path_lengths(B):
+    """Decode lengths of the serving path: 129 .. 143 (prompt 128 plus the
+    generated tokens), spread over the batch."""
+    return [LLM_PROMPT + 1 + (i * (LLM_GEN - 2)) // max(B - 1, 1) for i in range(B)]
+
+
+def attention_phase(torch, np, rows):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    F = torch.nn.functional
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    full = dict(H=40, KV=8, D=128)  # Qwen2.5-32B's attention
+    err = {n: dict.fromkeys(dts, 0.0) for n in ("flash_attention", "decode_attention")}
+
+    def held(name, got, want, dt, what):
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        t = ATTN_TOL[dt]
+        check(torch.allclose(got.float(), want.float(), atol=t, rtol=t),
+              f"{name} {what} {dt}: max abs err {e}")
+        err[name][dt] = max(err[name][dt], e)
+        log(f"{name} {what} {dt}: max_abs_err={e:.3e} (atol = rtol = {t}) ok")
+
+    flash_shapes = FLASH_TEST_SHAPES + [(b, LLM_PROMPT, LLM_PROMPT, full["H"], full["KV"],
+                                         full["D"], True, None) for b in (1, LLM_B_MAX)]
+    for B, Sq, Sk, H, KV, D, causal, cap in flash_shapes:
+        for dt, dtype in dts.items():
+            q, k, v = _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype)
+            held("flash_attention", fa.flash_attention(q, k, v, causal=causal, softcap=cap),
+                 fa.attention_ref(q, k, v, causal=causal, softcap=cap), dt,
+                 f"{(B, Sq, Sk, H, KV, D)} causal={causal} softcap={cap}")
+    decode_shapes = [(s, None) for s in DECODE_TEST_SHAPES] + [
+        ((b, LLM_PROMPT + LLM_GEN, full["H"], full["KV"], full["D"]), _path_lengths(b))
+        for b in (1, LLM_B_MAX)]
+    for (B, S, H, KV, D), lens in decode_shapes:
+        if lens is None:
+            lens = rng.integers(1, S + 1, B)
+        for dt, dtype in dts.items():
+            q, kc, vc, ln = _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lens)
+            held("decode_attention", da.decode_attention(q, kc, vc, ln),
+                 da.decode_attention_ref(q, kc, vc, ln), dt,
+                 f"{(B, S, H, KV, D)} lengths={list(map(int, lens))}")
+
+    # --- times at the serving path's shapes ---------------------------------
+    def flash_row(B, dt, reps=50):
+        dtype = dts[dt]
+        H, KV, D, S = full["H"], full["KV"], full["D"], LLM_PROMPT
+        q, k, v = _flash_inputs(torch, rng, B, S, S, H, KV, D, dtype)
+        ms = device_ms(torch, lambda: fa.flash_attention(q, k, v), reps)
+        plain = device_ms(torch, lambda: fa.attention_ref(q, k, v), reps)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+        pairs = S * (S + 1) // 2  # causal (q, k) pairs per head
+        item = q.element_size()
+        b_ms, b_by = bound(item * (2 * B * S * H * D + 2 * B * S * KV * D),
+                           4 * B * H * D * pairs,
+                           BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        log(f"flash_attention b={B} {(S, H, KV, D)} {dt}: kernel_ms={ms:.6f} "
+            f"plain_ms={plain:.6f} library_ms={lib:.6f} (SDPA, enable_gqa) "
+            f"bound_ms={b_ms:.6f} ({b_by})")
+        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                    bound_by=b_by, shape=[B, S, S, H, KV, D], dtype=dt)
+
+    def decode_row(B, dt, reps=200):
+        dtype = dts[dt]
+        H, KV, D, S = full["H"], full["KV"], full["D"], LLM_PROMPT + LLM_GEN
+        lens = _path_lengths(B)
+        q, kc, vc, ln = _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lens)
+        ms = device_ms(torch, lambda: da.decode_attention(q, kc, vc, ln), reps)
+        plain = device_ms(torch, lambda: da.decode_attention_ref(q, kc, vc, ln), reps)
+        mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+        qt, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
+        keys = int(sum(lens))  # the valid prefixes this run's data needs
+        item = q.element_size()
+        b_ms, b_by = bound(item * (2 * B * H * D + 2 * keys * KV * D) + 4 * B,
+                           4 * H * D * keys,
+                           BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        log(f"decode_attention b={B} S={S} lengths {lens[0]}..{lens[-1]} {dt}: "
+            f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms={lib:.6f} "
+            f"(SDPA, enable_gqa, boolean mask) bound_ms={b_ms:.6f} ({b_by})")
+        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                    bound_by=b_by, shape=[B, S, H, KV, D], dtype=dt)
+
+    for name, row_fn, source, replaces in (
+        ("flash_attention", flash_row, "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:72"),
+        ("decode_attention", decode_row, "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:67"),
+    ):
+        main = row_fn(LLM_B_MAX, "bfloat16")
+        others = [row_fn(1, "bfloat16"), row_fn(LLM_B_MAX, "float32")]
+        rows[name] = dict(route="cuda", source=source, replaces=replaces,
+                          max_abs_err=max(err[name].values()),
+                          max_abs_err_by_dtype=err[name], **main, other_shapes=others)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model checks (f32) and the LLM serving path (bf16)
+# ---------------------------------------------------------------------------
+
+
+def _greedy_logits(torch, M, cfg, params, tokens, steps, max_len):
+    """Prefill logits, then `steps` greedy decode steps; (B, steps+1, V), tokens."""
+    lg, cache = M.prefill(cfg, params, {"tokens": tokens}, max_len, torch.float32)
+    out, toks = [lg], []
+    for _ in range(steps):
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        toks.append(tok)
+        lg, cache = M.decode_step(cfg, params, cache, tok)
+        out.append(lg)
+    return torch.cat(out, 1), toks
+
+
+def model_checks(torch, np):
+    import copy
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+
+    full = ARCHS[LLM_ARCH]
+    rng = np.random.default_rng(4)
+
+    # reduced config: the card (kernels) against the CPU (plain versions)
+    cfg = full.reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")  # Module.to moves in place
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 32)))
+    before = kernels.launch_counts()
+    got, _ = _greedy_logits(torch, M, cfg, card, toks.cuda(), 4, 40)
+    after = kernels.launch_counts()
+    want, _ = _greedy_logits(torch, M, cfg, cpu, toks, 4, 40)
+    check(want.device.type == "cpu" and got.device.type == "cuda", "devices of the check")
+    e = (got.cpu() - want).abs().max().item()
+    check(e <= LOGIT_ATOL, f"reduced model card vs CPU: max abs err {e}")
+    check(after["flash_attention"] - before["flash_attention"] == cfg.n_layers
+          and after["decode_attention"] - before["decode_attention"] == 4 * cfg.n_layers,
+          "reduced model did not run one kernel launch per layer and step")
+    log(f"reduced {LLM_ARCH} f32 (d={cfg.d_model}, L={cfg.n_layers}): card (kernels) vs "
+        f"CPU (plain): prefill + 4 decode logits max_abs_err={e:.3e} (atol {LOGIT_ATOL}) ok")
+    del cpu, card
+
+    # full width, 2 layers: decode path (decode kernel) vs fresh prefill (flash)
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg2, gen, torch.float32, "cuda")
+    P, steps = 16, 4
+    toks = torch.as_tensor(rng.integers(0, cfg2.vocab_size, (2, P)), device="cuda")
+    dec, gen_toks = _greedy_logits(torch, M, cfg2, params, toks, steps, P + steps + 1)
+    worst = 0.0
+    for i in range(steps + 1):
+        seq = torch.cat([toks] + gen_toks[:i], dim=1)
+        fresh, _ = M.prefill(cfg2, params, {"tokens": seq}, seq.shape[1], torch.float32)
+        e = (dec[:, i] - fresh[:, 0]).abs().max().item()
+        worst = max(worst, e)
+        check(e <= LOGIT_ATOL, f"full-width decode vs prefill at step {i}: {e}")
+    torch.cuda.synchronize()
+    log(f"{LLM_ARCH} full width (d={cfg2.d_model}, H={cfg2.n_heads}/{cfg2.n_kv_heads}, "
+        f"2 layers) f32: decode-path logits vs a fresh prefill of prompt + generated, "
+        f"{steps} steps: max_abs_err={worst:.3e} (atol {LOGIT_ATOL}); logit scale "
+        f"{dec.abs().max().item():.3f}; ok")
+    del params, dec
+    torch.cuda.empty_cache()
+
+
+def _backups_of(solution, device):
+    """Bellman backups of the solve that produced ``solution``: one RVI per
+    s_max of its growth sequence (64, x1.5, ...), replayed if it grew."""
+    import dataclasses
+    import math
+
+    from repro_torch.core import build_smdp, relative_value_iteration
+
+    s, total = 64, 0
+    while s < solution.spec.s_max:
+        spec = dataclasses.replace(solution.spec, s_max=s)
+        total += relative_value_iteration(build_smdp(spec), backup="pallas",
+                                          device=device).iterations + 1
+        s = min(math.ceil(s * 1.5), 4096)
+    return total + solution.rvi.iterations + 1
+
+
+def profile_decode(torch, M, cfg, params, B):
+    """Device time of greedy decode steps at batch B, by kernel (torch.profiler),
+    against their wall time measured without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.randint(0, cfg.vocab_size, (B, LLM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    n = 5
+
+    def steps(cache, tok):
+        for _ in range(n):
+            lg, cache = M.decode_step(cfg, params, cache, tok)
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(cfg, params, {"tokens": tokens}, LLM_PROMPT + 2 * n + 1,
+                          torch.bfloat16)
+    tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    steps(cache, tok)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        steps(cache, tok)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    if not rows:
+        log("profile decode: the profiler recorded no device time (not measured)")
+        return
+    total = sum(dev_us(e) for e in rows) / 1e3 / n
+    groups = {"decode_attention kernel": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for e in rows:
+        key = e.key.lower()
+        if "decode_kernel" in key:
+            g = "decode_attention kernel"
+        elif any(w in key for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
+            g = "matmul (cuBLAS)"
+        else:
+            g = "other"
+        groups[g] += dev_us(e) / 1e3 / n
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    launches = sum(e.count for e in rows) / n
+    log(f"profile decode step b={B}: prefill of {B} x {LLM_PROMPT} tokens "
+        f"wall_ms={prefill_ms:.3f}; decode wall_ms={wall_ms:.3f} per step, device busy "
+        f"{total:.3f} ms per step (busy share {total / wall_ms:.3f}) in "
+        f"{launches:.0f} kernels per step; weight-read "
+        f"bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"({weight_bytes / 2**30:.2f} GiB at 3.35 TB/s); "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for e in sorted(rows, key=dev_us, reverse=True)[:8]:
+        log(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step {e.count // n:5d} calls/step  {e.key[:90]}")
+
+
+def llm_path(torch, np, kernels, rows):
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import model as M
+
+    cfg = ARCHS[LLM_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{LLM_ARCH} (published config: d={cfg.d_model} L={cfg.n_layers} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+        f"V={cfg.vocab_size}) bf16 random weights: {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init {time.perf_counter() - t0:.2f} s")
+
+    lines = []
+
+    def note(msg):
+        lines.append(msg)
+        log(f"  {msg}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_llm.run_pipeline(
+        cfg, params, n_requests=LLM_REQUESTS, rho=LLM_RHO, gen_tokens=LLM_GEN,
+        prompt_len=LLM_PROMPT, b_max=LLM_B_MAX, cache_dtype=torch.bfloat16, seed=0,
+        log=note)
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    log(f"LLM path launches: {counts} ({res.segments} segments, wall {wall:.2f} s)")
+    L, seg = cfg.n_layers, res.segments
+    check(counts["flash_attention"] == L * seg,
+          f"flash_attention launched {counts['flash_attention']} times, not {L} x {seg}")
+    check(counts["decode_attention"] == L * (LLM_GEN - 1) * seg,
+          f"decode_attention launched {counts['decode_attention']} times, "
+          f"not {L} x {LLM_GEN - 1} x {seg}")
+    backups = _backups_of(res.solution, "cuda")
+    check(counts["bellman_banded"] == backups,
+          f"bellman_banded launched {counts['bellman_banded']} times for {backups} backups")
+    log("l(b) ms, b = 1..8 (non-decreasing): "
+        + " ".join(f"{x:.3f}" for x in res.lat_ms))
+    sol = res.solution
+    log(f"policy head (s = 0..16): {sol.action_table(16).tolist()} s_max={sol.spec.s_max} "
+        f"backups={backups} W_model={sol.eval.w_bar:.3f} ms")
+    for name, rep in res.reports.items():
+        lat = rep.latencies
+        check(rep.n_served == LLM_REQUESTS and np.isfinite(lat).all(), f"{name} served")
+        log(f"serve {name}: W={lat.mean() * 1e3:.3f} ms P95={rep.percentile(95) * 1e3:.3f} ms "
+            f"mean_batch={rep.mean_batch:.3f} P_proxy={rep.power:.3f} W "
+            f"(60 W x service time, not measured) span={rep.span:.3f} s")
+    check(all(np.isfinite(res.lat_ms)) and res.lat_ms[0] > 0, "l(b) profile")
+    log(f"peak memory (torch.cuda.max_memory_allocated): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name in ("flash_attention", "decode_attention"):
+        rows[name]["launches"] = counts[name]
+    rows["bellman_banded"]["launches_llm_path"] = counts["bellman_banded"]
+    profile_decode(torch, M, cfg, params, LLM_B_MAX)
+    profile_decode(torch, M, cfg, params, 1)
+    del params
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -434,7 +800,13 @@ def main():
         f"python loop == event kernel, max latency err {out['max_latency_err']:.3e} "
         f"wall_s={time.perf_counter() - t0:.2f}")
 
-    order = ("bellman_banded", "bellman_banded_batched", "serve_scan")
+    # --- the attention kernels, the model checks and the LLM serving path ---
+    attention_phase(torch, np, rows)
+    model_checks(torch, np)
+    llm_path(torch, np, kernels, rows)
+
+    order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
+             "flash_attention", "decode_attention")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_list = []

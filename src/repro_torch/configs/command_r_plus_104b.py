@@ -1,0 +1,19 @@
+"""Command R+ 104B [dense] — GQA, no biases [hf:CohereForAI/c4ai-command-r-plus]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    n_layers=64,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=33792,
+    vocab_size=256000,
+    qkv_bias=False,
+    rope_theta=75_000_000.0,
+    act="swiglu",
+    norm="layernorm",
+    tie_embeddings=True,
+)

@@ -1,0 +1,21 @@
+"""Zamba2-1.2B [hybrid] — Mamba2 backbone + shared attention block [arXiv:2411.15242]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="zamba2-1.2b",
+    family="hybrid",
+    n_layers=38,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=32,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=32000,
+    ssm_state=64,
+    ssm_expand=2,
+    ssm_head_dim=64,
+    shared_attn_every=6,
+    act="gelu",
+    norm="rmsnorm",
+    tie_embeddings=True,
+)

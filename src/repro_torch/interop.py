@@ -1,24 +1,31 @@
 """State carried across from the reference package.
 
-The system has no weights: what crosses over is the problem and the
-solved policy.  Both converters read the reference objects by duck
-typing -- attribute names and ``dataclasses.fields`` -- and never import
-the reference package, so this module works with or without it.
+What crosses over is the problem, the solved policy and a model's
+weights.  The converters read the reference objects by duck typing --
+attribute names, ``dataclasses.fields``, nested dicts of arrays -- and
+never import the reference package, so this module works with or without
+it.
 
   * ``spec_from_reference(spec)`` rebuilds a reference ``SMDPSpec`` (with
     its ``ServiceModel`` and latency / energy profile dataclasses) as the
     port's ``SMDPSpec``;
   * ``table_from_reference(result)`` turns a reference ``SolveResult``'s
-    policy into the port's ``SMDPScheduler``.
+    policy into the port's ``SMDPScheduler``;
+  * ``params_from_reference(cfg, params)`` turns the reference's
+    ``init_params`` tree (layers stacked on a leading axis) into the
+    port's ``DenseLM``.
 """
 from __future__ import annotations
 
 import dataclasses
-
 import numpy as np
+import torch
 
 from .core import profiles, service_models
 from .core.smdp import SMDPSpec
+from .device import DeviceLike, resolve_device
+from .models.config import ModelConfig
+from .models.model import DenseLM, block_norms, check_supported
 from .serving.scheduler import SMDPScheduler
 
 #: port classes a reference dataclass maps to, by class name
@@ -66,3 +73,53 @@ def table_from_reference(result) -> SMDPScheduler:
     return SMDPScheduler.from_table(
         np.asarray(result.action_table(), dtype=np.int64)
     )
+
+
+def params_from_reference(cfg: ModelConfig, params, *,
+                          device: DeviceLike = None) -> DenseLM:
+    """The port's DenseLM holding a reference ``init_params`` tree.
+
+    ``params`` is the reference's nested dict with numpy (or array-like)
+    leaves.  The stacked leading L axis is split into per-layer tensors;
+    wq / wk / wv (d, H|KV, hd) become the columns of ``wqkv`` (and their
+    biases of ``bqkv``), wo (H, hd, d) becomes (H hd, d), w1 / w3 the two
+    halves of ``w13``; norms and the output matrix carry over, all in the
+    arrays' own dtype.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)  # a writable copy
+
+    def norm(tree, name):
+        out = {name: t(tree["s"])}
+        if "b" in tree:
+            out[name + "_b"] = t(tree["b"])
+        return out
+
+    top = {"embed": t(params["embed"]), **norm(params["final_norm"], "final_norm")}
+    if not cfg.tie_embeddings:
+        top["out"] = t(params["out"])
+    blk = params["blocks"]
+    d = cfg.d_model
+    blocks = []
+    for i in range(cfg.n_layers):
+        layer = lambda name: np.asarray(blk[name])[i]  # noqa: E731
+        b = {
+            "wqkv": t(np.concatenate(
+                [layer(n).reshape(d, -1) for n in ("wq", "wk", "wv")], axis=1)),
+            "wo": t(layer("wo").reshape(-1, d)),
+        }
+        if cfg.qkv_bias:
+            b["bqkv"] = t(np.concatenate(
+                [layer(n).reshape(-1) for n in ("bq", "bk", "bv")]))
+        if cfg.act in ("swiglu", "geglu"):
+            b["w13"] = t(np.concatenate([layer("w1"), layer("w3")], axis=1))
+        else:
+            b["w1"] = t(layer("w1"))
+        b["w2"] = t(layer("w2"))
+        for n in block_norms(cfg):
+            b.update(norm({k: np.asarray(v)[i] for k, v in blk[n].items()}, n))
+        blocks.append(b)
+    return DenseLM(cfg, top, blocks)

@@ -8,12 +8,16 @@ them all, so a run can show that it went through the kernels.
 from typing import Dict
 
 from . import bellman as _bellman
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import serve_scan as _serve_scan
 
 WRAPPERS = {
     "bellman_banded": _bellman.bellman_banded,
     "bellman_banded_batched": _bellman.bellman_banded_batched,
     "serve_scan": _serve_scan.serve_scan,
+    "flash_attention": _flash.flash_attention,
+    "decode_attention": _decode.decode_attention,
 }
 
 

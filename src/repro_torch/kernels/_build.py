@@ -36,6 +36,8 @@ BASE_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "bellman": [],
     "serve_scan": ["-fmad=false"],
+    "flash_attention": [],
+    "decode_attention": [],
 }
 
 _lock = threading.Lock()

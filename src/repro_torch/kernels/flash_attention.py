@@ -1,0 +1,118 @@
+"""Blockwise GQA attention forward: the CUDA kernel's wrapper and plain version.
+
+The kernel is ``csrc/flash_attention.cu``; it replaces the Pallas kernel
+``flash_attention`` of the JAX package, and its header says how it is laid
+out and what bounds it.  ``attention_ref`` below is the plain PyTorch
+version, with the reference oracle's semantics exactly (``-1e30`` masking,
+bottom-right causal alignment ``k <= q + Sk - Sq``, f32 softmax).
+
+A tensor on the CPU runs the plain version; a CUDA tensor launches the
+kernel (one launch, on the current stream, counted in ``launches``) or
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+#: head sizes the kernel is instantiated for
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  softcap: Optional[float] = None, kv_len=None):
+    """Naive masked softmax attention.  q: (B,Sq,H,D), k/v: (B,Sk,KV,D)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / math.sqrt(D)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None] + (Sk - Sq)
+    if kv_len is not None:
+        mask &= k_pos[None, :] < kv_len
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def check_inputs(q, k, v) -> None:
+    """Shapes, dtypes and devices the kernel (and the plain version) take."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if x.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(x.shape)}")
+        if x.dtype not in DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {x.dtype}")
+        if x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, "
+                             f"q is {q.dtype} on {q.device}")
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} vs q {tuple(q.shape)}")
+    if k.shape[2] == 0 or H % k.shape[2]:
+        raise ValueError(f"{H} q heads are not a multiple of {k.shape[2]} kv heads")
+    if k.shape[1] == 0:
+        raise ValueError("attention over an empty key sequence")
+
+
+def _launch(q, k, v, causal: bool, softcap: Optional[float]) -> torch.Tensor:
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    fn = _build.load("flash_attention").flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Sk, H, KV, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        int(causal), int(softcap is not None),
+        float(softcap or 0.0), DTYPES[q.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    softcap: Optional[float] = None, block_q: int = 128,
+                    block_k: int = 128):
+    """Attention (B, Sq, H, D) in q's dtype; see attention_ref.
+
+    ``block_q`` / ``block_k`` are the reference's tile sizes, kept for
+    parity of the signature: neither version's result depends on them.
+    """
+    check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, softcap=softcap)
+    out = _launch(q, k, v, causal, softcap)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,17 +1,22 @@
-"""Public entry points of the Bellman kernel (counterpart of repro.kernels.ops).
+"""Public entry points of the kernels (counterpart of repro.kernels.ops).
 
-They cast to the kernel's f32 and move the inputs to ``device`` exactly as
-the reference wrappers cast: ``h_overflow`` becomes a float32 scalar, the
-arrays float32.  On a CPU device they run the plain PyTorch version; on a
-CUDA device they launch the hand-written kernel or raise -- there is no
-fallback from one to the other.
+The Bellman entry points cast to the kernel's f32 and move the inputs to
+``device`` exactly as the reference wrappers cast: ``h_overflow`` becomes a
+float32 scalar, the arrays float32.  The attention entry points keep the
+inputs' dtype (float32 or bfloat16) and move them to ``device``.  On a CPU
+device they run the plain PyTorch version; on a CUDA device they launch the
+hand-written kernel or raise -- there is no fallback from one to the other.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..device import DeviceLike, resolve_device
 from . import bellman as _bellman
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -34,4 +39,38 @@ def bellman_backup_batched(h_main, pmfs, tails, h_overflow, *,
     return _bellman.bellman_banded_batched(
         _f32(h_main, dev), _f32(pmfs, dev), _f32(tails, dev),
         _f32(h_overflow, dev),
+    )
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, device=dev)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    softcap: Optional[float] = None, block_q: int = 128,
+                    block_k: int = 128, device: DeviceLike = None):
+    """Blockwise GQA attention (see kernels/flash_attention.py).
+
+    q (B, Sq, H, D), k / v (B, Sk, KV, D); returns (B, Sq, H, D) in q's dtype.
+    """
+    dev = resolve_device(device)
+    return _flash.flash_attention(
+        _on(q, dev), _on(k, dev), _on(v, dev), causal=causal, softcap=softcap,
+        block_q=block_q, block_k=block_k,
+    )
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     softcap: Optional[float] = None, block_k: int = 256,
+                     device: DeviceLike = None):
+    """One-token GQA flash-decode (see kernels/decode_attention.py).
+
+    q (B, H, D), caches (B, S, KV, D) read in place, lengths (B,) valid
+    prefix per sequence; returns (B, H, D) in q's dtype.
+    """
+    dev = resolve_device(device)
+    return _decode.decode_attention(
+        _on(q, dev), _on(k_cache, dev), _on(v_cache, dev),
+        torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+        softcap=softcap, block_k=block_k,
     )

@@ -5,4 +5,6 @@ kernel's module beside the wrapper; tests and the chip check hold the
 kernels against these.
 """
 from .bellman import bellman_banded_batched_ref, bellman_banded_ref  # noqa: F401
+from .decode_attention import decode_attention_ref  # noqa: F401
+from .flash_attention import attention_ref  # noqa: F401
 from .serve_scan import serve_scan_ref  # noqa: F401

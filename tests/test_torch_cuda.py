@@ -9,17 +9,27 @@ Every test is marked `cuda` and skips where torch.cuda.is_available() is
 false (the kernels have no CPU mode).  Tolerances are the reference's:
 atol 1e-4 / rtol 1e-5 for the f32 Bellman backup (sums in another order),
 1e-5 / 1e-6 between the batched and scalar launches of the same kernel,
-and 1e-9 on serving latencies (the event walk is bit-for-bit the plain
-version's arithmetic).
+1e-9 on serving latencies (the event walk is bit-for-bit the plain
+version's arithmetic), 2e-5 (f32) and 2e-2 (bf16) for the attention
+kernels (tests/test_kernels.py's), and atol 3e-4 on model logits
+(tests/test_models.py's).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import core as pt
+from repro_torch import kernels
+from repro_torch.configs import ARCHS
 from repro_torch.core.policies import q_policy
 from repro_torch.kernels import bellman as tb
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import serve_scan as ss
+from repro_torch.launch import serve_llm
+from repro_torch.models import model as M
 from repro_torch.serving import simulate_compiled
 
 pytestmark = pytest.mark.cuda
@@ -102,3 +112,87 @@ def test_kernel_solve_matches_cpu_plain_path(cuda):
     assert np.array_equal(on_card.policy, banded.policy)
     assert np.array_equal(on_card.policy, plain.policy)
     assert abs(on_card.g - banded.g) < 1e-2
+
+
+# --- attention kernels ------------------------------------------------------
+
+#: tests/test_kernels.py's shapes, then the serving path's prefill (prompt
+#: 128, Qwen2.5-32B's 40 / 8 heads of 128) at b = 1 and 8
+FLASH_SHAPES = [
+    (2, 64, 64, 4, 2, 16, True, None),
+    (1, 33, 70, 4, 4, 8, False, None),
+    (2, 128, 128, 8, 2, 32, True, 50.0),
+    (1, 17, 128, 2, 1, 64, True, None),
+    (1, 128, 128, 40, 8, 128, True, None),
+    (8, 128, 128, 40, 8, 128, True, None),
+]
+#: tests/test_kernels.py's shapes, then the path's decode (cache 144 deep)
+DECODE_SHAPES = [(2, 300, 8, 2, 16), (3, 128, 4, 4, 32), (1, 77, 8, 1, 64),
+                 (4, 64, 16, 4, 8), (1, 144, 40, 8, 128), (8, 144, 40, 8, 128)]
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                           device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,cap", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal, cap, dtype):
+    rng = np.random.default_rng(Sq * Sk + H)
+    q = _normal(rng, (B, Sq, H, D), dtype, cuda)
+    k, v = (_normal(rng, (B, Sk, KV, D), dtype, cuda) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.attention_ref(q, k, v, causal=causal, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", DECODE_SHAPES)
+def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
+    rng = np.random.default_rng(B * S)
+    q = _normal(rng, (B, H, D), dtype, cuda)
+    # a layer's slice of an (L, B, S, KV, D) cache: read in place
+    cache = _normal(rng, (2, 2, B, S, KV, D), dtype, cuda)
+    kc, vc = cache[0, 1], cache[1, 0]
+    lens = torch.as_tensor(rng.integers(1, S + 1, B), dtype=torch.int32, device=cuda)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_ref(q, kc, vc, lens)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_reduced_model_card_matches_cpu(cuda):
+    """Reduced Qwen2.5-32B in f32: the kernels on the card against the plain
+    versions on the CPU, from the same weights; one serving segment's
+    launches are one flash per layer and one decode per layer and step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["qwen2.5-32b"].reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)  # Module.to moves in place
+    assert cpu.device.type == "cpu" and card.device.type == "cuda"
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 16)))
+    outs = {}
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        lg, cache = M.prefill(cfg, p, {"tokens": toks.to(p.device)}, 24, torch.float32)
+        seq = [lg]
+        tok = toks[:, :1].to(p.device)
+        for _ in range(4):
+            lg, cache = M.decode_step(cfg, p, cache, tok)
+            seq.append(lg)
+        outs[name] = torch.cat(seq, 1).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=3e-4, rtol=0)
+    kernels.reset_launch_counts()
+    ex = serve_llm.build_executor(cfg, card, 5, b_max=4, prompt_len=16)
+    ex.run(toks.to(cuda))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["decode_attention"] == cfg.n_layers * 4

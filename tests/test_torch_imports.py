@@ -34,6 +34,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import sys\n"
         "import repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.serving, repro_torch.interop\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.launch.serve_llm, repro_torch.serving.kv_cache\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -69,8 +71,12 @@ def _entry_points():
         GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, ServiceModel, SMDPSpec,
         build_smdp, relative_value_iteration, solve,
     )
+    from repro_torch.configs import ARCHS
+    from repro_torch.interop import params_from_reference
     from repro_torch.kernels import ops
+    from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine, SMDPScheduler, simulate_compiled
+    from repro_torch.serving.kv_cache import KVCachePool
 
     svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
     spec = SMDPSpec(lam=0.5, service=svc, energy=GOOGLENET_P4_ENERGY,
@@ -78,6 +84,9 @@ def _entry_points():
     table = np.array([0, 1, 2, 3, 4])
     h = np.zeros(9)
     pm = np.full((3, 5), 0.2)
+    cfg = ARCHS["qwen2.5-32b"].reduced()
+    q = np.zeros((1, 4, 4, 16), np.float32)
+    kv = np.zeros((1, 4, 2, 16), np.float32)
     return {
         "solve": lambda: solve(spec),
         "relative_value_iteration": lambda: relative_value_iteration(build_smdp(spec)),
@@ -88,6 +97,12 @@ def _entry_points():
         "bellman_backup": lambda: ops.bellman_backup(h, pm, np.zeros((5, 3)), 0.0),
         "bellman_backup_batched": lambda: ops.bellman_backup_batched(
             h[None], pm[None], np.zeros((1, 5, 3)), np.zeros(1)),
+        "flash_attention": lambda: ops.flash_attention(q, kv, kv),
+        "decode_attention": lambda: ops.decode_attention(q[:, 0], kv, kv, [2]),
+        "init_params": lambda: M.init_params(cfg, torch.Generator()),
+        "init_cache": lambda: M.init_cache(cfg, 1, 8),
+        "KVCachePool": lambda: KVCachePool(cfg, 2, 8),
+        "params_from_reference": lambda: params_from_reference(cfg, {}),
     }
 
 
@@ -129,6 +144,20 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
             t0=0.0, horizon=float("inf"), max_eps=4, drain=True, b_max=4,
         )
     assert bellman.bellman_banded.launches == 0
+    from repro_torch.kernels import decode_attention, flash_attention
+
+    f = dict(dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention.flash_attention(torch.empty(1, 4, 4, 16, **f),
+                                        torch.empty(1, 4, 2, 16, **f),
+                                        torch.empty(1, 4, 2, 16, **f))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention.decode_attention(
+            torch.empty(1, 4, 16, **f), torch.empty(1, 4, 2, 16, **f),
+            torch.empty(1, 4, 2, 16, **f),
+            torch.empty(1, dtype=torch.int32, device="meta"))
+    assert flash_attention.flash_attention.launches == 0
+    assert decode_attention.decode_attention.launches == 0
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():
