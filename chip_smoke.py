@@ -19,6 +19,21 @@
    policy equals the float64 banded path on the card and the plain CPU
    path; the same at rho = 0.9; verify_backends (Python event loop vs the
    kernel) at the serving size on a Poisson trace.
+4b. Sweep path, counters zeroed just before and read just after:
+   sweep_solve with backup="pallas" (every lockstep backup of the f32
+   coarse phase one launch of the spec-batched Bellman kernel) over the
+   Fig. 5 grid (rho = 0.7, 12 weights), sweep_scaling's 17-point grid at
+   rho = 0.3 and 0.7, a rho = 0.9 grid from s_max 32 (regrow rounds) and
+   sweep_bank's 9 x 12 lambda x w2 bank, plus the tradeoff_sweep CLI.
+   Checks: every batched-RVI call launched the kernel; no guard rung
+   fired; every spec equals the scalar f64 solve() on the card (s_max;
+   g, W, P within rtol 1e-9; the policy, up to near-ties certified by the
+   oracle's own span residual, at most one per spec and four in all, each
+   of stationary mass <= 1e-12) and the banded sweep; the bank's table at
+   the Table-I point equals the main path's and serves 10^5 epochs
+   within 5% of the analytic W and P.  Holds the kernel against its plain
+   version and its scalar launches at every shape the sweep launched,
+   times it there and profiles one sweep's device busy share.
 5. Attention kernels: flash (prefill) and decode held against their plain
    versions at the reference test shapes (f32 at 2e-5, bf16 at 2e-2,
    softcap 50 included) and at the serving path's shapes in bf16 and f32,
@@ -62,6 +77,17 @@ BATCHED_TEST_SHAPES = [(1, 64, 9, 40), (3, 130, 33, 130), (4, 128, 17, 260)]
 PATH_SHAPE = (S_MAX + 1, B_MAX + 1, S_MAX + 1)  # (T, A, K) of the Table-I solve
 LARGE_SHAPE = (4097, 33, 4097)  # solve()'s max_s_max = 4096
 SWEEP_SPECS = 17  # a 17-point w2 grid: the batched kernel's sweep launch
+
+# --- the sweep path (examples/tradeoff_sweep.py, sweep_scaling's grid, a bank)
+FIG5_W2 = [0.0, 0.2, 0.5, 0.8, 1.3, 1.6, 2.2, 3.5, 5.0, 8.0, 15.0, 50.0]
+SCALING_W2 = [15.0 * i / 16 for i in range(17)]  # np.linspace(0, 15, 17)
+BANK_RHOS = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
+REGROW_W2, REGROW_S_MAX = [0.0, 1.6, 8.0], 32
+#: a sweep policy may differ from the scalar f64 oracle's only at certified
+#: near-ties: at most one state per spec and MAX_TIES over the phase, each
+#: of stationary mass <= TIE_MASS.  An H100 80GB HBM3 run showed 2 such
+#: states over the 157 specs, of mass 4.2e-18 and 2.7e-17 (PERF.md).
+MAX_TIES_PER_SPEC, MAX_TIES, TIE_MASS = 1, 4, 1e-12
 
 # --- the LLM serving path (examples/serve_llm.py on Qwen2.5-32B) ---------
 LLM_ARCH = "qwen2.5-32b"
@@ -142,6 +168,45 @@ def bellman_inputs(torch, np, rng, T, A, K, n=None):
             for x in (h, pmfs, tails, hso)]
 
 
+def batched_check(torch, np, rng, N, T, A, K):
+    """The spec-batched Bellman kernel at (N, T, A, K) against its plain
+    version (atol 1e-4, rtol 1e-5) and against N launches of the scalar
+    kernel (1e-5, 1e-6); returns the max abs error against the plain one."""
+    from repro_torch.kernels import bellman
+
+    args = bellman_inputs(torch, np, rng, T, A, K, n=N)
+    got = bellman.bellman_banded_batched(*args)
+    want = bellman.bellman_banded_batched_ref(*args)
+    torch.cuda.synchronize()
+    e = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+          f"bellman_banded_batched {N, T, A, K} vs plain: {e}")
+    for n in range(N):
+        one = bellman.bellman_banded(*(x[n] for x in args))
+        check(torch.allclose(got[n], one, atol=1e-5, rtol=1e-6),
+              f"bellman_banded_batched {N, T, A, K} spec {n} vs scalar")
+    log(f"bellman_banded_batched {N}x{T}x{A}x{K}: max_abs_err={e:.3e} "
+        "(1e-4/1e-5 vs plain, 1e-5/1e-6 vs scalar launches) ok")
+    return e
+
+
+def batched_row(torch, np, rng, N, T, A, K, reps=100):
+    """Times of the spec-batched Bellman kernel at (N, T, A, K): kernel,
+    plain version, the torch.bmm library call, and the bound."""
+    from repro_torch.kernels import bellman
+
+    h, p, t, hso = bellman_inputs(torch, np, rng, T, A, K, n=N)
+    ms = device_ms(torch, lambda: bellman.bellman_banded_batched(h, p, t, hso), reps)
+    plain = device_ms(torch, lambda: bellman.bellman_banded_batched_ref(h, p, t, hso), reps)
+    lib = device_ms(torch, lambda: torch.bmm(h.unfold(1, K, 1)[:, :T], p.transpose(1, 2)), reps)
+    b_ms, b_by = bound(4 * N * ((T + K) + A * K + 2 * T * A + 1),
+                       N * (2 * T * A * K + 2 * T * A), F32_FLOPS)
+    log(f"bellman_banded_batched {N}x{T}x{A}x{K}: kernel_ms={ms:.6f} plain_ms={plain:.6f} "
+        f"library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=[N, T, A, K])
+
+
 def kernel_phase(torch, np):
     from repro_torch.core import GOOGLENET_P4_LATENCY
     from repro_torch.core.policies import q_policy
@@ -186,36 +251,11 @@ def kernel_phase(torch, np):
     )
 
     # --- Bellman backup, spec-batched form ---------------------------------
-    err_b = 0.0
-    for N, T, A, K in BATCHED_TEST_SHAPES:
-        args = bellman_inputs(torch, np, rng, T, A, K, n=N)
-        got = bellman.bellman_banded_batched(*args)
-        want = bellman.bellman_banded_batched_ref(*args)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
-              f"bellman_banded_batched {N, T, A, K} vs plain: {e}")
-        for n in range(N):
-            one = bellman.bellman_banded(*(x[n] for x in args))
-            check(torch.allclose(got[n], one, atol=1e-5, rtol=1e-6),
-                  f"bellman_banded_batched {N, T, A, K} spec {n} vs scalar")
-        err_b = max(err_b, e)
-        log(f"bellman_banded_batched {N}x{T}x{A}x{K}: max_abs_err={e:.3e} "
-            "(1e-4/1e-5 vs plain, 1e-5/1e-6 vs scalar launches) ok")
-    N, (T, A, K) = SWEEP_SPECS, PATH_SHAPE
-    h, p, t, hso = bellman_inputs(torch, np, rng, T, A, K, n=N)
-    ms = device_ms(torch, lambda: bellman.bellman_banded_batched(h, p, t, hso), 100)
-    plain = device_ms(torch, lambda: bellman.bellman_banded_batched_ref(h, p, t, hso), 100)
-    lib = device_ms(torch, lambda: torch.bmm(h.unfold(1, K, 1)[:, :T], p.transpose(1, 2)), 100)
-    b_ms, b_by = bound(4 * N * ((T + K) + A * K + 2 * T * A + 1),
-                       N * (2 * T * A * K + 2 * T * A), F32_FLOPS)
-    log(f"bellman_banded_batched {N}x{T}x{A}x{K}: kernel_ms={ms:.6f} plain_ms={plain:.6f} "
-        f"library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by})")
+    err_b = max(batched_check(torch, np, rng, *shape) for shape in BATCHED_TEST_SHAPES)
     rows["bellman_banded_batched"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bellman.cu",
         replaces="src/repro/kernels/bellman.py:131", max_abs_err=err_b,
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        shape=[N, T, A, K],
+        **batched_row(torch, np, rng, SWEEP_SPECS, *PATH_SHAPE),
     )
 
     # --- serving event kernel ----------------------------------------------
@@ -304,39 +344,51 @@ def serve_scan_row(torch, np, table, row):
     )
 
 
-def profile_solve(torch, spec, rvi_s):
-    """Device time of one warm kernel solve, by kernel name (torch.profiler).
-
-    The busy share divides the summed device time by ``rvi_s``, the RVI
-    wall time of the same solve measured without the profiler."""
+def profile_busy(torch, fn):
+    """Device time of one call of ``fn`` under torch.profiler: (total ms,
+    kernel launches, {kernel name: (ms, calls)}); (None, 0, {}) if the
+    profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import solve
-
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        res = solve(spec, backup="pallas", device="cuda")
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0)
 
-    # kernel-level rows only: an aten op's device time is its kernels' again
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    total_us = sum(dev_us(e) for e in rows)
     if not rows:
+        return None, 0, {}
+    return (sum(dev_us(e) for e in rows) / 1e3, sum(e.count for e in rows),
+            {e.key: (dev_us(e) / 1e3, e.count) for e in rows})
+
+
+def profile_solve(torch, spec, rvi_s):
+    """Device time of one warm kernel solve, by kernel name (torch.profiler).
+
+    The busy share divides the summed device time by ``rvi_s``, the RVI
+    wall time of the same solve measured without the profiler."""
+    from repro_torch.core import solve
+
+    out = {}
+    total_ms, launches, by_name = profile_busy(
+        torch, lambda: out.update(res=solve(spec, backup="pallas", device="cuda")))
+    if total_ms is None:
         log("profile solve: the profiler recorded no device time (not measured)")
         return
-    backups = res.rvi.iterations + 1
-    log(f"profile solve rho={RHO}: {backups} backups, {sum(e.count for e in rows)} "
+    backups = out["res"].rvi.iterations + 1
+    log(f"profile solve rho={RHO}: {backups} backups, {launches} "
         f"kernel launches, device busy "
-        f"{total_us / 1e3:.3f} ms = {total_us / 1e3 / backups:.4f} ms per backup; "
+        f"{total_ms:.3f} ms = {total_ms / backups:.4f} ms per backup; "
         f"busy share of the unprofiled RVI wall time "
-        f"{total_us / 1e6 / rvi_s:.3f}")
-    for e in sorted(rows, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+        f"{total_ms / 1e3 / rvi_s:.3f}")
+    for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {ms:9.3f} ms  {cnt:6d} calls  {key[:90]}")
 
 
 def table1_spec(rho):
@@ -374,6 +426,260 @@ def solve_checked(np, kernels, rho):
         f"(banded f64 on the card: {banded.rvi.iterations} iterations; "
         f"kernel launches={launched}); policy == banded == CPU plain")
     return res, wall
+
+
+# ---------------------------------------------------------------------------
+# The sweep path: sweep_solve -> batched RVI on the spec-batched kernel ->
+# evaluate_policy_batched -> SMDPSchedulerBank -> compiled serve
+# ---------------------------------------------------------------------------
+
+
+def sweep_phase(torch, np, kernels, rows, main_res, energy):
+    """The three sweep grids on the kernel path, counters zeroed just
+    before and read just after, held against the scalar f64 oracle and the
+    banded sweep on the card; then the bank serves the Table-I point."""
+    import contextlib
+    import dataclasses
+    import io
+    from unittest import mock
+
+    from repro_torch.core import rvi, solve
+    from repro_torch.core import sweep as sw
+    from repro_torch.launch import tradeoff_sweep
+    from repro_torch.serving import ServingEngine
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 is on: the f32 coarse phase's matmuls must run in IEEE f32")
+
+    def grid(rho, w2s):
+        return [dataclasses.replace(table1_spec(rho), w2=float(w)) for w in w2s]
+
+    grids = {"fig5 rho=0.7": grid(0.7, FIG5_W2),
+             "scaling rho=0.3": grid(0.3, SCALING_W2),
+             "scaling rho=0.7": grid(0.7, SCALING_W2),
+             # the bank stays at s_max 128: this grid runs the regrow rounds
+             "regrow rho=0.9": [dataclasses.replace(sp, s_max=REGROW_S_MAX)
+                                for sp in grid(0.9, REGROW_W2)]}
+    bank_base = table1_spec(0.7)
+    lams = [table1_spec(r).lam for r in BANK_RHOS]
+    bank_specs = [dataclasses.replace(bank_base, lam=lam, w2=float(w))
+                  for lam in lams for w in FIG5_W2]
+    calls, solved = [], []
+
+    def count_rvi(fn):
+        def wrapped(batch, *a, **kw):
+            before = kernels.launch_counts()["bellman_banded_batched"]
+            out = fn(batch, *a, **kw)
+            calls.append(dict(
+                n=batch.n_specs, T=batch.specs[0].s_max + 1, A=batch.n_actions,
+                K=rvi.trimmed_band(batch.pmfs_banded, tol=1e-8),
+                launches=kernels.launch_counts()["bellman_banded_batched"] - before,
+                iters=int(np.max(out.iterations)), rvi_s=out.wall_time_s,
+                accel=kw.get("accel"), backup=kw.get("backup")))
+            return out
+        return wrapped
+
+    def keep_results(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            solved.append(out)
+            return out
+        return wrapped
+
+    def run(backup):
+        """Every grid through the user entry points; per grid: results (in
+        input order), report, wall, and the batched-RVI calls it made."""
+        out = {}
+        for name, specs in list(grids.items()) + [("bank", None)]:
+            sink, first = [], len(calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if specs is None:
+                bank = sw.sweep_bank(bank_base, lams, FIG5_W2, backup=backup,
+                                     report_sink=sink, device="cuda")
+                res = solved[-1]
+            else:
+                res = sw.sweep_solve(specs, backup=backup, report_sink=sink, device="cuda")
+            torch.cuda.synchronize()
+            out[name] = dict(res=res, report=sink[0], wall=time.perf_counter() - t0,
+                             calls=calls[first:], bank=bank if specs is None else None)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(sw, "relative_value_iteration_batched",
+                           count_rvi(sw.relative_value_iteration_batched)), \
+            mock.patch.object(sw, "sweep_solve", keep_results(sw.sweep_solve)):
+        # warm-up: lazy CUDA library init (cuSOLVER for the MPI polish)
+        sw.sweep_solve(grids["fig5 rho=0.7"], backup="pallas", device="cuda")
+        calls.clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        kern = run("pallas")
+        grids_launched = kernels.launch_counts()["bellman_banded_batched"]
+        cli, first = io.StringIO(), len(calls)
+        with contextlib.redirect_stdout(cli):
+            points = tradeoff_sweep.main(["--backup", "pallas", "--device", "cuda"])
+        counts = kernels.launch_counts()
+        cli_calls = calls[first:]
+        phase_s = time.perf_counter() - t0
+        n_calls = len(calls)
+        banded = run("banded")
+    cli_launched = counts["bellman_banded_batched"] - grids_launched
+    log(f"sweep path launches: {counts} ({n_calls} batched-RVI calls, "
+        f"{phase_s:.3f} s): the grids {grids_launched}, the tradeoff_sweep CLI "
+        f"{cli_launched} in {len(cli_calls)} calls; peak memory of the sweep phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(counts["bellman_banded_batched"] > 0, "the sweep never launched the batched kernel")
+    check(cli_calls and all(c["launches"] >= 1 for c in cli_calls),
+          f"tradeoff_sweep CLI: batched-RVI calls without a kernel launch: {cli_calls}")
+    for name, g in kern.items():
+        rep = g["report"]
+        check(rep.healthy.all() and not rep.any_fired,
+              f"{name}: guard ladder fired {rep.rungs}, quarantined {rep.quarantined}")
+        bad = [c for c in g["calls"] if c["launches"] < 1]
+        check(not bad, f"{name}: batched-RVI calls without a kernel launch: {bad}")
+        launched = sum(c["launches"] for c in g["calls"])
+        rvi_s = sum(c["rvi_s"] for c in g["calls"])
+        log(f"sweep {name}: {len(g['res'])} specs wall_s={g['wall']:.3f} rvi_s={rvi_s:.3f} "
+            f"kernel backups={launched} rvi ms per kernel backup="
+            f"{1e3 * rvi_s / launched:.4f}; calls (N, T, K, accel, launches, iterations): "
+            + ", ".join(f"({c['n']}, {c['T']}, {c['K']}, {c['accel']}, {c['launches']}, "
+                        f"{c['iters']})" for c in g["calls"])
+            + "; no rung fired")
+    cli_rows = [ln for ln in cli.getvalue().splitlines() if ln.startswith("smdp,")]
+    fig5 = kern["fig5 rho=0.7"]["res"]
+    check(len(cli_rows) == len(fig5) and all(
+        np.array_equal(p.policy, r.policy) and p.w_bar == r.eval.w_bar
+        for p, r in zip(points, fig5)), "tradeoff_sweep CLI vs the Fig. 5 sweep")
+    log("tradeoff_sweep --backup pallas (Fig. 5 CSV): " + " | ".join(cli_rows))
+
+    # --- every spec against the scalar f64 oracle, and the banded sweep ---
+    def tie_gaps(o, policy):
+        """States where ``policy`` differs from the oracle's, and the
+        Q-gap of the two actions there under the oracle's own h."""
+        d = np.flatnonzero(policy != o.policy)
+        if not d.size:
+            return d, np.zeros(0)
+        mdp = o.mdp
+        pm, tl, sc = rvi.make_banded_inputs(mdp, device=torch.device("cuda"))
+        q = rvi.banded_backup(torch.as_tensor(mdp.c_tilde, device="cuda"), pm, tl, sc,
+                              o.spec.s_max, torch.as_tensor(o.rvi.h, device="cuda"))
+        q = q.cpu().numpy()
+        return d, q[d, policy[d]] - q[d, o.policy[d]]
+
+    oracles, ties = {}, []
+    t0 = time.perf_counter()
+    n_checked = 0
+    for name, g in kern.items():
+        specs = bank_specs if name == "bank" else grids[name]
+        for sp, r, b in zip(specs, g["res"], banded[name]["res"]):
+            key = (sp.lam, sp.w2, sp.s_max)
+            if key not in oracles:
+                oracles[key] = solve(sp, device="cuda")
+            o = oracles[key]
+            what = f"{name} rho={sp.rho:.2f} w2={sp.w2}"
+            check(r.spec.s_max == o.spec.s_max,
+                  f"{what}: s_max {r.spec.s_max} vs oracle {o.spec.s_max}")
+            check(np.array_equal(r.policy, b.policy), f"{what}: policy vs banded sweep")
+            # equal to the oracle, or a near-tie certified by the oracle's
+            # own residual: the two actions' Q under its h differ by less
+            # than its final span, at a state of negligible stationary mass
+            # (the reference's sweep_bank shows the same ties against its
+            # own solve())
+            states, gaps = tie_gaps(o, r.policy)
+            mass = np.asarray(o.eval.mu)[states]
+            check(len(states) <= MAX_TIES_PER_SPEC and bool(np.all(gaps <= o.rvi.span))
+                  and bool(np.all(mass <= TIE_MASS)),
+                  f"{what}: policy vs oracle at states {states}, Q-gaps {gaps}, "
+                  f"stationary mass {mass}")
+            ties += [(what, int(st), int(r.policy[st]), int(o.policy[st]), float(gp),
+                      float(m)) for st, gp, m in zip(states, gaps, mass)]
+            for f in ("g", "w_bar", "p_bar"):
+                want = getattr(o.eval, f)
+                check(abs(getattr(r.eval, f) - want) <= 1e-9 * abs(want),
+                      f"{what}: eval.{f} vs oracle")
+            n_checked += 1
+    check(len(ties) <= MAX_TIES, f"{len(ties)} near-tie states against the oracle: {ties}")
+    grown = sorted({(round(o.spec.rho, 2), key[2], o.spec.s_max)
+                    for key, o in oracles.items() if o.spec.s_max != key[2]})
+    log(f"sweep oracle: {n_checked} specs ({len(oracles)} distinct) against the scalar f64 "
+        f"solve() on the card: s_max equal, g / W / P within rtol 1e-9, policies equal to "
+        f"the banded sweep's and to the oracle's except {len(ties)} certified near-tie "
+        f"state(s) (name, state, sweep action, oracle action, Q-gap, stationary mass): "
+        f"{ties}; regrown specs (rho, start s_max, final s_max): {grown}; oracle wall "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # --- the bank serves the Table-I point ----------------------------------
+    bank = kern["bank"]["bank"]
+    lam7 = table1_spec(RHO).lam
+    sch = bank.scheduler(lam=lam7, w2=W2)
+    check(np.array_equal(sch.table, main_res.action_table()),
+          "bank table at (lambda(0.7), 1.6) vs the main path's policy")
+    eng = ServingEngine(sch, lam=lam7, b_max=B_MAX, service=main_res.spec.service,
+                        energy_table=energy, seed=0, device="cuda")
+    before = kernels.launch_counts()["serve_scan"]
+    t0 = time.perf_counter()
+    rep = eng.run(N_EPOCHS, backend="compiled")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(kernels.launch_counts()["serve_scan"] > before, "bank serve skipped the event kernel")
+    ev = main_res.eval
+    check(abs(rep.latencies.mean() - ev.w_bar) < 0.05 * ev.w_bar
+          and abs(rep.power - ev.p_bar) < 0.05 * ev.p_bar, "bank serve far from analytic W, P")
+    log(f"bank ({len(bank)} tables) -> scheduler(lam={lam7:.6f}, w2={W2}) -> compiled serve "
+        f"{N_EPOCHS} epochs: W={rep.latencies.mean():.4f} ms (analytic {ev.w_bar:.4f}) "
+        f"P={rep.power:.4f} W (analytic {ev.p_bar:.4f}) wall_s={wall:.3f}")
+
+    # --- busy share of one warm sweep, and the kernel at the path's shapes --
+    specs07 = grids["scaling rho=0.7"]
+
+    def sweep07():
+        sw.sweep_solve(specs07, backup="pallas", device="cuda")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep07()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, n_k, by_name = profile_busy(torch, sweep07)
+    if dev_ms is None:
+        log("profile sweep: the profiler recorded no device time (not measured)")
+    else:
+        bell = [v for k, v in by_name.items() if "bellman" in k]
+        lu = sum(ms for k, (ms, _) in by_name.items()
+                 if any(w in k for w in ("getrf", "getf2", "laswp", "trsm", "pivinfo",
+                                         "displace_pointers", "getrs")))
+        log(f"profile sweep scaling rho=0.7 (17 specs, pallas): unprofiled wall_ms="
+            f"{wall_ms:.3f}; device busy {dev_ms:.3f} ms in {n_k} kernels, busy share "
+            f"{dev_ms / wall_ms:.4f}; Bellman kernel {sum(v[0] for v in bell):.3f} ms in "
+            f"{sum(v[1] for v in bell)} launches; batched LU (MPI polish and exact gain) "
+            f"{lu:.3f} ms")
+        for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            log(f"  {ms:9.3f} ms  {cnt:6d} calls  {key[:80]}")
+    rng = np.random.default_rng(5)
+    path_shapes = sorted({(c["n"], c["T"], c["A"], c["K"])
+                          for g in kern.values() for c in g["calls"]} |
+                         {(c["n"], c["T"], c["A"], c["K"]) for c in cli_calls})
+    err_path = max(batched_check(torch, np, rng, *shape) for shape in path_shapes)
+    path = max((c for c in kern["scaling rho=0.7"]["calls"]),
+               key=lambda c: (c["n"], c["T"], c["A"], c["K"]))
+    biggest = max((c for c in kern["bank"]["calls"]),
+                  key=lambda c: (c["n"] * c["T"] * c["K"], c["n"]))
+    row = rows["bellman_banded_batched"]
+    old = {k: row.pop(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "shape")}
+    row.update(batched_row(torch, np, rng, path["n"], path["T"], path["A"], path["K"], 200))
+    row["other_shapes"] = [
+        batched_row(torch, np, rng, biggest["n"], biggest["T"], biggest["A"], biggest["K"]),
+        old]
+    row["max_abs_err"] = max(row["max_abs_err"], err_path)
+    row["max_abs_err_path_shapes"] = err_path
+    row["path_shapes_checked"] = [list(sh) for sh in path_shapes]
+    row["launches"] = counts["bellman_banded_batched"]
+    row["launches_by_grid"] = {name: sum(c["launches"] for c in g["calls"])
+                               for name, g in kern.items()}
+    row["launches_by_grid"]["tradeoff_sweep CLI"] = cli_launched
+    row["sweep_wall_s"] = {name: round(g["wall"], 6) for name, g in kern.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -591,8 +897,6 @@ def _backups_of(solution, device):
 def profile_decode(torch, M, cfg, params, B):
     """Device time of greedy decode steps at batch B, by kernel (torch.profiler),
     against their wall time measured without the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     tokens = torch.randint(0, cfg.vocab_size, (B, LLM_PROMPT), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
     n = 5
@@ -613,41 +917,31 @@ def profile_decode(torch, M, cfg, params, B):
     t0 = time.perf_counter()
     steps(cache, tok)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        steps(cache, tok)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    if not rows:
+    dev_ms, launches, by_name = profile_busy(torch, lambda: steps(cache, tok))
+    if dev_ms is None:
         log("profile decode: the profiler recorded no device time (not measured)")
         return
-    total = sum(dev_us(e) for e in rows) / 1e3 / n
+    total = dev_ms / n
     groups = {"decode_attention kernel": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
-    for e in rows:
-        key = e.key.lower()
-        if "decode_kernel" in key:
+    for key, (ms, _) in by_name.items():
+        low = key.lower()
+        if "decode_kernel" in low:
             g = "decode_attention kernel"
-        elif any(w in key for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
+        elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
             g = "matmul (cuBLAS)"
         else:
             g = "other"
-        groups[g] += dev_us(e) / 1e3 / n
+        groups[g] += ms / n
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    launches = sum(e.count for e in rows) / n
     log(f"profile decode step b={B}: prefill of {B} x {LLM_PROMPT} tokens "
         f"wall_ms={prefill_ms:.3f}; decode wall_ms={wall_ms:.3f} per step, device busy "
         f"{total:.3f} ms per step (busy share {total / wall_ms:.3f}) in "
-        f"{launches:.0f} kernels per step; weight-read "
+        f"{launches / n:.0f} kernels per step; weight-read "
         f"bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
         f"({weight_bytes / 2**30:.2f} GiB at 3.35 TB/s); "
         + "; ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
-    for e in sorted(rows, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step {e.count // n:5d} calls/step  {e.key[:90]}")
+    for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {ms / n:9.4f} ms/step {cnt // n:5d} calls/step  {key[:90]}")
 
 
 def llm_path(torch, np, kernels, rows):
@@ -799,6 +1093,9 @@ def main():
     log(f"verify_backends ({out['n_decisions']} batches, Poisson trace, {N_EPOCHS} epochs): "
         f"python loop == event kernel, max latency err {out['max_latency_err']:.3e} "
         f"wall_s={time.perf_counter() - t0:.2f}")
+
+    # --- the sweep path: batched solves on the spec-batched kernel, a bank --
+    sweep_phase(torch, np, kernels, rows, res, energy)
 
     # --- the attention kernels, the model checks and the LLM serving path ---
     attention_phase(torch, np, rows)

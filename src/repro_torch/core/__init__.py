@@ -2,8 +2,9 @@
 
 The SMDP construction, the benchmark policies and the policy evaluators
 are numpy (copies of the reference's numpy-only modules); the relative
-value iteration runs on torch tensors, its banded Bellman core on the
-hand-written CUDA kernel with ``backup="pallas"``.
+value iteration -- scalar, batched and accelerated -- runs on torch
+tensors, its banded Bellman core on the hand-written CUDA kernels with
+``backup="pallas"``.  sweep_solve batches a spec grid through it.
 """
 from .service_models import (  # noqa: F401
     AffineProfile,
@@ -24,7 +25,13 @@ from .smdp import (  # noqa: F401
     build_smdp,
     build_smdp_batched,
 )
-from .rvi import RVIResult, relative_value_iteration  # noqa: F401
+from .rvi import (  # noqa: F401
+    BatchedRVIResult,
+    RVIResult,
+    SolveReport,
+    relative_value_iteration,
+    relative_value_iteration_batched,
+)
 from .policies import (  # noqa: F401
     static_policy,
     greedy_policy,
@@ -33,3 +40,4 @@ from .policies import (  # noqa: F401
 )
 from .evaluate import PolicyEval, evaluate_policy  # noqa: F401
 from .solve import SolveResult, solve  # noqa: F401
+from .sweep import pad_specs, sweep_bank, sweep_solve  # noqa: F401

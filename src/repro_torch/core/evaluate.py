@@ -8,16 +8,24 @@ the stationary distribution of the induced semi-Markov chain and derive
   W_bar  = average request response time  (w1-term with w1 = 1)
   P_bar  = average power                  (w2-term with w2 = 1)
 
-The numpy evaluators of a *solved* policy on the physical chain, copied
-from the reference.  The batched evaluators and the linear-solve polish
-of the accelerated RVI come with the batched slice of the port.
+Two families of routines live here:
+
+  * numpy evaluation of a *solved* policy on the physical chain
+    (stationary distribution -> g / Delta / W_bar / P_bar), copied from
+    the reference, the spec-batched forms included;
+  * torch evaluation of the *discretized* MDP under frozen policies
+    (policy_matrix_banded / policy_eval_linear) over a leading spec axis
+    -- the linear-solve polish of the accelerated batched RVI
+    (rvi accel="mpi").  Both are dense-free: the (S, A, S) tensor is never
+    materialized, only the (S, S) matrix of each frozen policy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .smdp import BatchedSMDP, TruncatedSMDP
 
@@ -140,3 +148,141 @@ def evaluate_policy_banded(
         batch.c_hold[i, rows, acts],
         batch.c_energy[i, rows, acts],
     )
+
+
+def stationary_distribution_batched(p: np.ndarray, tol: float = 1e-12):
+    """Batched mu P = mu, sum(mu) = 1: one LAPACK call for the whole stack.
+
+    Returns (mu (N, S), ok (N,) bool); rows with ``ok`` False (singular or
+    degenerate chains) carry no meaning and must be re-solved per spec —
+    evaluate_policy_batched falls back to the scalar path for those.
+    """
+    n = p.shape[-1]
+    a = np.swapaxes(p, -1, -2) - np.eye(n)[None]
+    a[:, -1, :] = 1.0
+    b = np.zeros((p.shape[0], n))
+    b[:, -1] = 1.0
+    try:
+        mu = np.linalg.solve(a, b[..., None])[..., 0]
+    except np.linalg.LinAlgError:
+        # one singular matrix poisons the batched call; mark all for retry
+        return np.zeros_like(b), np.zeros(p.shape[0], dtype=bool)
+    ok = np.isfinite(mu).all(axis=-1)
+    mu = np.clip(mu, 0.0, None)
+    s = mu.sum(axis=-1)
+    ok &= s > tol
+    mu = mu / np.where(s > tol, s, 1.0)[:, None]
+    return mu, ok
+
+
+def _finish_from_batch(
+    batch: BatchedSMDP, i: int, acts: np.ndarray, mu: np.ndarray
+) -> PolicyEval:
+    rows = np.arange(batch.n_states)
+    return _finish_eval(
+        mu,
+        acts,
+        batch.y[i, rows, acts],
+        batch.c_hat[i, rows, acts],
+        batch.c_hold[i, rows, acts],
+        batch.c_energy[i, rows, acts],
+    )
+
+
+def evaluate_policy_batched(
+    batch: BatchedSMDP, policies: Sequence[np.ndarray]
+) -> List[PolicyEval]:
+    """Per-spec policy evaluation across a BatchedSMDP (aligned with specs).
+
+    The stationary distributions of the whole stack come from ONE batched
+    linear solve; specs whose batched solve degenerates fall back to the
+    scalar path, preserving its error behaviour.
+    """
+    if len(policies) != batch.n_specs:
+        raise ValueError(f"{len(policies)} policies for {batch.n_specs} specs")
+    acts = np.asarray(policies, dtype=np.int64)
+    for i in range(batch.n_specs):
+        _check_feasible(batch.feasible[i], acts[i])
+    p = batch.policy_transitions_batched(acts)
+    mu, ok = stationary_distribution_batched(p)
+    return [
+        _finish_from_batch(batch, i, acts[i], mu[i])
+        if ok[i]
+        else evaluate_policy_banded(batch, i, acts[i])
+        for i in range(batch.n_specs)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Dense-free policy evaluation of the *discretized* MDP (m_tilde under a
+# frozen policy), over a leading spec axis: the building blocks of the
+# modified-policy-iteration polish in rvi.py.  They run on the device of
+# their inputs, in their dtype.
+# ---------------------------------------------------------------------------
+
+
+def policy_matrix_banded(pmfs, tails, scale, s_max: int, policy):
+    """(N, S, S) discretized transition matrices m_tilde(. | s, pi_n(s)).
+
+    Built from the banded data only (arrival pmfs possibly trimmed to a
+    band narrower than s_max + 1, overflow tails, eta / y scale) — the same
+    inputs as rvi.banded_backup, and mathematically the rows of
+    smdp._dense_m_tilde selected by ``policy``.  The trimmed in-band mass
+    (< rvi.BAND_TOL per row) is the only deviation from row-stochasticity.
+
+    pmfs: (N, A, Kb); tails: (N, A, s_max+1); scale: (N, S, A);
+    policy: (N, S) int64.  The reference builds one spec per call under
+    vmap; here the spec axis is written out.
+    """
+    N, S, _ = scale.shape
+    Kb = pmfs.shape[2]
+    dev = scale.device
+    s_o = S - 1
+    s_idx = torch.arange(S, device=dev)
+    s_val = torch.clamp(s_idx, max=s_max)
+    a = policy
+    sc = torch.gather(scale, 2, a[..., None])[..., 0]  # (N, S)
+    serve = a >= 1
+    base = torch.clamp(s_val[None, :] - a, 0, s_max)  # (N, S)
+    # serve rows: window pmf over columns 0..s_max plus tail mass to S_o
+    k = torch.arange(s_max + 1, device=dev)[None, None, :] - base[..., None]
+    in_band = (k >= 0) & (k < Kb)
+    n_idx = torch.arange(N, device=dev)[:, None]
+    window = torch.where(
+        in_band & serve[..., None],
+        pmfs[n_idx[..., None], a[..., None], torch.clamp(k, 0, Kb - 1)],
+        0.0,
+    )  # (N, S, s_max+1)
+    m_hat = torch.zeros((N, S, S), dtype=scale.dtype, device=dev)
+    m_hat[:, :, : s_max + 1] = window
+    m_hat[:, :, s_o] += torch.where(serve, tails[n_idx, a, base], 0.0)
+    # wait rows: deterministic +1 (S_o self-loops)
+    nxt = torch.where(s_idx < s_max, s_idx + 1, s_o)
+    wait_rows = torch.zeros((S, S), dtype=scale.dtype, device=dev)
+    wait_rows[s_idx, nxt] = 1.0
+    m_hat = torch.where(serve[..., None], m_hat, wait_rows)
+    # discretize (eq. 23): scale towards eta-uniformization
+    return sc[..., None] * m_hat + torch.diag_embed(1.0 - sc)
+
+
+def policy_eval_linear(c_pi, m_pi, ref_state: int = 0):
+    """Exact average-cost evaluation of frozen policies: solve for (g, h).
+
+    The gauge-fixed evaluation equations  h + g*1 = c_pi + M_pi h,
+    h[ref] = 0  collapse to one (S, S) linear system per spec by storing g
+    in the slot of the pinned unknown: A = (I - M_pi) with column
+    ``ref_state`` replaced by ones.  Unichain policies give a nonsingular
+    A; a multichain (or otherwise degenerate) policy surfaces as
+    non-finite output, which the MPI safeguard in rvi.py rejects (a
+    singular A is reported by the LU, not raised, and its row set to NaN).
+
+    c_pi: (N, S); m_pi: (N, S, S).  Returns g (N,), h (N, S).
+    """
+    S = c_pi.shape[-1]
+    a = torch.eye(S, dtype=c_pi.dtype, device=c_pi.device) - m_pi
+    a[..., ref_state] = 1.0
+    x, info = torch.linalg.solve_ex(a, c_pi[..., None])
+    x = torch.where((info == 0)[..., None], x[..., 0], float("nan"))
+    g = x[..., ref_state].clone()
+    x[..., ref_state] = 0.0
+    return g, x

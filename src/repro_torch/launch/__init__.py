@@ -1,1 +1,2 @@
-"""Entry points of the port (counterpart of repro.launch): ``serve_llm``."""
+"""Entry points of the port (counterpart of repro.launch and examples/):
+``serve_llm`` and ``tradeoff_sweep``."""

@@ -23,6 +23,7 @@ from .scheduler import (  # noqa: F401
     OraclePhaseScheduler,
     QPolicyScheduler,
     SMDPScheduler,
+    SMDPSchedulerBank,
     StaticScheduler,
     as_action_table,
 )

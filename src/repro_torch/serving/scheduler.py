@@ -11,13 +11,19 @@ one row per modulating phase; OraclePhaseScheduler selects the row from
 the true switch trace, and its ``phase_at`` hands the same information to
 the compiled lane as a per-arrival phase array.
 
-Copied from the reference.  The scheduler banks, the online
-AdaptiveController and the belief-filtered scheduler come with a later
-slice of the port.
+A solved sweep (core.sweep.sweep_solve over a lambda / w2 / service-profile
+grid) turns into an SMDPSchedulerBank via SMDPScheduler.bank() or
+core.sweep.sweep_bank(): a keyed table bank the serving layer hot-swaps
+(``retune``) when traffic, the energy-price weight, or the active service
+profile shifts, without re-solving online; ``stacked()`` turns a bank into
+one (P, L) array.
+
+Copied from the reference.  The online AdaptiveController and the
+belief-filtered scheduler come with a later slice of the port.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -46,6 +52,7 @@ class SMDPScheduler(Scheduler):
 
     def __init__(self, solution):
         self._set_table(solution.action_table())
+        self._bank: Optional["SMDPSchedulerBank"] = None
         self.phase = 0
 
     def _set_table(self, table: np.ndarray) -> None:
@@ -59,8 +66,40 @@ class SMDPScheduler(Scheduler):
     def from_table(cls, table: np.ndarray) -> "SMDPScheduler":
         obj = cls.__new__(cls)
         obj._set_table(table)
+        obj._bank = None
         obj.phase = 0
         return obj
+
+    @classmethod
+    def bank(
+        cls,
+        solutions: Sequence,
+        keys: Optional[Sequence[Tuple[float, ...]]] = None,
+        key_names: Tuple[str, ...] = ("lam", "w2"),
+    ) -> "SMDPSchedulerBank":
+        """Turn a solved sweep into a hot-swappable table bank.
+
+        By default each solution is keyed by its spec's (lam, w2); pass
+        explicit ``keys`` (tuples aligned with ``key_names``) to key on
+        other sweep axes (e.g. service profile id).
+        """
+        if keys is None:
+            keys = [
+                tuple(float(getattr(sol.spec, n)) for n in key_names)
+                for sol in solutions
+            ]
+        if len(keys) != len(solutions):
+            raise ValueError("keys and solutions must align")
+        tables = {}
+        for key, sol in zip(keys, solutions):
+            k = tuple(float(v) for v in key)
+            if k in tables:
+                raise ValueError(
+                    f"duplicate bank key {k}: the sweep varies something "
+                    f"{key_names} does not capture — pass explicit keys"
+                )
+            tables[k] = sol.action_table()
+        return SMDPSchedulerBank(tables, key_names)
 
     def decide(self, queue_len: int) -> int:
         table = self.table
@@ -81,11 +120,140 @@ class SMDPScheduler(Scheduler):
         """Per-arrival phases for the compiled lane: the pinned phase."""
         return np.full(len(times), int(self.phase), dtype=np.int64)
 
+    def swap_table(self, table: np.ndarray) -> None:
+        """Hot-swap the action table (atomic from decide()'s point of view).
+
+        The phase pointer survives the swap.
+        """
+        self._set_table(table)
+
+    def retune(self, **coords: float) -> Tuple[float, ...]:
+        """Re-point at the bank entry nearest the observed operating point.
+
+        Returns the selected key.  Requires the scheduler to have been
+        minted by an SMDPSchedulerBank.
+        """
+        if self._bank is None:
+            raise RuntimeError("scheduler has no attached bank; use bank()")
+        key = self._bank.nearest(**coords)
+        self.swap_table(self._bank.tables[key])
+        return key
+
     def snapshot(self) -> dict:
         return {"phase": self.phase}
 
     def restore(self, state: dict) -> None:
         self.phase = int(state.get("phase", 0))
+
+
+class SMDPSchedulerBank:
+    """Keyed bank of solved SMDP action tables (one sweep, many regimes).
+
+    ``tables`` maps key tuples (aligned with ``key_names``, e.g. (lam, w2))
+    to dense action tables.  ``nearest`` picks the entry closest to an
+    observed operating point so the serving layer can hot-swap policies as
+    traffic or the energy price shifts, without re-solving online.
+    """
+
+    def __init__(
+        self,
+        tables: Dict[Tuple[float, ...], np.ndarray],
+        key_names: Tuple[str, ...] = ("lam", "w2"),
+    ):
+        if not tables:
+            raise ValueError("empty scheduler bank")
+        self.key_names = tuple(key_names)
+        self.tables = {
+            tuple(float(v) for v in k): np.asarray(t, dtype=np.int64)
+            for k, t in tables.items()
+        }
+        for key, t in self.tables.items():
+            if len(key) != len(self.key_names):
+                raise ValueError(f"key {key} does not match {self.key_names}")
+            if t.ndim not in (1, 2):
+                raise ValueError(f"table for {key} must be 1-D or (K, L)")
+        ndims = {t.ndim for t in self.tables.values()}
+        phase_counts = {
+            t.shape[0] for t in self.tables.values() if t.ndim == 2
+        }
+        if len(ndims) > 1 or len(phase_counts) > 1:
+            raise ValueError(
+                "bank tables must agree on the phase axis (all 1-D, or all "
+                f"(K, L) with one K); got ndims {ndims}, K {phase_counts}"
+            )
+        self.n_phases = phase_counts.pop() if phase_counts else 1
+        # the key set is immutable after construction: cache the sorted key
+        # list and point matrix once, so nearest()/distance() stay cheap
+        self._sorted_keys = sorted(self.tables)
+        self._key_index = {k: i for i, k in enumerate(self._sorted_keys)}
+        self._pts = np.array(self._sorted_keys, dtype=np.float64)
+        # per-dimension scale for the nearest-key metric (range, not |max|,
+        # so sweeps over a narrow band around a large value still resolve)
+        span = self._pts.max(axis=0) - self._pts.min(axis=0)
+        self._scales = np.where(span > 0, span, 1.0)
+
+    def __len__(self) -> int:
+        return len(self.tables)
+
+    def keys(self):
+        return list(self._sorted_keys)
+
+    def distances(self, **coords: float) -> np.ndarray:
+        """Scaled distance of every key (in keys() order) to the point."""
+        dims, target = self._resolve_coords(coords)
+        pts = self._pts[:, dims]
+        return np.linalg.norm(
+            (pts - target[None, :]) / self._scales[dims], axis=1
+        )
+
+    def nearest(self, **coords: float) -> Tuple[float, ...]:
+        """Key closest to the given operating point (subset of dims OK)."""
+        return self._sorted_keys[int(np.argmin(self.distances(**coords)))]
+
+    def distance(self, key: Tuple[float, ...], **coords: float) -> float:
+        """Scaled distance of a bank key to an operating point."""
+        key = tuple(float(v) for v in key)
+        if key not in self.tables:
+            raise KeyError(f"{key} not in bank")
+        return float(self.distances(**coords)[self._key_index[key]])
+
+    def _resolve_coords(self, coords: Dict[str, float]):
+        unknown = set(coords) - set(self.key_names)
+        if unknown:
+            raise ValueError(f"unknown key dims {unknown}; have {self.key_names}")
+        if not coords:
+            raise ValueError("need at least one coordinate")
+        dims = [i for i, n in enumerate(self.key_names) if n in coords]
+        target = np.array([coords[self.key_names[i]] for i in dims])
+        return dims, target
+
+    def scheduler(self, **coords: float) -> SMDPScheduler:
+        """Mint an SMDPScheduler on the nearest entry, wired for retune()."""
+        key = self.nearest(**coords)
+        sch = SMDPScheduler.from_table(self.tables[key])
+        sch._bank = self
+        return sch
+
+    def stacked(self, keys=None):
+        """(keys, stacked array): the bank as a dense policy axis.
+
+        Tables shorter than the longest are padded by repeating their last
+        entry — exactly the eq.-(30) extension decide() applies, so the
+        padded row is decision-for-decision the same scheduler.  Row order
+        follows ``keys`` (default: sorted keys()): a (P, L) array for
+        queue-indexed banks, (P, K, L) for phase-indexed ones.
+        """
+        ks = [
+            tuple(float(v) for v in k)
+            for k in (self._sorted_keys if keys is None else keys)
+        ]
+        if not ks:
+            raise ValueError("stacked() with an empty key list")
+        missing = [k for k in ks if k not in self.tables]
+        if missing:
+            raise KeyError(f"keys not in bank: {missing}")
+        L = max(self.tables[k].shape[-1] for k in ks)
+        return ks, np.stack([_extend_last(self.tables[k], L) for k in ks])
 
 
 def _extend_last(t: np.ndarray, length: int) -> np.ndarray:

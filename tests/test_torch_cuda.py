@@ -10,11 +10,15 @@ false (the kernels have no CPU mode).  Tolerances are the reference's:
 atol 1e-4 / rtol 1e-5 for the f32 Bellman backup (sums in another order),
 1e-5 / 1e-6 between the batched and scalar launches of the same kernel,
 1e-9 on serving latencies (the event walk is bit-for-bit the plain
-version's arithmetic), 2e-5 (f32) and 2e-2 (bf16) for the attention
+version's arithmetic), equal policies between the kernel and banded
+batched solves (lockstep, MPI, Anderson) and a sweep whose guard ladder
+fires no rung (a poisoned warm start heals on the kernel's own restart,
+a NaN spec raises), 2e-5 (f32) and 2e-2 (bf16) for the attention
 kernels (tests/test_kernels.py's), and atol 3e-4 on model logits
 (tests/test_models.py's).
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -37,7 +41,9 @@ pytestmark = pytest.mark.cuda
 SHAPES = [(64, 9, 40), (200, 33, 170), (128, 33, 128), (300, 17, 513),
           (129, 33, 129), (4097, 33, 4097)]
 BATCHED_SHAPES = [(1, 64, 9, 40), (3, 130, 33, 130), (4, 128, 17, 260),
-                  (17, 129, 33, 129)]
+                  (17, 129, 33, 129),
+                  # shapes the sweep path launches (trimmed f32 bands, regrow)
+                  (17, 129, 33, 56), (108, 129, 33, 66), (3, 33, 33, 33), (1, 109, 33, 66)]
 
 
 @pytest.fixture
@@ -112,6 +118,65 @@ def test_kernel_solve_matches_cpu_plain_path(cuda):
     assert np.array_equal(on_card.policy, banded.policy)
     assert np.array_equal(on_card.policy, plain.policy)
     assert abs(on_card.g - banded.g) < 1e-2
+
+
+def _sweep_specs(rho, n=3, b_max=16, s_max=64):
+    svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY, family="det")
+    lam = rho * b_max / float(svc.mean(b_max))
+    return [pt.SMDPSpec(lam=lam, service=svc, energy=pt.GOOGLENET_P4_ENERGY,
+                        b_max=b_max, s_max=s_max, w2=float(w))
+            for w in np.linspace(0.0, 8.0, n)]
+
+
+@pytest.mark.parametrize("accel,rho", [("none", 0.5), ("mpi", 0.7), ("anderson", 0.7)])
+def test_batched_kernel_solve_matches_banded(cuda, accel, rho):
+    """The batched loops with every lockstep backup on the spec-batched
+    kernel give the banded path's policies, on the card."""
+    batch = pt.build_smdp_batched(_sweep_specs(rho))
+    before = tb.bellman_banded_batched.launches
+    got = pt.relative_value_iteration_batched(batch, accel=accel, backup="pallas",
+                                              device=cuda)
+    launched = tb.bellman_banded_batched.launches - before
+    want = pt.relative_value_iteration_batched(batch, accel=accel, device=cuda)
+    assert launched > 0
+    assert got.converged.all() and want.converged.all()
+    np.testing.assert_array_equal(got.policies, want.policies)
+    np.testing.assert_allclose(got.g, want.g, rtol=1e-6)
+
+
+def test_kernel_sweep_fires_no_rung(cuda):
+    """A 6-spec sweep on the kernel path (anchor warm start, MPI): the
+    guard ladder stays silent and the policies equal the banded sweep's."""
+    specs = _sweep_specs(0.7, n=6)
+    sink = []
+    got = pt.sweep_solve(specs, backup="pallas", report_sink=sink, device=cuda)
+    want = pt.sweep_solve(specs, device=cuda)
+    rep = sink[0]
+    assert rep.healthy.all() and not rep.any_fired, rep.rungs
+    for a, b in zip(got, want):
+        assert a.spec.s_max == b.spec.s_max
+        np.testing.assert_array_equal(a.policy, b.policy)
+
+
+def test_kernel_ladder_heals_on_the_kernel_or_raises(cuda):
+    """On the card with backup="pallas" the guard ladder keeps the kernel:
+    a poisoned warm start heals through the plain restart (its f32 phase
+    on the kernel), and a NaN spec raises instead of reaching the banded,
+    float64 and quarantine rungs, which run without it."""
+    specs = _sweep_specs(0.5, n=4)
+    batch = pt.build_smdp_batched(specs)
+    clean = pt.relative_value_iteration_batched(batch, backup="pallas", device=cuda)
+    h0 = np.zeros_like(clean.h)
+    h0[1] = np.nan
+    before = tb.bellman_banded_batched.launches
+    res = pt.relative_value_iteration_batched(batch, h0=h0, guard=True, backup="pallas",
+                                              device=cuda)
+    assert tb.bellman_banded_batched.launches > before
+    assert res.report.rungs == {"plain_restart": [1]} and res.report.healthy.all()
+    np.testing.assert_array_equal(res.policies, clean.policies)
+    specs[2] = dataclasses.replace(specs[2], w2=float("nan"))
+    with pytest.raises(RuntimeError, match="on the CUDA kernel path"):
+        pt.sweep_solve(specs, backup="pallas", delta=None, auto_c_o=False, device=cuda)
 
 
 # --- attention kernels ------------------------------------------------------

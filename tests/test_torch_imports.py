@@ -36,6 +36,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.serving, repro_torch.interop\n"
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve_llm, repro_torch.serving.kv_cache\n"
+        "import repro_torch.core.sweep, repro_torch.core.tradeoff\n"
+        "import repro_torch.launch.tradeoff_sweep\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -69,8 +71,11 @@ def test_source_imports_neither_jax_nor_reference(path):
 def _entry_points():
     from repro_torch.core import (
         GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, ServiceModel, SMDPSpec,
-        build_smdp, relative_value_iteration, solve,
+        build_smdp, build_smdp_batched, relative_value_iteration,
+        relative_value_iteration_batched, solve, sweep_bank, sweep_solve,
     )
+    from repro_torch.core.tradeoff import smdp_tradeoff_curve
+    from repro_torch.launch import tradeoff_sweep
     from repro_torch.configs import ARCHS
     from repro_torch.interop import params_from_reference
     from repro_torch.kernels import ops
@@ -90,6 +95,12 @@ def _entry_points():
     return {
         "solve": lambda: solve(spec),
         "relative_value_iteration": lambda: relative_value_iteration(build_smdp(spec)),
+        "relative_value_iteration_batched": lambda: relative_value_iteration_batched(
+            build_smdp_batched([spec])),
+        "sweep_solve": lambda: sweep_solve([spec]),
+        "sweep_bank": lambda: sweep_bank(spec, [0.5]),
+        "smdp_tradeoff_curve": lambda: smdp_tradeoff_curve(spec, [0.0]),
+        "tradeoff_sweep.main": lambda: tradeoff_sweep.main(["--w2", "0"]),
         "ServingEngine": lambda: ServingEngine(
             SMDPScheduler.from_table(table), lam=0.5, b_max=4, service=svc),
         "simulate_compiled": lambda: simulate_compiled(

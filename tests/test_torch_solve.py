@@ -8,7 +8,8 @@ Same problem in both packages (specs cross over through interop):
   version vs the reference's interpret-mode Pallas kernel): policy equal
   to the reference's pallas and banded results, g within eps;
 * solve() with its auto-grown truncation: same s_max, policy equal, and
-  W / P / g within 1e-9 relative.
+  W / P / g within 1e-9 relative;
+* the scalar accel= entry point (tests/test_torch_accel.py has the rest).
 """
 import numpy as np
 import pytest
@@ -129,9 +130,14 @@ def test_solve_matches_reference(spec_kw, backup):
 
 
 def test_accelerated_rvi_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.relative_value_iteration(_port_mdp(paper_spec(s_max=40)),
-                                    accel="mpi", device="cpu")
+    """accel= is ported now: the scalar entry point no longer raises and
+    gives the reference's accelerated result (float64, N = 1)."""
+    spec = paper_spec(s_max=40)
+    for accel in ("mpi", "anderson"):
+        got = pt.relative_value_iteration(_port_mdp(spec), accel=accel, device="cpu")
+        want = relative_value_iteration(build_smdp(spec), accel=accel)
+        assert np.array_equal(got.policy, want.policy)
+        assert _rel(got.g, want.g) < 1e-9 and got.converged
 
 
 def test_table1_anchor_through_the_kernel_path():
