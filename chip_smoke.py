@@ -34,10 +34,15 @@
    within 5% of the analytic W and P.  Holds the kernel against its plain
    version and its scalar launches at every shape the sweep launched,
    times it there and profiles one sweep's device busy share.
-5. Attention kernels: flash (prefill) and decode held against their plain
-   versions at the reference test shapes (f32 at 2e-5, bf16 at 2e-2,
-   softcap 50 included) and at the serving path's shapes in bf16 and f32,
-   and timed there against their bound and torch's SDPA.
+5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
+   the CUDA cores) and split-K decode held against their plain versions
+   at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
+   included) and at the serving path's shapes in bf16 and f32, and timed
+   there against their bound and torch's SDPA; then at the edge cases of
+   their designs (lengths off the 64-row tiles, causal rows that see no
+   key, every head size, softcap, q / k / v as views of one fused qkv, a
+   misaligned view refused; decode lengths 0, 1, S and inside a split,
+   4096-deep caches at b = 1 and 8, b x KV >= the SM count).
 6. Whole-model checks in f32: the reduced Qwen2.5-32B on the card
    (kernels) against the CPU (plain versions) from the same weights, and
    Qwen2.5-32B at full width with 2 layers, decode path (decode kernel)
@@ -49,7 +54,8 @@
    at rho = 0.6 served in wall-clock executor mode by the SMDP, greedy and
    static schedulers.  Checks one flash launch per layer per segment, one
    decode launch per layer per decode step, one Bellman launch per backup.
-   A profile of decode steps says where a step's time goes.
+   Profiles of a prefill and of decode steps say where their device time
+   goes, by kernel.
 8. Prints a `kernels` JSON line, then the one-line verdict.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA it exits
@@ -98,6 +104,26 @@ FLASH_TEST_SHAPES = [(2, 64, 64, 4, 2, 16, True, None), (1, 33, 70, 4, 4, 8, Fal
 DECODE_TEST_SHAPES = [(2, 300, 8, 2, 16), (3, 128, 4, 4, 32), (1, 77, 8, 1, 64),
                       (4, 64, 16, 4, 8)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the kernel each wrapper's C entry point launches, by dtype
+#: (kernels/csrc/flash_attention.cu, decode_attention.cu)
+VARIANTS = {"flash_attention": {"bfloat16": "wgmma bf16", "float32": "cuda-core f32"},
+            "decode_attention": {"bfloat16": "split-K cuda-core", "float32": "split-K cuda-core"}}
+#: edge cases of the tensor-core flash kernel: lengths off its 64-row tiles,
+#: causal rows that see no key (Sq > Sk), several key tiles, softcap, every
+#: head size
+FLASH_EDGE_SHAPES = [(2, 100, 100, 4, 2, 64, True, None), (1, 70, 130, 8, 2, 128, False, None),
+                     (2, 150, 90, 4, 1, 64, True, None), (1, 130, 70, 2, 2, 128, True, None),
+                     (2, 80, 80, 4, 2, 128, True, 30.0), (2, 300, 300, 8, 2, 128, True, None),
+                     (2, 200, 260, 4, 2, 8, True, 30.0)] + [
+    (1, 96, 96, 4, 2, d, True, None) for d in (8, 16, 32, 64, 128, 256)]
+#: edge cases of the split-K decode kernel, (B, S, H, KV, D, lengths or a
+#: tag): lengths 0, 1, S and inside a split; 4096-deep caches (many splits)
+#: at b = 1 and 8; b x KV >= the SM count (one split); G = 16 and 3, D = 8
+#: and 256
+DECODE_EDGE_CASES = [(4, 300, 8, 2, 64, "edges"), (1, 4096, 40, 8, 128, "random"),
+                     (8, 4096, 40, 8, 128, "random"), (17, 144, 40, 8, 128, "random"),
+                     (2, 200, 16, 1, 32, [200, 37]), (2, 200, 12, 4, 256, [200, 37]),
+                     (2, 200, 6, 2, 8, [200, 37])]
 LOGIT_ATOL = 3e-4  # tests/test_models.py's decode-vs-forward bound
 
 
@@ -706,6 +732,16 @@ def _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lengths):
     return q, cache[0, 1], cache[1, 0], lens
 
 
+def _decode_inputs_card(torch, seed, B, S, H, KV, D, dtype, lengths):
+    """As _decode_inputs, drawn on the card from a seeded generator: the
+    edge cases' 4096-deep caches are too large to draw on the host quickly."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
+    cache = torch.randn((2, 2, B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, cache[0, 1], cache[1, 0], lens
+
+
 def _path_lengths(B):
     """Decode lengths of the serving path: 129 .. 143 (prompt 128 plus the
     generated tokens), spread over the batch."""
@@ -717,6 +753,7 @@ def attention_phase(torch, np, rows):
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(3)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     F = torch.nn.functional
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     full = dict(H=40, KV=8, D=128)  # Qwen2.5-32B's attention
@@ -766,11 +803,12 @@ def attention_phase(torch, np, rows):
         b_ms, b_by = bound(item * (2 * B * S * H * D + 2 * B * S * KV * D),
                            4 * B * H * D * pairs,
                            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-        log(f"flash_attention b={B} {(S, H, KV, D)} {dt}: kernel_ms={ms:.6f} "
+        variant = VARIANTS["flash_attention"][dt]
+        log(f"flash_attention b={B} {(S, H, KV, D)} {dt} ({variant}): kernel_ms={ms:.6f} "
             f"plain_ms={plain:.6f} library_ms={lib:.6f} (SDPA, enable_gqa) "
             f"bound_ms={b_ms:.6f} ({b_by})")
         return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by, shape=[B, S, S, H, KV, D], dtype=dt)
+                    bound_by=b_by, shape=[B, S, S, H, KV, D], dtype=dt, variant=variant)
 
     def decode_row(B, dt, reps=200):
         dtype = dts[dt]
@@ -788,11 +826,14 @@ def attention_phase(torch, np, rows):
         b_ms, b_by = bound(item * (2 * B * H * D + 2 * keys * KV * D) + 4 * B,
                            4 * H * D * keys,
                            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-        log(f"decode_attention b={B} S={S} lengths {lens[0]}..{lens[-1]} {dt}: "
+        n_split = da._split_plan(B, S, KV, n_sm)
+        log(f"decode_attention b={B} S={S} lengths {lens[0]}..{lens[-1]} {dt} "
+            f"({VARIANTS['decode_attention'][dt]}, {n_split} splits): "
             f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms={lib:.6f} "
             f"(SDPA, enable_gqa, boolean mask) bound_ms={b_ms:.6f} ({b_by})")
         return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by, shape=[B, S, H, KV, D], dtype=dt)
+                    bound_by=b_by, shape=[B, S, H, KV, D], dtype=dt,
+                    variant=VARIANTS["decode_attention"][dt], n_split=n_split)
 
     for name, row_fn, source, replaces in (
         ("flash_attention", flash_row, "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -802,9 +843,54 @@ def attention_phase(torch, np, rows):
     ):
         main = row_fn(LLM_B_MAX, "bfloat16")
         others = [row_fn(1, "bfloat16"), row_fn(LLM_B_MAX, "float32")]
-        rows[name] = dict(route="cuda", source=source, replaces=replaces,
-                          max_abs_err=max(err[name].values()),
-                          max_abs_err_by_dtype=err[name], **main, other_shapes=others)
+        rows[name] = dict(route="cuda", source=source, replaces=replaces, **main,
+                          other_shapes=others)
+
+    # --- edge cases of the two designs (their own draws, after the above) --
+    rng = np.random.default_rng(6)
+    for B, Sq, Sk, H, KV, D, causal, cap in FLASH_EDGE_SHAPES:
+        for dt, dtype in dts.items():
+            q, k, v = _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype)
+            held("flash_attention", fa.flash_attention(q, k, v, causal=causal, softcap=cap),
+                 fa.attention_ref(q, k, v, causal=causal, softcap=cap), dt,
+                 f"edge {(B, Sq, Sk, H, KV, D)} causal={causal} softcap={cap}")
+    H, KV, D = full["H"], full["KV"], full["D"]
+    for dt, dtype in dts.items():  # q / k / v as views of one fused qkv, as layers.py
+        qkv = _normal(torch, rng, (LLM_B_MAX, LLM_PROMPT, (H + 2 * KV) * D), dtype)
+        q, k, v = (x.reshape(LLM_B_MAX, LLM_PROMPT, -1, D)
+                   for x in torch.split(qkv, [H * D, KV * D, KV * D], dim=-1))
+        held("flash_attention", fa.flash_attention(q, k, v), fa.attention_ref(q, k, v), dt,
+             f"fused qkv views {tuple(q.shape)} seq stride {q.stride(1)}")
+    odd = torch.zeros(1 + 16 * 2 * 16, dtype=torch.bfloat16, device="cuda")[1:].view(1, 16, 2, 16)
+    ok = torch.zeros((1, 16, 2, 16), dtype=torch.bfloat16, device="cuda")
+    one = torch.full((1,), 4, dtype=torch.int32, device="cuda")
+    for what, call in (("flash q", lambda: fa.flash_attention(odd, ok, ok)),
+                       ("decode k_cache", lambda: da.decode_attention(ok[:, 0], odd, ok, one)),
+                       ("decode q", lambda: da.decode_attention(odd[:, 0], ok, ok, one))):
+        try:
+            call()
+        except ValueError as e:
+            check("16-byte" in str(e), f"misaligned {what}: {e}")
+        else:
+            raise AssertionError(f"a misaligned {what} view was not refused")
+    log("misaligned bf16 views (2 bytes off): flash q, decode k_cache and q refused ok")
+    for i, (B, S, H, KV, D, lens) in enumerate(DECODE_EDGE_CASES):
+        n_split = da._split_plan(B, S, KV, n_sm)
+        if lens == "random":  # S, then anything from 0 to S
+            lens = [S] + list(rng.integers(0, S + 1, B - 1))
+        elif lens == "edges":  # 0, 1, S and inside the second split
+            lens = [0, 1, S, da.split_bounds(S, n_split)[1][0] + 5]
+        for cap in (None, 30.0) if D == 64 else (None,):
+            for dt, dtype in dts.items():
+                q, kc, vc, ln = _decode_inputs_card(torch, 100 + i, B, S, H, KV, D, dtype,
+                                                    lens)
+                held("decode_attention", da.decode_attention(q, kc, vc, ln, softcap=cap),
+                     da.decode_attention_ref(q, kc, vc, ln, softcap=cap), dt,
+                     f"edge {(B, S, H, KV, D)} splits={n_split} softcap={cap} "
+                     f"lengths={list(map(int, lens))[:8]}")
+    for name in ("flash_attention", "decode_attention"):
+        rows[name].update(max_abs_err=max(err[name].values()),
+                          max_abs_err_by_dtype=err[name])
 
 
 # ---------------------------------------------------------------------------
@@ -901,6 +987,10 @@ def profile_decode(torch, M, cfg, params, B):
                            generator=torch.Generator(device="cuda").manual_seed(1))
     n = 5
 
+    def prefill():
+        return M.prefill(cfg, params, {"tokens": tokens}, LLM_PROMPT + 2 * n + 1,
+                         torch.bfloat16)
+
     def steps(cache, tok):
         for _ in range(n):
             lg, cache = M.decode_step(cfg, params, cache, tok)
@@ -909,11 +999,20 @@ def profile_decode(torch, M, cfg, params, B):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, cache = M.prefill(cfg, params, {"tokens": tokens}, LLM_PROMPT + 2 * n + 1,
-                          torch.bfloat16)
+    lg, cache = prefill()
     tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_ms, pre_launches, pre_by = profile_busy(torch, prefill)
+    if pre_ms is None:
+        log("profile prefill: the profiler recorded no device time (not measured)")
+    else:
+        flash = [v for key, v in pre_by.items() if "flash_fwd" in key]
+        flash_ms = sum(ms for ms, _ in flash)
+        log(f"profile prefill b={B} x {LLM_PROMPT} tokens: device busy {pre_ms:.3f} ms in "
+            f"{pre_launches} kernels; flash_attention kernel {flash_ms:.3f} ms in "
+            f"{sum(c for _, c in flash)} launches (share {flash_ms / pre_ms:.4f}); "
+            f"unprofiled wall_ms={prefill_ms:.3f}")
     t0 = time.perf_counter()
     steps(cache, tok)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
@@ -925,7 +1024,7 @@ def profile_decode(torch, M, cfg, params, B):
     groups = {"decode_attention kernel": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     for key, (ms, _) in by_name.items():
         low = key.lower()
-        if "decode_kernel" in low:
+        if "decode_attn" in low:  # the split and the combine kernel
             g = "decode_attention kernel"
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
             g = "matmul (cuBLAS)"

@@ -8,7 +8,9 @@ PyTorch headers are included: a source builds in seconds.
 
 ``build_all()`` starts one nvcc per source at once and waits for all of
 them; ``load(name)`` returns the loaded ``ctypes.CDLL`` (building it if
-needed).  Nothing here runs at import time.
+needed); ``function(name, symbol, restype, argtypes)`` returns one of its C
+functions with its ctypes signature set once, so a launch does no more
+than its checks and the call.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: <checkout>/build/repro_torch (this file is src/repro_torch/kernels/_build.py)
@@ -42,6 +44,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Any] = {}
 #: compiler output (ptxas register / shared-memory report) per source
 build_logs: Dict[str, str] = {}
 
@@ -118,3 +121,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)[0]))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, restype, argtypes: Sequence):
+    """C function ``symbol`` of ``csrc/<name>.cu``, its signature set once."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        _fns[(name, symbol)] = fn
+    return fn

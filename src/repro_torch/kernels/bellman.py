@@ -91,9 +91,8 @@ def _launch(h2, p3, t3, hso1) -> torch.Tensor:
     N, T, A = t3.shape
     K = p3.shape[2]
     out = torch.empty((N, T, A), dtype=torch.float32, device=h2.device)
-    fn = _build.load("bellman").bellman_banded_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _build.function("bellman", "bellman_banded_launch", ctypes.c_int,
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(h2.device).cuda_stream
     rc = fn(
         h2.data_ptr(), p3.data_ptr(), t3.data_ptr(), hso1.data_ptr(),

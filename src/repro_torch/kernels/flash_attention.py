@@ -1,14 +1,17 @@
-"""Blockwise GQA attention forward: the CUDA kernel's wrapper and plain version.
+"""Blockwise GQA attention forward: the CUDA kernels' wrapper and plain version.
 
-The kernel is ``csrc/flash_attention.cu``; it replaces the Pallas kernel
-``flash_attention`` of the JAX package, and its header says how it is laid
-out and what bounds it.  ``attention_ref`` below is the plain PyTorch
-version, with the reference oracle's semantics exactly (``-1e30`` masking,
-bottom-right causal alignment ``k <= q + Sk - Sq``, f32 softmax).
+The kernels are in ``csrc/flash_attention.cu``; they replace the Pallas
+kernel ``flash_attention`` of the JAX package, and its header says how they
+are laid out and what bounds them: bf16 inputs run on the tensor cores
+(``wgmma``), f32 inputs on the CUDA cores (the tensor cores would round f32
+to TF32).  ``attention_ref`` below is the plain PyTorch version, with the
+reference oracle's semantics exactly (``-1e30`` masking, bottom-right causal
+alignment ``k <= q + Sk - Sq``, f32 softmax).
 
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
 kernel (one launch, on the current stream, counted in ``launches``) or
-raises.
+raises.  The kernels read q, k and v in place through their strides; the
+wrapper copies none of them.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ NEG_INF = -1e30
 #: head sizes the kernel is instantiated for
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def attention_ref(q, k, v, *, causal: bool = True,
@@ -70,6 +75,28 @@ def check_inputs(q, k, v) -> None:
         raise ValueError("attention over an empty key sequence")
 
 
+def aligned16(x: torch.Tensor) -> bool:
+    """Base pointer and the stride of every axis but the last (where that
+    axis has more than one entry) 16-byte aligned: what 16-byte copies of
+    whole rows need."""
+    step = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        st % step == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]) if n > 1)
+
+
+def check_readable(q, k, v) -> None:
+    """Raise unless the kernel for q's dtype can read q, k and v in place:
+    the last axis contiguous, and for bf16 (16-byte copies of rows) every
+    base pointer and row stride 16-byte aligned."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous, stride "
+                             f"{x.stride(-1)}")
+    if q.dtype == torch.bfloat16 and not all(aligned16(x) for x in (q, k, v)):
+        raise ValueError("the bf16 kernel copies 16-byte chunks of rows: q, k and v "
+                         "need 16-byte aligned base pointers and strides")
+
+
 def _launch(q, k, v, causal: bool, softcap: Optional[float]) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
@@ -77,13 +104,10 @@ def _launch(q, k, v, causal: bool, softcap: Optional[float]) -> torch.Tensor:
     Sk, KV = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    check_readable(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = _build.function("flash_attention", "flash_attention_launch",
+                         ctypes.c_int, _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -133,10 +133,9 @@ def serve_scan(table, arrivals, phases, draws, means, *, t0: float,
     rec_t = torch.empty(rec_cap, dtype=torch.float64, device=dev)
     agg = torch.empty(5, dtype=torch.int64, device=dev)
     t_final = torch.empty(1, dtype=torch.float64, device=dev)
-    fn = _build.load("serve_scan").serve_scan_launch
-    fn.restype = ctypes.c_int
     P, I, LL, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    fn.argtypes = [P, I, P, P, LL, P, LL, P, D, D, LL, I, LL, I, P, P, LL, P, P, P]
+    fn = _build.function("serve_scan", "serve_scan_launch", ctypes.c_int,
+                         [P, I, P, P, LL, P, LL, P, D, D, LL, I, LL, I, P, P, LL, P, P, P])
     rc = fn(
         table.data_ptr(), table.shape[1], arrivals.data_ptr(),
         phases.data_ptr(), arrivals.numel(), draws.data_ptr(), draws.numel(),

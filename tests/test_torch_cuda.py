@@ -14,7 +14,9 @@ version's arithmetic), equal policies between the kernel and banded
 batched solves (lockstep, MPI, Anderson) and a sweep whose guard ladder
 fires no rung (a poisoned warm start heals on the kernel's own restart,
 a NaN spec raises), 2e-5 (f32) and 2e-2 (bf16) for the attention
-kernels (tests/test_kernels.py's), and atol 3e-4 on model logits
+kernels against their plain versions (tests/test_kernels.py's), 2e-6 for
+the f32 decode kernel against the plain mirror of its split-K arithmetic
+(the same sums in another order), and atol 3e-4 on model logits
 (tests/test_models.py's).
 """
 import copy
@@ -233,6 +235,151 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
     assert da.decode_attention.launches == before + 1
     want = da.decode_attention_ref(q, kc, vc, lens)
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+#: edge cases of the tensor-core flash kernel: lengths that are not
+#: multiples of its 64-row tiles, causal rows that see no key (Sq > Sk),
+#: every head size, softcap
+FLASH_EDGE_SHAPES = [
+    (2, 100, 100, 4, 2, 64, True, None),
+    (1, 70, 130, 8, 2, 128, False, None),
+    (2, 150, 90, 4, 1, 64, True, None),
+    (1, 130, 70, 2, 2, 128, True, None),
+    (2, 80, 80, 4, 2, 128, True, 30.0),
+    (2, 300, 300, 8, 2, 128, True, None),
+    (2, 200, 260, 4, 2, 8, True, 30.0),
+    (1, 70, 330, 4, 4, 64, False, None),
+] + [(1, 96, 96, 4, 2, d, True, None) for d in (8, 16, 32, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,cap", FLASH_EDGE_SHAPES)
+def test_flash_kernel_edge_cases(cuda, B, Sq, Sk, H, KV, D, causal, cap, dtype):
+    rng = np.random.default_rng(Sq * Sk + D)
+    q = _normal(rng, (B, Sq, H, D), dtype, cuda)
+    k, v = (_normal(rng, (B, Sk, KV, D), dtype, cuda) for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    want = fa.attention_ref(q, k, v, causal=causal, softcap=cap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,D", [(128, 40, 8, 128), (77, 4, 2, 16)])
+def test_flash_kernel_reads_fused_qkv_views(cuda, S, H, KV, D, dtype):
+    """q / k / v as the strided views of one fused qkv projection, as
+    models/layers.py passes them: read in place."""
+    rng = np.random.default_rng(S + H)
+    qkv = _normal(rng, (2, S, (H + 2 * KV) * D), dtype, cuda)
+    q, k, v = torch.split(qkv, [H * D, KV * D, KV * D], dim=-1)
+    q, k, v = q.reshape(2, S, H, D), k.reshape(2, S, KV, D), v.reshape(2, S, KV, D)
+    assert not q.is_contiguous() and v.stride(1) == (H + 2 * KV) * D
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_kernels_refuse_misaligned_views(cuda):
+    """16-byte loads need aligned rows: a view 2 bytes off raises, for bf16
+    flash inputs and for decode's q and caches alike; nothing is copied."""
+    base = torch.zeros(1 + 16 * 2 * 16, dtype=torch.bfloat16, device=cuda)
+    odd = base[1:].view(1, 16, 2, 16)
+    k = torch.zeros((1, 16, 2, 16), dtype=torch.bfloat16, device=cuda)
+    before = fa.flash_attention.launches, da.decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(odd, k, k)
+    lens = torch.full((1,), 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        da.decode_attention(k[:, 0], odd, k, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        da.decode_attention(odd[:, 0], k, k, lens)
+    assert (fa.flash_attention.launches, da.decode_attention.launches) == before
+
+
+def _decode_case(rng, B, S, H, KV, D, dtype, dev, lengths, cap=None):
+    """q from ``rng``; K / V as one layer's slices of an (L, B, S, KV, D)
+    cache drawn on the card from a seeded generator (4096-deep caches are
+    too large to draw on the host quickly)."""
+    q = _normal(rng, (B, H, D), dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(B * S)
+    cache = torch.randn((2, 2, B, S, KV, D), generator=gen, device=dev).to(dtype)
+    kc, vc = cache[0, 1], cache[1, 0]
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, kc, vc, lens, softcap=cap)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_ref(q, kc, vc, lens, softcap=cap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_decode_kernel_edge_lengths(cuda, dtype, cap):
+    """lengths 0 (a uniform average of all S values), 1, S and one inside a
+    split, on a cache deep enough to split."""
+    S = 300
+    n = da._split_plan(4, S, 2, da._sm_count(cuda))
+    assert n > 1
+    inside = da.split_bounds(S, n)[1][0] + 5
+    _decode_case(np.random.default_rng(7), 4, S, 8, 2, 64, dtype, cuda,
+                 [0, 1, S, inside], cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8])
+def test_decode_kernel_deep_cache(cuda, B, dtype):
+    """A 4096-deep cache: many splits, most of them past short lengths."""
+    S = 4096
+    assert da._split_plan(B, S, 8, da._sm_count(cuda)) > 1
+    rng = np.random.default_rng(B)
+    lens = [S] + list(rng.integers(0, S + 1, B - 1))
+    _decode_case(rng, B, S, 40, 8, 128, dtype, cuda, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_single_split(cuda, dtype):
+    """b x KV >= the SM count: one split, the block writes the output."""
+    B, KV = 17, 8
+    assert B * KV >= da._sm_count(cuda)
+    assert da._split_plan(B, 144, KV, da._sm_count(cuda)) == 1
+    rng = np.random.default_rng(17)
+    _decode_case(rng, B, 144, 40, KV, 128, dtype, cuda, rng.integers(0, 145, B))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(16, 1, 32), (12, 4, 256), (6, 2, 8)])
+def test_decode_kernel_head_groups(cuda, H, KV, D, dtype):
+    """G = 16 (two chunks of 8 q heads), G = 3 (a padded chunk of 4), and
+    the head sizes at both ends."""
+    rng = np.random.default_rng(H * D)
+    _decode_case(rng, 2, 200, H, KV, D, dtype, cuda, [200, 37])
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,lengths", [
+    (4, 300, 8, 2, 64, "edges"), (1, 4096, 40, 8, 128, "random"),
+    (8, 144, 40, 8, 128, "random"), (2, 200, 12, 4, 256, [200, 37])])
+def test_decode_kernel_matches_split_ref(cuda, B, S, H, KV, D, lengths):
+    """f32: the kernel against decode_attention_split_ref, the plain mirror
+    of its partials and combine, at the split count it plans (2e-6: the same
+    sums, in another order)."""
+    n = da._split_plan(B, S, KV, da._sm_count(cuda))
+    rng = np.random.default_rng(S + D)
+    if lengths == "edges":  # 0, 1, S and one inside the second split
+        lengths = [0, 1, S, da.split_bounds(S, n)[1][0] + 5]
+    elif lengths == "random":
+        lengths = [S] + list(rng.integers(0, S + 1, B - 1))
+    q = _normal(rng, (B, H, D), torch.float32, cuda)
+    cache = _normal(rng, (2, 2, B, S, KV, D), torch.float32, cuda)
+    kc, vc = cache[0, 1], cache[1, 0]
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    got = da.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    want = da.decode_attention_split_ref(q, kc, vc, lens, n)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
 
 
 def test_reduced_model_card_matches_cpu(cuda):
