@@ -7,10 +7,18 @@
    the sources in this checkout (one nvcc per source, all at once).
 2. Kernel phase: holds each kernel against its plain PyTorch version on
    the card -- the Bellman backup at the reference test shapes, the
-   solver's path shape (129, 33, 129) and (4097, 33, 4097); its batched
-   form at the reference batched shapes, also against per-spec scalar
-   launches; the serving event kernel on a few thousand epochs -- and
-   times each against its bound.
+   solver's path shape (129, 33, 129) and (4097, 33, 4097), then at the
+   edges of its design (T 1 / 63 / 65 / 129 x A 1 / 9 / 33 / 64 / 65 x K
+   1 / 255 / 256 / 257 / 4097, batched N 1 / 17 / 108, unaligned h_len
+   and bases, negative hso, zero tails); its batched form at the reference
+   batched shapes, also against per-spec scalar launches; the serving
+   event kernel on a few thousand epochs -- and times each against its
+   bound.  The Bellman rows also carry the launch floor (an empty kernel
+   with the same grid, block and shared memory, built beside the kernels),
+   the split, the blocks, the shared memory and the registers from the
+   ptxas log.  The first design's times (PREVIOUS_MS, naming their runs)
+   are printed on a line of their own, marked as quoted: this run does
+   not measure them.
 3. Main path, with every launch counter zeroed just before and read just
    after: solve the paper's Table-I point (GoogLeNet on a Tesla P4,
    b_max = 32, rho = 0.7, w2 = 1.6) with the Bellman kernel, then serve
@@ -34,6 +42,10 @@
    within 5% of the analytic W and P.  Holds the kernel against its plain
    version and its scalar launches at every shape the sweep launched,
    times it there and profiles one sweep's device busy share.
+4c. Poisoned grid: four Table-I specs, one with w2 = NaN, on
+   backup="pallas": the sweep completes with that row quarantined and
+   failed (the reference's guard ladder), the other rows equal the grid
+   without it, and the batched kernel's launch count rose.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -83,6 +95,38 @@ BATCHED_TEST_SHAPES = [(1, 64, 9, 40), (3, 130, 33, 130), (4, 128, 17, 260)]
 PATH_SHAPE = (S_MAX + 1, B_MAX + 1, S_MAX + 1)  # (T, A, K) of the Table-I solve
 LARGE_SHAPE = (4097, 33, 4097)  # solve()'s max_s_max = 4096
 SWEEP_SPECS = 17  # a 17-point w2 grid: the batched kernel's sweep launch
+LLM_SOLVE_SHAPE = (65, 9, 65)  # (T, A, K) of the LLM path's solve (b_max 8, s_max 64)
+#: the first design of csrc/bellman.cu on an NVIDIA H100 80GB HBM3 at 700 W,
+#: by shape: (ms, the run that timed it; PERF.md section 6).  Quoted on a
+#: log line of their own, never in the `kernels` line: not measured here.
+PREVIOUS_MS = {
+    (129, 33, 129): (0.011422, "chip_smoke.py at commit c670012"),
+    (4097, 33, 4097): (0.212861, "chip_smoke.py at commit c670012"),
+    (17, 129, 33, 56): (0.008865, "chip_smoke.py at commit bf7b32a, second run"),
+    (108, 129, 33, 66): (0.022857, "chip_smoke.py at commit bf7b32a, second run"),
+    (17, 129, 33, 129): (0.012543, "chip_smoke.py at commit bf7b32a, second run"),
+}
+#: edges of the Bellman kernel's design (tests/test_torch_cuda.py's): T off
+#: its 5-state lanes and t tiles, A around its 3-action warps, K around its
+#: 256-wide chunks and 4097; batched N = 1, 17 and 108
+BELLMAN_EDGE_T, BELLMAN_EDGE_A, BELLMAN_EDGE_K = ((1, 63, 65, 129), (1, 9, 33, 64, 65),
+                                                  (1, 255, 256, 257, 4097))
+BELLMAN_EDGE_BATCHED = [(1, 65, 9, 65), (17, 63, 33, 257), (17, 129, 65, 56),
+                        (108, 129, 33, 66), (108, 1, 1, 1), (17, 65, 64, 4097)]
+#: an empty kernel, launched with a Bellman launch's grid, block and shared
+#: memory: the launch floor of that grid (built beside the kernels)
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int gx, int gy, int gz, int threads, long long smem,
+                            void* stream) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  empty_kernel<<<dim3(gx, gy, gz), threads, smem, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 # --- the sweep path (examples/tradeoff_sweep.py, sweep_scaling's grid, a bank)
 FIG5_W2 = [0.0, 0.2, 0.5, 0.8, 1.3, 1.6, 2.2, 3.5, 5.0, 8.0, 15.0, 50.0]
@@ -183,6 +227,60 @@ def call_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def start_empty_build():
+    """nvcc of EMPTY_CU into build/, started now; finish_empty_build waits."""
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / "launch_floor.cu"
+    cu.write_text(EMPTY_CU)
+    so = _build.BUILD_DIR / f"launch_floor-{os.getpid()}.so"
+    proc = subprocess.Popen([_build._nvcc(), *_build.BASE_FLAGS, "-o", str(so), str(cu)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def finish_empty_build(started):
+    import ctypes
+
+    proc, so = started
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc failed for the launch-floor kernel:\n{out}")
+    fn = ctypes.CDLL(str(so)).empty_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    return fn
+
+
+def bellman_geometry(N, T, A, K):
+    """(split, grid x, y, z, threads, dynamic shared memory bytes) of the
+    Bellman kernel's launch for N specs of (T, A, K) on this card."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bellman
+
+    split = bellman._split_plan(N, T, A, K, bellman._sm_count(torch.device("cuda")))
+    geo = (ctypes.c_longlong * 5)()
+    fn = _build.function("bellman", "bellman_banded_geometry", ctypes.c_int,
+                         [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    check(fn(N, T, A, K, split, geo) == 0, f"bellman geometry {N, T, A, K}")
+    return (split,) + tuple(int(x) for x in geo)
+
+
+def launch_floor_ms(torch, N, T, A, K, reps):
+    """Device time of an empty kernel with the Bellman launch's grid, block
+    and shared memory, in the same CUDA-graph harness as the kernel."""
+    _, gx, gy, gz, threads, smem = bellman_geometry(N, T, A, K)
+    return device_ms(torch, lambda: check(EMPTY_LAUNCH[0](
+        gx, gy, gz, threads, smem, torch.cuda.current_stream().cuda_stream) == 0,
+        "empty kernel launch"), reps)
+
+
+EMPTY_LAUNCH = []  # the empty kernel's C entry point, once built
+
+
 def bellman_inputs(torch, np, rng, T, A, K, n=None):
     lead = () if n is None else (n,)
     h = rng.normal(size=lead + (T + K,)) * 10
@@ -225,12 +323,84 @@ def batched_row(torch, np, rng, N, T, A, K, reps=100):
     ms = device_ms(torch, lambda: bellman.bellman_banded_batched(h, p, t, hso), reps)
     plain = device_ms(torch, lambda: bellman.bellman_banded_batched_ref(h, p, t, hso), reps)
     lib = device_ms(torch, lambda: torch.bmm(h.unfold(1, K, 1)[:, :T], p.transpose(1, 2)), reps)
+    floor = launch_floor_ms(torch, N, T, A, K, reps)
+    split, gx, _, gz, threads, smem = bellman_geometry(N, T, A, K)
     b_ms, b_by = bound(4 * N * ((T + K) + A * K + 2 * T * A + 1),
                        N * (2 * T * A * K + 2 * T * A), F32_FLOPS)
     log(f"bellman_banded_batched {N}x{T}x{A}x{K}: kernel_ms={ms:.6f} plain_ms={plain:.6f} "
-        f"library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by})")
+        f"library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by}) launch_floor_ms={floor:.6f}; "
+        f"split {split}, {gx * gz} blocks of {threads} threads, {smem} B shared")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                shape=[N, T, A, K])
+                launch_floor_ms=floor, shape=[N, T, A, K], split=split,
+                blocks=gx * gz, threads=threads, smem_bytes=smem)
+
+
+def bellman_registers():
+    """Registers a thread of the Bellman kernel, from its -Xptxas -v log
+    (None when the library was built before this process)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    found = re.findall(r"Used (\d+) registers", _build.build_logs.get("bellman", ""))
+    return int(found[0]) if found else None
+
+
+def bellman_edge_phase(torch, np):
+    """The Bellman kernel at the edges of its design, against its plain
+    version (1e-4 / 1e-5); batched launches also against scalar ones (1e-5 /
+    1e-6).  Unaligned h_len and bases, negative hso and zero tails among the
+    cases.  Returns the largest error against the plain versions."""
+    from repro_torch.kernels import bellman
+
+    def inputs(seed, N, T, A, K, extra, h_off, p_off, neg, zero_tails):
+        rng = np.random.default_rng(seed)
+        h = rng.normal(size=(N, T + K - 1 + extra)) * 10
+        logits = rng.normal(size=(N, A, K))
+        pmfs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+        tails = np.zeros((N, T, A)) if zero_tails else rng.uniform(size=(N, T, A))
+        hso = rng.normal(size=N) * 3 + (-5.0 if neg else 5.0)
+
+        def at(x, off):  # x at a base `off` words past a 16-byte boundary
+            buf = torch.zeros(x.size + 4, dtype=torch.float32, device="cuda")
+            view = buf[off:off + x.size].view(x.shape)
+            view.copy_(torch.as_tensor(x, dtype=torch.float32))
+            return view
+
+        return at(h, h_off), at(pmfs, p_off), at(tails, 0), at(hso, 0)
+
+    worst, n = 0.0, 0
+    for T in BELLMAN_EDGE_T:
+        for A in BELLMAN_EDGE_A:
+            for K in BELLMAN_EDGE_K:
+                i = T + A + K
+                h, p, t, so = (x[0] for x in inputs(i, 1, T, A, K, 1 + i % 3, i % 4,
+                                                    (i // 4) % 4, i % 2 == 0, i % 5 == 0))
+                got = bellman.bellman_banded(h, p, t, so)
+                want = bellman.bellman_banded_ref(h, p, t, so)
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+                      f"bellman_banded edge {T, A, K}: max abs err {e}")
+                worst, n = max(worst, e), n + 1
+    for N, T, A, K in BELLMAN_EDGE_BATCHED:
+        args = inputs(N + T + K, N, T, A, K, 2, 1, 3, True, N == 1)
+        got = bellman.bellman_banded_batched(*args)
+        want = bellman.bellman_banded_batched_ref(*args)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+              f"bellman_banded_batched edge {N, T, A, K}: max abs err {e}")
+        for i in range(N):
+            one = bellman.bellman_banded(*(x[i] for x in args))
+            check(torch.allclose(got[i], one, atol=1e-5, rtol=1e-6),
+                  f"bellman_banded_batched edge {N, T, A, K} spec {i} vs scalar")
+        worst, n = max(worst, e), n + 1
+    log(f"bellman edges: {n} cases (T {BELLMAN_EDGE_T} x A {BELLMAN_EDGE_A} x K "
+        f"{BELLMAN_EDGE_K}; batched {BELLMAN_EDGE_BATCHED}; unaligned h_len and bases, "
+        f"negative hso, zero tails) max_abs_err={worst:.3e} (1e-4/1e-5 vs plain, "
+        "1e-5/1e-6 batched vs scalar) ok")
+    return worst
 
 
 def kernel_phase(torch, np):
@@ -254,6 +424,8 @@ def kernel_phase(torch, np):
               f"bellman_banded {T, A, K}: max abs err {e}")
         err = max(err, e)
         log(f"bellman_banded {T}x{A}x{K}: max_abs_err={e:.3e} (atol 1e-4, rtol 1e-5) ok")
+    edge_err = bellman_edge_phase(torch, np)
+    err = max(err, edge_err)
 
     def bellman_row(T, A, K, reps):
         h, p, t, hso = bellman_inputs(torch, np, rng, T, A, K)
@@ -261,27 +433,36 @@ def kernel_phase(torch, np):
         wrapper_ms = call_ms(torch, lambda: bellman.bellman_banded(h, p, t, hso), reps)
         plain = device_ms(torch, lambda: bellman.bellman_banded_ref(h, p, t, hso), reps)
         lib = device_ms(torch, lambda: torch.matmul(h.unfold(0, K, 1)[:T], p.T), reps)
+        floor = launch_floor_ms(torch, 1, T, A, K, reps)
+        split, gx, _, _, threads, smem = bellman_geometry(1, T, A, K)
         b_ms, b_by = bound(4 * ((T + K) + A * K + 2 * T * A + 1),
                            2 * T * A * K + 2 * T * A, F32_FLOPS)
         log(f"bellman_banded {T}x{A}x{K}: kernel_ms={ms:.6f} call_ms={wrapper_ms:.6f} "
-            f"plain_ms={plain:.6f} library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by})")
+            f"plain_ms={plain:.6f} library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+            f"launch_floor_ms={floor:.6f}; split {split}, {gx} blocks of {threads} "
+            f"threads, {smem} B shared")
         return dict(ms=ms, call_ms=wrapper_ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=b_ms, bound_by=b_by, shape=[T, A, K])
+                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor,
+                    shape=[T, A, K], split=split, blocks=gx, threads=threads,
+                    smem_bytes=smem)
 
     path_row = bellman_row(*PATH_SHAPE, reps=200)
     large_row = bellman_row(*LARGE_SHAPE, reps=20)
+    llm_row = bellman_row(*LLM_SOLVE_SHAPE, reps=200)
     rows["bellman_banded"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bellman.cu",
         replaces="src/repro/kernels/bellman.py:66", max_abs_err=err,
-        **path_row, large=large_row,
+        **path_row, large=large_row, other_shapes=[llm_row],
+        registers=bellman_registers(),
     )
 
     # --- Bellman backup, spec-batched form ---------------------------------
     err_b = max(batched_check(torch, np, rng, *shape) for shape in BATCHED_TEST_SHAPES)
     rows["bellman_banded_batched"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bellman.cu",
-        replaces="src/repro/kernels/bellman.py:131", max_abs_err=err_b,
+        replaces="src/repro/kernels/bellman.py:131", max_abs_err=max(err_b, edge_err),
         **batched_row(torch, np, rng, SWEEP_SPECS, *PATH_SHAPE),
+        registers=bellman_registers(),
     )
 
     # --- serving event kernel ----------------------------------------------
@@ -693,7 +874,8 @@ def sweep_phase(torch, np, kernels, rows, main_res, energy):
                   key=lambda c: (c["n"] * c["T"] * c["K"], c["n"]))
     row = rows["bellman_banded_batched"]
     old = {k: row.pop(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "shape")}
+                                   "bound_by", "launch_floor_ms", "shape", "split",
+                                   "blocks", "threads", "smem_bytes")}
     row.update(batched_row(torch, np, rng, path["n"], path["T"], path["A"], path["K"], 200))
     row["other_shapes"] = [
         batched_row(torch, np, rng, biggest["n"], biggest["T"], biggest["A"], biggest["K"]),
@@ -706,6 +888,39 @@ def sweep_phase(torch, np, kernels, rows, main_res, energy):
                                for name, g in kern.items()}
     row["launches_by_grid"]["tradeoff_sweep CLI"] = cli_launched
     row["sweep_wall_s"] = {name: round(g["wall"], 6) for name, g in kern.items()}
+
+
+def poisoned_grid_phase(np, kernels, rows):
+    """A small grid with one NaN w2 on backup="pallas": it completes, that
+    row quarantined and failed after the reference's rungs, every other row
+    healthy and equal in policy to the same grid without it, and the
+    spec-batched kernel carried the solves (its launch count rose)."""
+    import dataclasses
+
+    from repro_torch.core import sweep as sw
+
+    specs = [dataclasses.replace(table1_spec(RHO), w2=w) for w in (0.0, W2, float("nan"), 8.0)]
+    sink = []
+    before = kernels.launch_counts()["bellman_banded_batched"]
+    t0 = time.perf_counter()
+    res = sw.sweep_solve(specs, backup="pallas", report_sink=sink, device="cuda")
+    wall = time.perf_counter() - t0
+    launched = kernels.launch_counts()["bellman_banded_batched"] - before
+    rep = sink[0]
+    check(launched > 0, "the poisoned grid never launched the batched kernel")
+    check(rep.quarantined == [2] and rep.failed == [2],
+          f"poisoned grid: quarantined {rep.quarantined}, failed {rep.failed}")
+    check(rep.healthy.tolist() == [True, True, False, True] and np.isnan(res[2].eval.g),
+          f"poisoned grid: healthy {rep.healthy.tolist()}")
+    clean = sw.sweep_solve(specs[:2] + specs[3:], backup="pallas", device="cuda")
+    check(all(np.array_equal(a.policy, b.policy) and a.spec.s_max == b.spec.s_max
+              for a, b in zip(res[:2] + res[3:], clean)),
+          "poisoned grid: healthy rows vs the grid without the NaN spec")
+    log(f"poisoned grid (w2 = 0, {W2}, nan, 8 at rho {RHO}, backup=pallas): completed in "
+        f"{wall:.3f} s, {launched} batched kernel launches; rungs {rep.rungs}, quarantined "
+        f"{rep.quarantined}, failed {rep.failed}; the other rows equal the grid without it")
+    rows["bellman_banded_batched"]["poisoned_grid"] = dict(
+        rungs=rep.rungs, quarantined=rep.quarantined, failed=rep.failed, launches=launched)
 
 
 # ---------------------------------------------------------------------------
@@ -1126,8 +1341,10 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    empty = start_empty_build()
     build_s = _build.build_all()
-    log(f"kernel build: {build_s:.2f} s")
+    EMPTY_LAUNCH.append(finish_empty_build(empty))
+    log(f"kernel build: {build_s:.2f} s (and the launch-floor kernel)")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1195,6 +1412,7 @@ def main():
 
     # --- the sweep path: batched solves on the spec-batched kernel, a bank --
     sweep_phase(torch, np, kernels, rows, res, energy)
+    poisoned_grid_phase(np, kernels, rows)
 
     # --- the attention kernels, the model checks and the LLM serving path ---
     attention_phase(torch, np, rows)
@@ -1210,6 +1428,9 @@ def main():
         row = dict(rows[name], name=name)
         kernel_list.append({**{k: row[k] for k in keys},
                             **{k: v for k, v in row.items() if k not in keys}})
+    log("bellman first design, quoted from PERF.md (not measured in this run): "
+        + json.dumps([dict(shape=list(shape), ms=ms, run=run)
+                      for shape, (ms, run) in PREVIOUS_MS.items()]))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernel_list}))
     print(json.dumps({"ok": True, "device": {

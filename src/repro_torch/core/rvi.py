@@ -354,8 +354,9 @@ class BatchedRVIResult:
 # solve path (or a per-spec quarantine re-solve) instead of poisoning the
 # whole batch.  Enabled with guard=True; core.sweep turns it on by default.
 # The ladder catches no exception: a kernel that fails to build or launch
-# raises through it.  On a CUDA device with backup="pallas" it keeps only
-# the rungs the kernel still carries (see _ladder).
+# raises through it.  On a CUDA device with backup="pallas" a row that the
+# banded rung heals raises too: the kernel disagreed with its plain version
+# there (see _ladder).
 # ---------------------------------------------------------------------------
 
 
@@ -459,31 +460,34 @@ def _patch_rows(
 def _ladder(
     backup: str, mixed_precision: bool, accel: str, h0, device: torch.device
 ) -> Tuple[List[Tuple[str, dict]], bool]:
-    """The ladder's rungs in the order tried, and whether it is cut short.
+    """The reference's rungs in the reference's order, and whether the
+    banded rung checks the kernel.
 
-    On the CPU (and for backup="banded") these are the reference's rungs.
-    On a CUDA device with backup="pallas" a rung that hands the rows to
-    code the kernel does not run would heal them with an answer no kernel
-    computed, so only the plain restart stays, with the kernel on its
-    float32 phase; rows it leaves unhealthy raise (``True``).
+    The rungs are the same on every device.  On a CUDA device with
+    backup="pallas" (``True``) the ``backup_banded`` rung runs the kernel's
+    own precision, accelerant and warm start with only the correlation core
+    swapped for its plain version, so a row it heals is one the kernel left
+    unhealthy while the plain core solved it: _guarded_batched raises for
+    such rows instead of patching them.  Rows it cannot heal either (a NaN
+    spec, a poisoned warm start, an f32 conditioning loss) are the spec's
+    fault and go on down the ladder.
     """
-    on_kernel = backup == "pallas" and device.type == "cuda"
     ladder = []
     bk = backup
-    if bk == "pallas" and not on_kernel:
+    if bk == "pallas":
         ladder.append(
             ("backup_banded", dict(mp=mixed_precision, ac=accel, bk="banded", drop_h0=False))
         )
         bk = "banded"
-    if (accel != "none" or h0 is not None) and (mixed_precision or not on_kernel):
+    if accel != "none" or h0 is not None:
         ladder.append(
             ("plain_restart", dict(mp=mixed_precision, ac="none", bk=bk, drop_h0=True))
         )
-    if mixed_precision and not on_kernel:
+    if mixed_precision:
         ladder.append(
             ("float64", dict(mp=False, ac="none", bk=bk, drop_h0=True))
         )
-    return ladder, on_kernel
+    return ladder, backup == "pallas" and device.type == "cuda"
 
 
 def _guarded_batched(
@@ -507,8 +511,10 @@ def _guarded_batched(
     float64, and rows that survive all of that are quarantined: re-solved
     one by one through the scalar float64 oracle path.  Only the unhealthy
     rows ride each rung, so a healthy batch pays one numpy health check.
-    On a CUDA device with backup="pallas" the ladder is cut to the rungs
-    the kernel carries (_ladder), and rows still unhealthy raise.
+    On a CUDA device with backup="pallas" a row that the banded rung heals
+    raises (the kernel disagrees with its plain version there, _ladder);
+    every other row follows the reference's rungs, so the report is the
+    reference's on every device.
     """
 
     def run(b, h0_, mp, ac, bk):
@@ -533,7 +539,7 @@ def _guarded_batched(
     if not healthy.all():
         res = _writable(res)
         bad = np.flatnonzero(~healthy)
-        ladder, kernel_only = _ladder(backup, mixed_precision, accel, h0, device)
+        ladder, kernel_checked = _ladder(backup, mixed_precision, accel, h0, device)
         for name, opt in ladder:
             if bad.size == 0:
                 break
@@ -545,16 +551,17 @@ def _guarded_batched(
             )
             sub_res = run(sub, sub_h0, opt["mp"], opt["ac"], opt["bk"])
             ok = _spec_health(sub_res)
+            if kernel_checked and name == "backup_banded" and ok.any():
+                raise RuntimeError(
+                    f"batched RVI rows {[int(i) for i in bad[ok]]} are non-finite or "
+                    "unconverged on the CUDA Bellman kernel but healthy on its plain "
+                    "(banded) version with the same precision, accelerant and warm "
+                    "start: the kernel disagrees with its plain version"
+                )
             rungs[name] = [int(i) for i in bad]
             if ok.any():
                 _patch_rows(res, sub_res, bad[ok], np.flatnonzero(ok))
             bad = bad[~ok]
-        if bad.size and kernel_only:
-            raise RuntimeError(
-                f"batched RVI rows {[int(i) for i in bad]} are non-finite or unconverged "
-                f"on the CUDA kernel path (rungs tried: {rungs or 'none'}); the rest of "
-                "the ladder runs without the kernel: pass backup='banded' to use it"
-            )
         if bad.size:
             rungs["quarantine"] = [int(i) for i in bad]
             for i in bad:

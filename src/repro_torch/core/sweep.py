@@ -315,10 +315,11 @@ def sweep_solve(
 
     ``guard`` (default on) runs every batched solve through the rvi
     guardrail ladder; rows the full ladder cannot heal come back with NaN
-    evals rather than raising.  On a CUDA device with backup="pallas" the
-    ladder keeps only the rungs the kernel carries, and rows they cannot
-    heal raise (rvi._ladder).  Pass a list as ``report_sink`` to receive
-    one merged rvi.SolveReport for the sweep.
+    evals rather than raising, on every device.  On a CUDA device with
+    backup="pallas" a row that the banded rung heals raises instead: the
+    kernel disagreed with its plain version there (rvi._ladder).  Pass a
+    list as ``report_sink`` to receive one merged rvi.SolveReport for the
+    sweep.
     """
     if checkpoint_dir is not None:
         raise NotImplementedError(

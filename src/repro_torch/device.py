@@ -6,6 +6,7 @@ from typing import Optional, Union
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+_n_sm = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -23,3 +24,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    n = _n_sm.get(device.index)
+    if n is None:
+        n = _n_sm[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n

@@ -5,7 +5,10 @@
 (core.rvi.banded_backup's correlation core).  The kernel is
 ``csrc/bellman.cu`` -- it replaces the Pallas kernels ``bellman_banded`` /
 ``bellman_banded_batched`` of the JAX package; its header says how it is
-laid out and what bounds it.
+laid out and what bounds it.  The lanes of a warp split the k range
+``_split_plan`` ways (from the shapes and the card's SM count alone) and
+reduce their partial sums in a fixed order; ``bellman_banded_split_ref``
+repeats that partition and order in plain PyTorch, for the tests.
 
 Both wrappers take f32 tensors.  A tensor on the CPU runs the plain
 PyTorch version below; a CUDA tensor launches the kernel (one launch, on
@@ -17,10 +20,20 @@ import ctypes
 
 import torch
 
+from ..device import sm_count as _sm_count
 from . import _build
 
 #: the kernel takes at most this many specs (CUDA's grid.z limit)
 MAX_SPECS = 65535
+#: the kernel's tile (csrc/bellman.cu): consecutive base states and actions
+#: a lane keeps, actions a block covers at once, the widest staged k chunk
+#: (tests/test_torch_bellman.py holds these and the geometry below to the .cu)
+RT, RA, A_TILE, KC = 5, 3, 66, 256
+#: the splits the kernel takes: k slices per warp, 32 / split t-groups
+SPLITS = (1, 2, 4, 8, 16, 32)
+#: _split_plan's aims: warps in flight per SM, fewest k steps a slice takes
+WARPS_PER_SM, MIN_SLICE = 8, 4
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def bellman_banded_ref(h_main, pmfs, tails, h_overflow):
@@ -49,6 +62,82 @@ def bellman_banded_batched_ref(h_main, pmfs, tails, h_overflow):
     idx = torch.arange(T, device=dev)[:, None] + torch.arange(K, device=dev)[None, :]
     hwin = h_main[:, idx]  # (N, T, K)
     return torch.bmm(hwin, pmfs.transpose(1, 2)) + tails * h_overflow[:, None, None]
+
+
+def chunk_width(K: int) -> int:
+    """Width of the k chunks the kernel stages (the last may be narrower)."""
+    return max(1, min(K, KC))
+
+
+def grid_warps(N: int, T: int, A: int, split: int) -> int:
+    """Warps the kernel launches for N specs of (T, A) at ``split``."""
+    t_tile = (32 // split) * RT
+    return N * -(-T // t_tile) * -(-min(A, A_TILE) // RA)
+
+
+def _split_plan(N: int, T: int, A: int, K: int, n_sm: int) -> int:
+    """k slices per warp for N specs of (T, A, K) on a card with ``n_sm``
+    SMs: the fewest that put WARPS_PER_SM warps on every SM, as long as a
+    slice keeps at least MIN_SLICE k steps of the first chunk."""
+    w = chunk_width(K)
+    best = 1
+    for split in SPLITS:
+        if split > 1 and -(-w // split) < MIN_SLICE:
+            break
+        best = split
+        if grid_warps(N, T, A, split) >= WARPS_PER_SM * n_sm:
+            break
+    return best
+
+
+def split_slices(K: int, split: int):
+    """Per k slice s, the [k0, k1) ranges it sums, chunk by chunk, as the
+    kernel partitions them: slices of L = ceil(w / split) | 1 steps."""
+    kc = chunk_width(K)
+    out = [[] for _ in range(split)]
+    for c0 in range(0, K, kc):
+        w = min(kc, K - c0)
+        L = -(-w // split) | 1
+        for s in range(split):
+            ks, ke = s * L, min(s * L + L, w)
+            if ke > ks:
+                out[s].append((c0 + ks, c0 + ke))
+    return out
+
+
+def bellman_banded_split_ref(h_main, pmfs, tails, h_overflow, split: int):
+    """bellman_banded(_batched)_ref computed as the kernel computes it: one
+    partial sum per k slice (split_slices, chunk after chunk), each k the
+    kernel's fused multiply-add emulated: the exact product added in
+    float64, that sum rounded to float64 and then to float32 -- twice,
+    where fmaf rounds once, so the two can differ by an ulp where the
+    first rounding lands on a float32 tie -- then the lanes' butterfly in
+    float32 (at step m = 1, 2, 4, ... slice s adds slice s ^ m) and last
+    the tail term, product and sum each rounded.  Scalar or batched
+    shapes.  Slow (a step per k): for tests."""
+    batched = tails.dim() == 3
+    if not batched:
+        h_main, pmfs, tails = h_main[None], pmfs[None], tails[None]
+        h_overflow = h_overflow.reshape(1)
+    N, T, A = tails.shape
+    K = pmfs.shape[2]
+    dev = h_main.device
+    idx = torch.arange(T, device=dev)[:, None] + torch.arange(K, device=dev)[None, :]
+    hwin = h_main[:, idx].double()  # (N, T, K)
+    p64 = pmfs.double()
+    parts = []
+    for ranges in split_slices(K, split):
+        acc = torch.zeros((N, T, A), dtype=torch.float32, device=dev)
+        for k0, k1 in ranges:
+            for k in range(k0, k1):
+                acc = (acc.double() + hwin[:, :, k, None] * p64[:, None, :, k]).float()
+        parts.append(acc)
+    m = 1
+    while m < split:
+        parts = [parts[s] + parts[s ^ m] for s in range(split)]
+        m <<= 1
+    out = parts[0] + tails * h_overflow[:, None, None]
+    return out if batched else out[0]
 
 
 def _check(h_main, pmfs, tails, h_overflow, batched: bool) -> None:
@@ -91,12 +180,12 @@ def _launch(h2, p3, t3, hso1) -> torch.Tensor:
     N, T, A = t3.shape
     K = p3.shape[2]
     out = torch.empty((N, T, A), dtype=torch.float32, device=h2.device)
-    fn = _build.function("bellman", "bellman_banded_launch", ctypes.c_int,
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    split = _split_plan(N, T, A, K, _sm_count(h2.device))
+    fn = _build.function("bellman", "bellman_banded_launch", ctypes.c_int, _ARGTYPES)
     stream = torch.cuda.current_stream(h2.device).cuda_stream
     rc = fn(
         h2.data_ptr(), p3.data_ptr(), t3.data_ptr(), hso1.data_ptr(),
-        out.data_ptr(), N, T, A, K, h2.shape[1], stream,
+        out.data_ptr(), N, T, A, K, h2.shape[1], split, stream,
     )
     if rc != 0:
         raise RuntimeError(f"bellman_banded launch failed: CUDA error {rc}")

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..device import sm_count as _sm_count
 from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF, aligned16
 
@@ -33,7 +34,6 @@ from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF, aligned16
 MIN_CHUNK, MAX_SPLITS = 48, 16
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_n_sm = {}
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths, *,
@@ -104,14 +104,6 @@ def decode_attention_split_ref(q, k_cache, v_cache, lengths, n_split: int, *,
         den = den + w * l
     out = num / den.clamp(min=1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _n_sm.get(device.index)
-    if n is None:
-        n = _n_sm[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
 
 
 def check_inputs(q, k_cache, v_cache, lengths) -> None:

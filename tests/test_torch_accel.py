@@ -410,55 +410,107 @@ class TestGuardLadder:
             assert np.isfinite(r.rvi.g) and r.rvi.converged
             assert np.array_equal(r.policy, w.policy)
 
-    @pytest.mark.parametrize("backup,mp,accel,h0,dev,want,cut", [
-        # the reference's ladders, wherever the kernel does not run
+    @pytest.mark.parametrize("backup,mp,accel,h0,dev,want,checked", [
+        # the reference's ladders, on every device
         ("banded", True, "mpi", None, "cpu", ["plain_restart", "float64"], False),
         ("pallas", True, "mpi", None, "cpu",
          ["backup_banded", "plain_restart", "float64"], False),
         ("pallas", True, "none", np.zeros(3), "cpu",
          ["backup_banded", "plain_restart", "float64"], False),
         ("banded", True, "none", None, "cuda", ["float64"], False),
-        # the kernel on the card: only the restart whose f32 phase it runs
-        ("pallas", True, "mpi", None, "cuda", ["plain_restart"], True),
-        ("pallas", True, "none", np.zeros(3), "cuda", ["plain_restart"], True),
-        ("pallas", True, "none", None, "cuda", [], True),
-        ("pallas", False, "anderson", None, "cuda", [], True),
+        # the kernel on the card: the same rungs, the banded one checks it
+        ("pallas", True, "mpi", None, "cuda",
+         ["backup_banded", "plain_restart", "float64"], True),
+        ("pallas", True, "none", np.zeros(3), "cuda",
+         ["backup_banded", "plain_restart", "float64"], True),
+        ("pallas", True, "none", None, "cuda", ["backup_banded", "float64"], True),
+        ("pallas", False, "anderson", None, "cuda", ["backup_banded", "plain_restart"], True),
     ])
-    def test_ladder_keeps_the_kernel_on_the_card(self, backup, mp, accel, h0, dev, want, cut):
-        ladder, kernel_only = pt_rvi._ladder(backup, mp, accel, h0, torch.device(dev))
+    def test_ladder_keeps_the_kernel_on_the_card(self, backup, mp, accel, h0, dev, want,
+                                                 checked):
+        """The reference's rungs on every device; on the card with the
+        kernel the banded rung is the kernel's run with only the core
+        swapped (same precision, accelerant and warm start)."""
+        ladder, kernel_checked = pt_rvi._ladder(backup, mp, accel, h0, torch.device(dev))
         assert [name for name, _ in ladder] == want
-        assert kernel_only == cut
-        if cut:
-            assert all(opt["bk"] == "pallas" and opt["mp"] for _, opt in ladder)
+        assert kernel_checked == checked
+        on_cpu, _ = pt_rvi._ladder(backup, mp, accel, h0, torch.device("cpu"))
+        assert ladder == on_cpu
+        if backup == "pallas":
+            assert ladder[0][1] == dict(mp=mp, ac=accel, bk="banded", drop_h0=False)
+            assert all(opt["bk"] == "banded" for _, opt in ladder)
 
-    @pytest.mark.parametrize("heals", [True, False])
-    def test_kernel_ladder_restarts_on_the_kernel_or_raises(self, monkeypatch, heals):
-        """With the device taken for CUDA, an unhealthy row rides only the
-        kernel's restart: healed there, or the solve raises naming it.  The
-        solves themselves run on the CPU (a stand-in that poisons row 1 of
-        the accelerated solve, or of every solve)."""
-        batch = port_batch(_grid(4))
+    @staticmethod
+    def _on_cpu(monkeypatch, poison=None):
+        """Solves run on the CPU while the ladder takes the device for
+        CUDA; ``poison(b, accel, backup, res)`` may spoil a batched result.
+        Returns the list of (n_specs, accel, backup) batched calls."""
         real = pt_rvi.relative_value_iteration_batched
+        real_scalar = pt_rvi.relative_value_iteration
         seen = []
 
         def fake(b, *, accel, backup, device, **kw):
             seen.append((b.n_specs, accel, backup))
             res = real(b, accel=accel, backup=backup, device=CPU, **kw)
-            if b.n_specs == 4 and (accel != "none" or not heals):
-                res.g[1] = np.nan
-            elif b.n_specs == 1 and not heals:
-                res.g[0] = np.nan
+            if poison is not None:
+                poison(b, accel, backup, res)
             return res
 
         monkeypatch.setattr(pt_rvi, "relative_value_iteration_batched", fake)
+        monkeypatch.setattr(pt_rvi, "relative_value_iteration",
+                            lambda mdp, *, device, **kw: real_scalar(mdp, device=CPU, **kw))
+        return seen
+
+    @pytest.mark.parametrize("heals", [True, False])
+    def test_kernel_ladder_restarts_on_the_kernel_or_raises(self, monkeypatch, heals):
+        """With the device taken for CUDA, a row the kernel run leaves
+        unhealthy: if the banded rung (the same run on the plain core)
+        heals it, the kernel disagrees with its plain version and the solve
+        raises naming it; if no batched rung heals it, it rides the
+        reference's rungs down to the quarantine, which heals it.  The
+        solves run on the CPU (a stand-in that poisons row 1 of the kernel
+        run, or of every batched solve)."""
+        batch = port_batch(_grid(4))
+
+        def poison(b, accel, backup, res):
+            if b.n_specs == 4 or not heals:
+                res.g[1 if b.n_specs == 4 else 0] = np.nan
+
+        seen = self._on_cpu(monkeypatch, poison)
         run = lambda: pt_rvi._guarded_batched(  # noqa: E731
             batch, eps=1e-2, max_iter=10_000, eps_rel=2e-4, h0=None, mixed_precision=True,
             accel="mpi", backup="pallas", accel_kw={}, device=torch.device("cuda"))
         if heals:
-            res = run()
-            assert res.report.rungs == {"plain_restart": [1]}
-            assert res.report.healthy.all() and not res.report.quarantined
-        else:
-            with pytest.raises(RuntimeError, match=r"rows \[1\]"):
+            with pytest.raises(RuntimeError, match=r"rows \[1\] .*disagrees with its plain"):
                 run()
-        assert seen == [(4, "mpi", "pallas"), (1, "none", "pallas")]
+            assert seen == [(4, "mpi", "pallas"), (1, "mpi", "banded")]
+        else:
+            rep = run().report
+            assert rep.rungs == {name: [1] for name in
+                                 ("backup_banded", "plain_restart", "float64", "quarantine")}
+            assert rep.quarantined == [1] and not rep.failed and rep.healthy.all()
+            assert seen == [(4, "mpi", "pallas"), (1, "mpi", "banded"),
+                            (1, "none", "banded"), (1, "none", "banded")]
+
+    @pytest.mark.parametrize("accel", ["none", "mpi"])
+    def test_nan_spec_on_the_card_follows_the_reference(self, monkeypatch, accel):
+        """A NaN spec with the device taken for CUDA and backup="pallas":
+        the reference's rungs, quarantine and ``failed``, the same report
+        as the reference's; the other rows equal the reference's."""
+        specs = _grid(4)
+        specs[2] = dataclasses.replace(specs[2], w2=float("nan"))
+        seen = self._on_cpu(monkeypatch)
+        got = pt_rvi._guarded_batched(
+            port_batch(specs), eps=1e-2, max_iter=10_000, eps_rel=2e-4, h0=None,
+            mixed_precision=True, accel=accel, backup="pallas", accel_kw={},
+            device=torch.device("cuda"))
+        want = relative_value_iteration_batched(
+            build_smdp_batched(specs), guard=True, backup="pallas", accel=accel)
+        rep, ref = got.report, want.report
+        assert rep.rungs == ref.rungs and 2 in rep.rungs["backup_banded"]
+        assert rep.quarantined == ref.quarantined == [2]
+        assert rep.failed == ref.failed == [2]
+        np.testing.assert_array_equal(rep.healthy, ref.healthy)
+        assert seen[0] == (4, accel, "pallas") and seen[1] == (1, accel, "banded")
+        keep = [0, 1, 3]
+        np.testing.assert_array_equal(got.policies[keep], want.policies[keep])

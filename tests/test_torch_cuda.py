@@ -7,17 +7,22 @@ machine that has PyTorch with CUDA alone:
 
 Every test is marked `cuda` and skips where torch.cuda.is_available() is
 false (the kernels have no CPU mode).  Tolerances are the reference's:
-atol 1e-4 / rtol 1e-5 for the f32 Bellman backup (sums in another order),
-1e-5 / 1e-6 between the batched and scalar launches of the same kernel,
+atol 1e-4 / rtol 1e-5 for the f32 Bellman backup (sums in another order;
+also at the edges of its design: T off its tiles, A around its 3-action
+warps, K around its 256-wide chunks and 4097, unaligned h_len and bases),
+1e-5 / 1e-6 between the batched and scalar launches of the same kernel
+and against its plain mirror (bellman_banded_split_ref),
 1e-9 on serving latencies (the event walk is bit-for-bit the plain
 version's arithmetic), equal policies between the kernel and banded
-batched solves (lockstep, MPI, Anderson) and a sweep whose guard ladder
-fires no rung (a poisoned warm start heals on the kernel's own restart,
-a NaN spec raises), 2e-5 (f32) and 2e-2 (bf16) for the attention
-kernels against their plain versions (tests/test_kernels.py's), 2e-6 for
-the f32 decode kernel against the plain mirror of its split-K arithmetic
-(the same sums in another order), and atol 3e-4 on model logits
-(tests/test_models.py's).
+batched solves (lockstep, MPI, Anderson), their g at rtol 1e-6 of each
+other (the float64 finish run to eps 1e-6) and of the same solve through
+the kernel's mirror, and a sweep whose guard ladder
+fires no rung (the ladder is the reference's: a poisoned warm start heals
+on the plain restart, a NaN spec completes as failed), 2e-5 (f32) and
+2e-2 (bf16) for the attention kernels against their plain versions
+(tests/test_kernels.py's), 2e-6 for the f32 decode kernel against the
+plain mirror of its split-K arithmetic (the same sums in another order),
+and atol 3e-4 on model logits (tests/test_models.py's).
 """
 import copy
 import dataclasses
@@ -88,6 +93,89 @@ def test_batched_kernel_matches_plain_and_scalar(cuda, N, T, A, K):
         torch.testing.assert_close(got[n], one, atol=1e-5, rtol=1e-6)
 
 
+#: edges of the kernel's design: T off the 5-state lanes and the t tiles,
+#: A = 1, 9, 33 (multiples of the 3-action warps), 64, 65 (ragged warps),
+#: K = 1, either side of the 256-wide chunk, and 4097 (17 chunks, the ring)
+EDGE_T, EDGE_A, EDGE_K = (1, 63, 65, 129), (1, 9, 33, 64, 65), (1, 255, 256, 257, 4097)
+
+
+def _edge_inputs(seed, N, T, A, K, dev, *, extra, h_off, p_off, neg, zero_tails):
+    """Inputs with h_len = T + K - 1 + extra, h and pmfs at bases h_off /
+    p_off words past a 16-byte boundary, hso of either sign, tails or zeros."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(N, T + K - 1 + extra)) * 10
+    logits = rng.normal(size=(N, A, K))
+    pmfs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    tails = np.zeros((N, T, A)) if zero_tails else rng.uniform(size=(N, T, A))
+    hso = rng.normal(size=N) * 3 + (-5.0 if neg else 5.0)
+
+    def at(x, off):
+        buf = torch.zeros(x.size + 4, dtype=torch.float32, device=dev)
+        view = buf[off:off + x.size].view(x.shape)
+        view.copy_(torch.as_tensor(x, dtype=torch.float32))
+        return view
+
+    return at(h, h_off), at(pmfs, p_off), at(tails, 0), at(hso, 0)
+
+
+@pytest.mark.parametrize("K", EDGE_K)
+@pytest.mark.parametrize("A", EDGE_A)
+@pytest.mark.parametrize("T", EDGE_T)
+def test_bellman_kernel_edges(cuda, T, A, K):
+    """The kernel against its plain version at its design's edges, with
+    unaligned h_len and bases, negative hso and zero tails among the cases."""
+    i = T + A + K
+    args = _edge_inputs(i, 1, T, A, K, cuda, extra=1 + i % 3, h_off=i % 4,
+                        p_off=(i // 4) % 4, neg=i % 2 == 0, zero_tails=i % 5 == 0)
+    h, pmfs, tails, hso = (x[0] for x in args)
+    before = tb.bellman_banded.launches
+    got = tb.bellman_banded(h, pmfs, tails, hso)
+    torch.cuda.synchronize()
+    assert tb.bellman_banded.launches == before + 1
+    torch.testing.assert_close(got, tb.bellman_banded_ref(h, pmfs, tails, hso),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("N,T,A,K", [(1, 65, 9, 65), (17, 63, 33, 257), (17, 129, 65, 56),
+                                     (108, 129, 33, 66), (108, 1, 1, 1), (17, 65, 64, 4097)])
+def test_batched_kernel_edges(cuda, N, T, A, K):
+    """The batched launch against its plain version (1e-4 / 1e-5) and against
+    N scalar launches (1e-5 / 1e-6: the split may differ, so the sums' order
+    may too), at N = 1, 17 and 108, with unaligned bases and negative hso."""
+    args = _edge_inputs(N + T + K, N, T, A, K, cuda, extra=2, h_off=1, p_off=3,
+                        neg=True, zero_tails=N == 1)
+    before = tb.bellman_banded_batched.launches
+    got = tb.bellman_banded_batched(*args)
+    torch.cuda.synchronize()
+    assert tb.bellman_banded_batched.launches == before + 1
+    torch.testing.assert_close(got, tb.bellman_banded_batched_ref(*args), atol=1e-4, rtol=1e-5)
+    for n in range(N):
+        one = tb.bellman_banded(*(x[n] for x in args))
+        torch.testing.assert_close(got[n], one, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("N,T,A,K", [(1, 129, 33, 129), (1, 65, 9, 65), (1, 4097, 33, 4097),
+                                     (108, 129, 33, 66), (17, 129, 33, 56), (2, 7, 100, 40)])
+def test_bellman_geometry_matches_the_plan(cuda, N, T, A, K):
+    """The C launch geometry at the wrapper's split: the warps the plan
+    counted, one block per t tile and spec, a tile of every action up to
+    A_TILE, and shared memory within the card's 227 KB."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    split = tb._split_plan(N, T, A, K, tb._sm_count(cuda))
+    geo = (ctypes.c_longlong * 5)()
+    fn = _build.function("bellman", "bellman_banded_geometry", ctypes.c_int,
+                         [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    assert fn(N, T, A, K, split, geo) == 0
+    gx, gy, gz, threads, smem = list(geo)
+    assert gx * gy * gz * threads // 32 == tb.grid_warps(N, T, A, split)
+    assert gz == N and threads == 32 * -(-min(A, tb.A_TILE) // tb.RA)
+    assert smem <= 227 * 1024
+    assert fn(N, T, A, K, 3, geo) != 0  # a split the kernel does not take
+
+
 def test_event_kernel_matches_plain(cuda):
     svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY, family="det")
     means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, 33)])
@@ -130,20 +218,57 @@ def _sweep_specs(rho, n=3, b_max=16, s_max=64):
             for w in np.linspace(0.0, 8.0, n)]
 
 
+def _mirror_launch(h2, p3, t3, hso1):
+    """The kernel's launch replaced by its plain mirror (the same
+    partition, emulated fused multiply-adds and reduction order, on the
+    same card)."""
+    N, T, A = t3.shape
+    split = tb._split_plan(N, T, A, p3.shape[2], tb._sm_count(h2.device))
+    return tb.bellman_banded_split_ref(h2, p3, t3, hso1, split)
+
+
 @pytest.mark.parametrize("accel,rho", [("none", 0.5), ("mpi", 0.7), ("anderson", 0.7)])
-def test_batched_kernel_solve_matches_banded(cuda, accel, rho):
+def test_batched_kernel_solve_matches_banded(cuda, accel, rho, monkeypatch):
     """The batched loops with every lockstep backup on the spec-batched
-    kernel give the banded path's policies, on the card."""
+    kernel give the banded path's policies and g (rtol 1e-6), on the card.
+    The float64 finish runs to eps 1e-6 (about 1e-8 of g), so where the
+    float32 phase stops -- which moves with the kernel's sum order -- does
+    not decide g.  The same solve with the kernel's plain mirror as
+    the backup takes the same iterations and gives the same policies and g."""
     batch = pt.build_smdp_batched(_sweep_specs(rho))
+    tight = dict(accel=accel, eps=1e-6, eps_rel=1e-9, device=cuda)
     before = tb.bellman_banded_batched.launches
-    got = pt.relative_value_iteration_batched(batch, accel=accel, backup="pallas",
-                                              device=cuda)
+    got = pt.relative_value_iteration_batched(batch, backup="pallas", **tight)
     launched = tb.bellman_banded_batched.launches - before
-    want = pt.relative_value_iteration_batched(batch, accel=accel, device=cuda)
+    want = pt.relative_value_iteration_batched(batch, **tight)
     assert launched > 0
     assert got.converged.all() and want.converged.all()
     np.testing.assert_array_equal(got.policies, want.policies)
     np.testing.assert_allclose(got.g, want.g, rtol=1e-6)
+    monkeypatch.setattr(tb, "_launch", _mirror_launch)
+    same = pt.relative_value_iteration_batched(batch, backup="pallas", **tight)
+    np.testing.assert_array_equal(same.iterations, got.iterations)
+    np.testing.assert_array_equal(same.policies, got.policies)
+    np.testing.assert_allclose(got.g, same.g, rtol=1e-6)
+
+
+@pytest.mark.parametrize("N,T,A,K", [(None, 129, 33, 129), (None, 65, 9, 65),
+                                     (17, 129, 33, 56), (108, 129, 33, 66), (3, 33, 33, 33),
+                                     (None, 200, 33, 600)])
+def test_bellman_kernel_matches_its_mirror(cuda, N, T, A, K):
+    """The kernel against bellman_banded_split_ref at the split it plans:
+    the same arithmetic, so equal up to rounding of the mirror's emulated
+    fused multiply-adds (atol 1e-5, rtol 1e-6, ten times tighter than the
+    plain-version bar), at the paths' shapes and a two-chunk K."""
+    args = _inputs(T + A + K, T, A, K, N or 1, cuda)
+    if N is None:
+        args = [x[0] for x in args]
+        got = tb.bellman_banded(*args)
+    else:
+        got = tb.bellman_banded_batched(*args)
+    split = tb._split_plan(N or 1, T, A, K, tb._sm_count(cuda))
+    want = tb.bellman_banded_split_ref(*args, split)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-6)
 
 
 def test_kernel_sweep_fires_no_rung(cuda):
@@ -161,10 +286,11 @@ def test_kernel_sweep_fires_no_rung(cuda):
 
 
 def test_kernel_ladder_heals_on_the_kernel_or_raises(cuda):
-    """On the card with backup="pallas" the guard ladder keeps the kernel:
-    a poisoned warm start heals through the plain restart (its f32 phase
-    on the kernel), and a NaN spec raises instead of reaching the banded,
-    float64 and quarantine rungs, which run without it."""
+    """On the card with backup="pallas" the guard ladder is the
+    reference's: a poisoned warm start survives the banded rung (same warm
+    start) and heals on the plain restart; a grid with a NaN spec completes,
+    that row quarantined and failed, every other row healthy and equal in
+    policy to the same grid without it.  Both runs start on the kernel."""
     specs = _sweep_specs(0.5, n=4)
     batch = pt.build_smdp_batched(specs)
     clean = pt.relative_value_iteration_batched(batch, backup="pallas", device=cuda)
@@ -174,11 +300,25 @@ def test_kernel_ladder_heals_on_the_kernel_or_raises(cuda):
     res = pt.relative_value_iteration_batched(batch, h0=h0, guard=True, backup="pallas",
                                               device=cuda)
     assert tb.bellman_banded_batched.launches > before
-    assert res.report.rungs == {"plain_restart": [1]} and res.report.healthy.all()
+    assert res.report.rungs == {"backup_banded": [1], "plain_restart": [1]}
+    assert res.report.healthy.all()
     np.testing.assert_array_equal(res.policies, clean.policies)
     specs[2] = dataclasses.replace(specs[2], w2=float("nan"))
-    with pytest.raises(RuntimeError, match="on the CUDA kernel path"):
-        pt.sweep_solve(specs, backup="pallas", delta=None, auto_c_o=False, device=cuda)
+    sink = []
+    before = tb.bellman_banded_batched.launches
+    got = pt.sweep_solve(specs, backup="pallas", report_sink=sink, delta=None,
+                         auto_c_o=False, device=cuda)
+    assert tb.bellman_banded_batched.launches > before
+    rep = sink[0]
+    assert rep.quarantined == rep.failed == [2]
+    assert rep.rungs["backup_banded"] == [2]
+    assert rep.healthy.tolist() == [True, True, False, True]
+    assert np.isnan(got[2].eval.g)
+    without = pt.sweep_solve(specs[:2] + specs[3:], backup="pallas", delta=None,
+                             auto_c_o=False, device=cuda)
+    for a, b in zip(got[:2] + got[3:], without):
+        assert a.spec.s_max == b.spec.s_max
+        np.testing.assert_array_equal(a.policy, b.policy)
 
 
 # --- attention kernels ------------------------------------------------------
