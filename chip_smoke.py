@@ -13,7 +13,10 @@
    and bases, negative hso, zero tails); its batched form at the reference
    batched shapes, also against per-spec scalar launches; the serving
    event kernel on a few thousand epochs -- and times each against its
-   bound.  The Bellman rows also carry the launch floor (an empty kernel
+   bound.  Every instance of the event kernel (plain, managed queue,
+   adaptive, both; one lane or a grid) is held against the plain walk on
+   the inputs of the launch that times it: counts, clocks, sums,
+   histograms, surviving queues and records equal.  The Bellman rows also carry the launch floor (an empty kernel
    with the same grid, block and shared memory, built beside the kernels),
    the split, the blocks, the shared memory and the registers from the
    ptxas log.  The first design's times (PREVIOUS_MS, naming their runs)
@@ -46,6 +49,26 @@
    backup="pallas": the sweep completes with that row quarantined and
    failed (the reference's guard ladder), the other rows equal the grid
    without it, and the batched kernel's launch count rose.
+4d. Overload shedding on one server (benchmarks/degraded_frontier.py's
+   shedding section, through ServingEngine / simulate_compiled instead of
+   the M = 1 fleet), counters zeroed just before and read just after:
+   GoogLeNet-P4, b_max 16, waiting room 24, rho 1.2, c_drop 50, w2 1.  The
+   drop-cost-aware finite-buffer solve through the Bellman kernel (one
+   launch per backup, policy equal to the f64 banded and CPU paths), the
+   blind rho 0.7 table, verify_backends with buffer 24, slo 2.0 and
+   shed_expired on both tables and both arrival families (decisions,
+   latencies, n_shed, n_expired equal), then 4 seeds x 8000 arrivals per
+   family through the managed-queue lane.  Gate: aware serves from a
+   lower queue and wins MMPP2 goodput, seed-averaged.
+4e. The adaptive bank under bursty MMPP (benchmarks/mmpp_bursty.py's
+   bursty scenario: rho 0.08 / 0.85, dwell 4000 / 800, w2 0.5, horizon
+   40 000, 5 grid points and the mean rate), counters zeroed just before
+   and read just after: sweep_bank on the spec-batched kernel;
+   verify_backends(scheduler=AdaptiveController) on the first trace, also
+   with a finite room; run_grid over 6 seeds x (bank + greedy) and
+   run_grid_adaptive over 6 seeds, one launch each, every lane's W + w2 P
+   held against the Python engines at rtol 1e-9 and the switch counts
+   exactly; events/s of both backends.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -488,10 +511,107 @@ def kernel_phase(torch, np):
     return rows
 
 
-def serve_scan_row(torch, np, table, row):
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/serve_scan.cu"
+SCAN_REPLACES = ("src/repro/serving/compiled.py:328 (_scan_core{}: a lax.scan, "
+                 "not a Pallas kernel)")
+
+
+def scan_inputs(torch, np, tables, arrivals, draws, means, zeta, *,
+                deadlines=None, adaptive=None):
+    """The event kernel's CPU tensors for (P, K, L) tables and (S, size)
+    padded traces, as serving.compiled builds them (default edges, phase
+    0, no deadlines unless given)."""
+    from repro_torch.serving.compiled import default_hist_edges
+
+    t = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x), dtype=dt)  # noqa: E731
+    args = (t(tables, torch.int64), t(arrivals, torch.float64),
+            None if deadlines is None else t(deadlines, torch.float64),
+            t(np.zeros(arrivals.shape), torch.int64), t(draws, torch.float64),
+            t(means, torch.float64), t(zeta, torch.float64),
+            t(default_hist_edges(means), torch.float64))
+    ad = None
+    if adaptive is not None:
+        ad_f, ad_i = adaptive.lowered()
+        ad = (t(ad_f, torch.float64), t(ad_i, torch.int64))
+    return args, ad
+
+
+def scan_check(torch, np, name, args, kw, adaptive=None, reps=3):
+    """One instance of the event kernel on the card against its plain
+    version on the same inputs: counts, clocks, sums, histograms, surviving
+    queues and records equal.  Returns the row's measured numbers."""
+    from repro_torch.kernels import serve_scan as ss
+
+    cuda = lambda x: None if x is None else x.cuda()  # noqa: E731
+    gargs = [cuda(a) for a in args]
+    gad = None if adaptive is None else tuple(cuda(a) for a in adaptive)
+    out = ss.serve_scan(*gargs, adaptive=gad, **kw)  # builds and warms
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ss.serve_scan(*gargs, adaptive=gad, **kw)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    t0 = time.perf_counter()
+    ref = ss.serve_scan_ref(*args, adaptive=adaptive, **kw)
+    plain = (time.perf_counter() - t0) * 1e3
+    got = ss.ScanOut(*(None if x is None else x.cpu() for x in out))
+    check(torch.equal(got.agg_i, ref.agg_i), f"{name}: counts differ from the plain version")
+    check(torch.equal(got.hist, ref.hist), f"{name}: histograms differ")
+    check(torch.allclose(got.agg_f, ref.agg_f, rtol=0, atol=0, equal_nan=True),
+          f"{name}: clocks or sums differ from the plain version")
+    err = (got.agg_f - ref.agg_f).nan_to_num(0.0).abs().max().item()
+    col = {k: i for i, k in enumerate(ss.AGG_I)}
+    for lane, row in enumerate(ref.agg_i.tolist()):
+        n_srv, n_eps = row[col["n_served"]], row[col["n_epochs"]]
+        if ref.queue is not None:
+            h, tl = row[col["head"]], row[col["tail"]]
+            check(torch.equal(got.queue[lane, h:tl], ref.queue[lane, h:tl]),
+                  f"{name}: surviving queue of lane {lane} differs")
+        if ref.rec_a is not None:
+            check(torch.equal(got.rec_a[lane, :n_eps], ref.rec_a[lane, :n_eps]),
+                  f"{name}: decisions of lane {lane} differ")
+            check(torch.equal(got.rec_slot[lane, :n_srv], ref.rec_slot[lane, :n_srv]),
+                  f"{name}: served slots of lane {lane} differ")
+            d = (got.rec_done[lane, :n_srv] - ref.rec_done[lane, :n_srv]).abs()
+            err = max(err, d.max().item() if n_srv else 0.0)
+            check(err == 0.0, f"{name}: completion times of lane {lane} differ")
+    lanes = ref.agg_i.shape[0]
+    a = {k: ref.agg_i[:, i].numpy() for k, i in col.items()}
+    events = int(a["n_served"].sum() + a["n_epochs"].sum())
+    # bytes: each trace's used prefix read once (arrivals, phases, and
+    # deadlines where given), its draws, the tables, the outputs written
+    tables, arr, dl = args[0], args[1], args[2]
+    n_pol = 1 if adaptive is not None else tables.shape[0]
+    per_trace = a["n_admitted"].reshape(arr.shape[0], n_pol).max(1) + 1
+    bat = a["n_batches"].reshape(arr.shape[0], n_pol).max(1)
+    rec = 0 if ref.rec_a is None else int(4 * a["n_epochs"].sum() + 12 * a["n_served"].sum())
+    n_bytes = int(8 * per_trace.sum() * (2 + (dl is not None)) + 8 * bat.sum()
+                  + 8 * tables.numel() + 8 * 3 * args[5].numel() + 8 * args[7].numel()
+                  + lanes * 8 * (len(ss.AGG_I) + len(ss.AGG_F) + ref.hist.shape[1])
+                  + (0 if ref.queue is None else int(4 * a["tail"].sum())) + rec)
+    # operations: the f64 clock, latency and sums per event, and per taken
+    # arrival the EWMA and P scaled distances of the adaptive lane
+    flops = 2 * a["n_epochs"].sum() + 4 * a["n_served"].sum()
+    if adaptive is not None:
+        flops += (6 + 5 * tables.shape[0]) * (a["n_admitted"] - a["n_shed"]).sum()
+    b_ms, b_by = bound(n_bytes, int(flops), F64_FLOPS)
+    log(f"{name} ({lanes} lanes, {events} events): kernel_ms={best:.3f} plain_ms={plain:.3f} "
+        f"(Python walk on the host) bound_ms={b_ms:.6f} ({b_by}); counts, sums, "
+        f"histograms, queues and records equal to the plain version")
+    return dict(route="cuda", source=SCAN_SOURCE, max_abs_err=err, ms=best,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=[lanes, events], epochs=int(a["n_epochs"].sum()),
+                admissions=int(a["n_admitted"].sum()))
+
+
+def serve_scan_row(torch, np, table, energy, row):
     """Time the event kernel and its plain version on the main path's own
     inputs, and hold them against each other there too."""
-    from repro_torch.kernels import serve_scan as ss
     from repro_torch.serving import PoissonProcess
     from repro_torch.serving.arrivals import take
     from repro_torch.serving.compiled import pad_arrivals
@@ -507,48 +627,14 @@ def serve_scan_row(torch, np, table, row):
     arr, _ = pad_arrivals(np.array([e.time for e in ev]))
     log(f"serve inputs: {len(ev)} Poisson events drawn on the host in "
         f"{time.perf_counter() - t0:.3f} s")
-    on = lambda x, dt, d="cuda": torch.as_tensor(x, dtype=dt, device=d)  # noqa: E731
-    kw = dict(t0=0.0, horizon=float("inf"), max_eps=N_EPOCHS, drain=False, b_max=B_MAX)
-
-    def scan_args(d):
-        return (on(table[None], torch.int64, d), on(arr, torch.float64, d),
-                on(np.zeros(len(arr)), torch.int64, d),
-                on(np.ones(N_EPOCHS), torch.float64, d), on(means, torch.float64, d))
-
-    gpu_args = scan_args("cuda")
-    out = ss.serve_scan(*gpu_args, **kw)
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ss.serve_scan(*gpu_args, **kw)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end))
-    t0 = time.perf_counter()
-    ref = ss.serve_scan_ref(*scan_args("cpu"), **kw)
-    plain = (time.perf_counter() - t0) * 1e3
-    n_srv, n_adm, n_bat, n_eps, _ = ref.agg.tolist()
-    check(out.agg.tolist() == ref.agg.tolist(), "serve_scan aggregates at 100k epochs")
-    check(torch.equal(out.rec_a[:n_eps].cpu(), ref.rec_a), "serve_scan decisions at 100k")
-    t_err = (out.rec_t[:n_eps].cpu() - ref.rec_t).abs().max().item()
-    check(t_err <= 1e-9, f"serve_scan clocks off by {t_err}")
-    b_ms, b_by = bound(
-        8 * (n_adm + 1) + 8 * n_adm + 8 * n_bat + means.nbytes + table.nbytes
-        + 12 * n_eps + 48,
-        2 * n_eps, F64_FLOPS,
-    )
-    log(f"serve_scan {n_eps} epochs / {n_adm} admissions: kernel_ms={best:.3f} "
-        f"plain_ms={plain:.3f} (Python loop on the host) bound_ms={b_ms:.6f} ({b_by}); "
-        f"decisions equal, max clock err {t_err:.3e}")
-    row.update(
-        route="cuda", source="src/repro_torch/kernels/csrc/serve_scan.cu",
-        replaces="src/repro/serving/compiled.py:328 (_scan_core: a lax.scan, not a Pallas kernel)",
-        max_abs_err=max(row["max_abs_err"], t_err), ms=best, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[n_eps, n_adm],
-    )
+    args, _ = scan_inputs(torch, np, table[None, None], arr[None],
+                          np.ones((1, N_EPOCHS)), means, energy)
+    kw = dict(t0=0.0, horizon=float("inf"), max_eps=N_EPOCHS, drain=False,
+              b_max=B_MAX, record=True)
+    got = scan_check(torch, np, "serve_scan", args, kw)
+    row.update(got, replaces=SCAN_REPLACES.format(""),
+               max_abs_err=max(row["max_abs_err"], got["max_abs_err"]),
+               shape=[got["epochs"], got["admissions"]])
 
 
 def profile_busy(torch, fn):
@@ -926,6 +1012,268 @@ def poisoned_grid_phase(np, kernels, rows):
 # ---------------------------------------------------------------------------
 # Attention kernels
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Single-server serving: overload shedding through the managed-queue lane
+# (benchmarks/degraded_frontier.py section 3) and the adaptive bank under
+# bursty MMPP (benchmarks/mmpp_bursty.py's compiled sections)
+# ---------------------------------------------------------------------------
+
+#: degraded_frontier.py's shedding setup: b_max 16, waiting room 24, rho
+#: 1.2, drop price 50, w2 1, 8000 arrivals per trace, 4 seeds (400 + s)
+SHED_BMAX, SHED_BUFFER, SHED_RHO, SHED_C_DROP, SHED_N, SHED_SEEDS = 16, 24, 1.2, 50.0, 8000, 4
+#: mmpp_bursty.py's "bursty" scenario: rho 0.08 / 0.85, w2 0.5, dwell
+#: 4000 / 800, horizon 40 000, 5 grid points (and the mean rate), 6 seeds
+BURSTY = dict(r1=0.08, r2=0.85, w2=0.5, dwell1=4000.0, dwell2=800.0)
+BURSTY_HORIZON, BURSTY_POINTS, BURSTY_SEEDS = 40_000.0, 5, 6
+ADAPTIVE_KW = dict(ewma=0.15, margin=0.2, min_dwell=20.0)
+ADAPTIVE_BUFFER = 16  # a waiting room the bursts overflow: refusals stay unobserved
+
+
+def shedding_phase(torch, np, kernels, rows):
+    """The drop-cost-aware finite-buffer policy against the blind one on
+    one server, counters zeroed just before and read just after."""
+    from repro_torch.core import (GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY,
+                                  ServiceModel, SMDPSpec, solve)
+    from repro_torch.serving import histogram_quantiles, simulate_compiled, verify_backends
+    from repro_torch.serving.arrivals import MMPP2
+
+    bm = SHED_BMAX
+    svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, bm + 1)])
+    zeta = np.array([0.0] + [float(GOOGLENET_P4_ENERGY(b)) for b in range(1, bm + 1)])
+
+    def spec(rho, **kw):
+        return SMDPSpec(lam=rho * bm / float(svc.mean(bm)), service=svc,
+                        energy=GOOGLENET_P4_ENERGY, b_min=1, b_max=bm, w1=1.0,
+                        w2=1.0, **kw)
+
+    lam = SHED_RHO * bm / float(svc.mean(bm))
+
+    def trace(mode, seed):  # degraded_frontier.py's _trace
+        rng = np.random.default_rng(seed)
+        if mode == "poisson":
+            return np.cumsum(rng.exponential(1.0 / lam, SHED_N))
+        m = MMPP2(lam1=0.25 * lam, lam2=1.75 * lam, dwell1=40.0, dwell2=40.0)
+        return np.asarray(m.sample_arrivals(SHED_N / m.mean_rate, rng)[0])
+
+    modes = ("mmpp2", "poisson")
+    traces = {(mode, s): trace(mode, 400 + s) for mode in modes for s in range(SHED_SEEDS)}
+    aware_spec = spec(SHED_RHO, s_max=SHED_BUFFER, buffer=SHED_BUFFER, c_drop=SHED_C_DROP)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    aware = solve(aware_spec, backup="pallas", device="cuda")
+    aware_launches = kernels.launch_counts()["bellman_banded"]
+    blind = solve(spec(0.7, s_max=128), backup="pallas", device="cuda")
+    tabs = {"aware": aware.action_table(), "blind": blind.action_table()}
+    verified = []
+    for mode in modes:
+        for name, tab in tabs.items():
+            out = verify_backends(tab, traces[(mode, 0)], service=svc, energy_table=zeta,
+                                  b_max=bm, buffer=SHED_BUFFER, slo=2.0,
+                                  shed_expired=True, device="cuda")
+            rep = out["python"]
+            verified.append((mode, name, out["n_decisions"], rep.n_shed, rep.n_expired))
+    stats = {}
+    for (mode, s), tr in traces.items():
+        for name, tab in tabs.items():
+            r = simulate_compiled(tab, tr, means=means, zeta=zeta, b_max=bm,
+                                  buffer=SHED_BUFFER, device="cuda")
+            offered = r.n_admitted  # every door-seen arrival, refusals included
+            stats.setdefault((mode, name), []).append(dict(
+                goodput=r.n_served / r.t_final, drop_rate=r.n_shed / offered,
+                W_mean=r.lat_sum / r.n_served,
+                P95=float(histogram_quantiles(r.hist, r.hist_edges, [0.95])[0]),
+                power=r.energy / r.t_final))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    log(f"shedding path launches: {counts} (wall {wall:.2f} s)")
+    check(aware_launches == aware.rvi.iterations + 1,
+          f"finite-buffer solve: {aware_launches} launches for {aware.rvi.iterations} + 1 backups")
+    check(counts["bellman_banded"] > aware_launches, "blind solve skipped the Bellman kernel")
+    n_runs = len(verified) + len(traces) * len(tabs)
+    check(counts.get("serve_scan:qman", 0) == n_runs,
+          f"{counts.get('serve_scan:qman', 0)} managed-queue launches for {n_runs} runs")
+    for mode, name, n_dec, n_shed, n_exp in verified:
+        log(f"verify_backends shedding {mode} {name} (seed 400, buffer {SHED_BUFFER}, slo 2.0, "
+            f"shed_expired): python loop == event kernel, {n_dec} batches, n_shed {n_shed}, "
+            f"n_expired {n_exp}")
+        check(n_shed > 0 and n_exp > 0, f"{mode} {name}: nothing shed, the lane is not shown")
+    banded = solve(aware_spec, device="cuda")
+    cpu = solve(aware_spec, backup="pallas", device="cpu")
+    check(np.array_equal(aware.policy, banded.policy), "finite-buffer solve: kernel vs banded f64")
+    check(np.array_equal(aware.policy, cpu.policy), "finite-buffer solve: card vs CPU plain")
+    serve_from = {k: int(np.argmax(t > 0)) for k, t in tabs.items()}
+    log(f"finite-buffer solve (rho {SHED_RHO}, s_max = buffer = {SHED_BUFFER}, c_drop "
+        f"{SHED_C_DROP}): {aware.rvi.iterations} iterations, {aware_launches} kernel launches, "
+        f"policy == banded f64 == CPU plain; serve-from aware {serve_from['aware']} "
+        f"blind {serve_from['blind']}")
+    mean = {}
+    for (mode, name), rs in sorted(stats.items()):
+        mean[(mode, name)] = {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+        m = mean[(mode, name)]
+        log(f"shedding {mode} {name} ({SHED_SEEDS} seeds x {SHED_N} arrivals, buffer "
+            f"{SHED_BUFFER}): goodput={m['goodput']:.6f} /ms drop_rate={m['drop_rate']:.6f} "
+            f"W={m['W_mean']:.6f} ms P95={m['P95']:.6f} ms power={m['power']:.6f} W")
+    aware_gp, blind_gp = mean[("mmpp2", "aware")]["goodput"], mean[("mmpp2", "blind")]["goodput"]
+    check(serve_from["aware"] < serve_from["blind"], f"serve-from {serve_from}")
+    check(aware_gp > blind_gp, f"aware goodput {aware_gp} <= blind {blind_gp} on MMPP2")
+    log(f"shedding gate: serve-from aware < blind, MMPP2 goodput aware {aware_gp:.6f} > "
+        f"blind {blind_gp:.6f} ({100 * (aware_gp / blind_gp - 1):.3f}%)")
+
+    # --- the managed-queue instance at one of these launches' shape ---------
+    from repro_torch.serving.compiled import pad_arrivals
+
+    tr = traces[("mmpp2", 0)]
+    arr, _ = pad_arrivals(tr)
+    args, _ = scan_inputs(torch, np, tabs["aware"][None, None], arr[None], np.ones((1, 1)),
+                          means, zeta)
+    kw = dict(t0=0.0, horizon=float("inf"), max_eps=2 * len(tr) + 2, drain=True,
+              b_max=bm, buffer=SHED_BUFFER)
+    rows["serve_scan_qman"] = dict(
+        scan_check(torch, np, "serve_scan_qman", args, kw),
+        replaces=SCAN_REPLACES.format(", qman=True"),
+        launches=counts.get("serve_scan:qman", 0))
+
+
+def adaptive_phase(torch, np, kernels, rows):
+    """The AdaptiveController over a solved lambda bank under bursty MMPP:
+    the bank through the spec-batched kernel, the controller inside the
+    event kernel, counters zeroed just before and read just after."""
+    from repro_torch.configs.googlenet_p4 import B_MAX as BM, energy_table, paper_spec, service
+    from repro_torch.core import sweep_bank
+    from repro_torch.serving import (AdaptiveController, AdaptiveLane, GreedyScheduler,
+                                     ServingEngine, SMDPScheduler, TraceProcess,
+                                     as_action_table, pad_arrivals_batch, run_grid,
+                                     run_grid_adaptive, verify_backends)
+    from repro_torch.serving.arrivals import MMPP2
+
+    svc, en = service(), energy_table()
+    w2 = BURSTY["w2"]
+    mu_max = BM / float(svc.mean(BM))
+    m = MMPP2(lam1=BURSTY["r1"] * mu_max, lam2=BURSTY["r2"] * mu_max,
+              dwell1=BURSTY["dwell1"], dwell2=BURSTY["dwell2"])
+    lam_grid = sorted({round(float(x), 9) for x in
+                       [*np.linspace(m.lam1, m.lam2, BURSTY_POINTS), m.mean_rate]})
+    traces_ad = [m.sample_arrivals(BURSTY_HORIZON, np.random.default_rng(300 + s))[0]
+                 for s in range(BURSTY_SEEDS)]
+    traces_sim = [m.sample_arrivals(BURSTY_HORIZON, np.random.default_rng(100 + s))[0]
+                  for s in range(BURSTY_SEEDS)]
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, BM + 1)])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bank = sweep_bank(paper_spec(rho=0.5, w2=w2), lam_grid, backup="pallas", device="cuda")
+    bank_s = time.perf_counter() - t0
+
+    def ctrl():
+        return AdaptiveController(bank, w2=w2, **ADAPTIVE_KW)
+
+    v_open = verify_backends(None, traces_ad[0], service=svc, energy_table=en, b_max=BM,
+                             scheduler=ctrl, device="cuda")
+    v_room = verify_backends(None, traces_ad[0], service=svc, energy_table=en, b_max=BM,
+                             scheduler=ctrl, buffer=ADAPTIVE_BUFFER, device="cuda")
+    keys, stacked = bank.stacked()
+    greedy = as_action_table(GreedyScheduler(1, BM), BM)
+    L = max(stacked.shape[1], len(greedy))
+    pad = lambda t: np.concatenate([t, np.full(L - len(t), t[-1], dtype=np.int64)])  # noqa: E731
+    tables = np.stack([pad(t) for t in stacked] + [pad(greedy)])
+    arrs = pad_arrivals_batch(traces_sim)
+    kw = dict(means=means, zeta=en, b_max=BM, device="cuda")
+    t0 = time.perf_counter()
+    g = run_grid(tables, arrs, **kw)
+    t_grid = time.perf_counter() - t0
+    lane = AdaptiveLane.from_controller(ctrl())
+    arrs_ad = pad_arrivals_batch(traces_ad)
+    t0 = time.perf_counter()
+    ga = run_grid_adaptive(arrs_ad, adaptive=lane, **kw)
+    t_grid_ad = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    log(f"adaptive path launches: {counts} (bank {len(lam_grid)} lambdas in {bank_s:.2f} s)")
+    check(counts["bellman_banded_batched"] > 0, "sweep_bank skipped the spec-batched kernel")
+    for inst in ("adaptive", "qman_adaptive", "grid_plain", "grid_adaptive"):
+        check(counts.get(f"serve_scan:{inst}", 0) == 1,
+              f"serve_scan:{inst} launched {counts.get(f'serve_scan:{inst}', 0)} times, not once")
+    check(counts["serve_scan"] == 4, "the adaptive path made other event-kernel launches")
+    rep_r = v_room["python"]
+    log(f"verify_backends adaptive (seed 300, {len(traces_ad[0])} arrivals, "
+        f"{len(lam_grid)}-entry bank): python controller == kernel lane, "
+        f"{v_open['n_decisions']} batches; with buffer {ADAPTIVE_BUFFER}: "
+        f"{v_room['n_decisions']} batches, n_shed {rep_r.n_shed} (never observed)")
+    check(rep_r.n_shed > 0, "the buffer refused nothing: the unobserved refusals are not shown")
+
+    # the Python engines on the same traces (host), held at rtol 1e-9
+    t0 = time.perf_counter()
+    py_cost = np.empty((len(traces_sim), len(tables)))
+    for s, tr in enumerate(traces_sim):
+        for p, tab in enumerate(tables):
+            rep = ServingEngine(SMDPScheduler.from_table(tab), arrivals=TraceProcess(tr),
+                                b_max=BM, service=svc, energy_table=en,
+                                device="cpu").run(n_epochs=None)
+            py_cost[s, p] = rep.weighted_cost(w2)
+    t_py = time.perf_counter() - t0
+    c_cost = g["w_mean"] + w2 * g["power"]
+    check(np.allclose(c_cost, py_cost, rtol=1e-9, atol=0),
+          f"run_grid cost off the Python engines by {np.max(np.abs(c_cost / py_cost - 1))}")
+    t0 = time.perf_counter()
+    py_ad = np.empty(len(traces_ad))
+    py_sw = np.empty(len(traces_ad), dtype=np.int64)
+    for s, tr in enumerate(traces_ad):
+        c = ctrl()
+        rep = ServingEngine(c, arrivals=TraceProcess(tr), b_max=BM, service=svc,
+                            energy_table=en, device="cpu").run(n_epochs=None)
+        py_ad[s], py_sw[s] = rep.weighted_cost(w2), c.n_switches
+    t_py_ad = time.perf_counter() - t0
+    ca_cost = ga["w_mean"] + w2 * ga["power"]
+    check(np.allclose(ca_cost, py_ad, rtol=1e-9, atol=0),
+          f"run_grid_adaptive cost off the Python engines by {np.max(np.abs(ca_cost / py_ad - 1))}")
+    check(np.array_equal(ga["ad_n_switches"], py_sw), "run_grid_adaptive switches differ")
+    best_fixed = float(np.min(py_cost[:, :-1].mean(0)))
+    log(f"run_grid: {len(traces_sim)} seeds x {len(tables)} tables (bank + greedy) in one "
+        f"launch, cost == Python engines at rtol 1e-9; events {g['events_total']}, "
+        f"events/s compiled {g['events_total'] / t_grid:.0f} (wall {t_grid:.3f} s) python "
+        f"{g['events_total'] / t_py:.0f} (wall {t_py:.2f} s)")
+    log(f"run_grid_adaptive: {len(traces_ad)} seeds in one launch, cost == Python engines "
+        f"at rtol 1e-9, switches {ga['ad_n_switches'].tolist()} equal; events "
+        f"{ga['events_total']}, events/s compiled {ga['events_total'] / t_grid_ad:.0f} "
+        f"(wall {t_grid_ad:.3f} s) python {ga['events_total'] / t_py_ad:.0f} "
+        f"(wall {t_py_ad:.2f} s); mean cost adaptive {py_ad.mean():.6f} vs the best fixed "
+        f"table {best_fixed:.6f} (other seeds, as in mmpp_bursty.py)")
+
+    # --- each instance at the shape the path launched it --------------------
+    from repro_torch.serving.compiled import pad_arrivals
+
+    tr = traces_ad[0]
+    arr, _ = pad_arrivals(tr)
+    one = dict(t0=0.0, horizon=float("inf"), max_eps=2 * len(tr) + 2, drain=True, b_max=BM,
+               record=True)
+    args, ad = scan_inputs(torch, np, lane.tables, arr[None], np.ones((1, 2 * len(tr) + 2)),
+                           means, en, adaptive=lane)
+    rows["serve_scan_adaptive"] = dict(
+        scan_check(torch, np, "serve_scan_adaptive", args, one, adaptive=ad),
+        replaces=SCAN_REPLACES.format(", adaptive=True"),
+        launches=counts["serve_scan:adaptive"])
+    rows["serve_scan_qman_adaptive"] = dict(
+        scan_check(torch, np, "serve_scan_qman_adaptive", args,
+                   dict(one, buffer=ADAPTIVE_BUFFER), adaptive=ad),
+        replaces=SCAN_REPLACES.format(", qman=True, adaptive=True"),
+        launches=counts["serve_scan:qman_adaptive"])
+    grid = dict(t0=0.0, horizon=float("inf"), drain=True, b_max=BM)
+    n_max = int(np.isfinite(arrs).sum(1).max())
+    args, _ = scan_inputs(torch, np, tables[:, None], arrs, np.ones((len(arrs), 1)), means, en)
+    rows["serve_scan_grid_plain"] = dict(
+        scan_check(torch, np, "serve_scan_grid_plain", args, dict(grid, max_eps=2 * n_max + 2)),
+        replaces=SCAN_REPLACES.format(" under run_grid's vmap"),
+        launches=counts["serve_scan:grid_plain"])
+    n_max = int(np.isfinite(arrs_ad).sum(1).max())
+    args, ad = scan_inputs(torch, np, lane.tables, arrs_ad, np.ones((len(arrs_ad), 1)), means,
+                           en, adaptive=lane)
+    rows["serve_scan_grid_adaptive"] = dict(
+        scan_check(torch, np, "serve_scan_grid_adaptive", args,
+                   dict(grid, max_eps=2 * n_max + 2), adaptive=ad),
+        replaces=SCAN_REPLACES.format(", adaptive=True, under run_grid_adaptive's vmap"),
+        launches=counts["serve_scan:grid_adaptive"])
 
 
 def _normal(torch, rng, shape, dtype):
@@ -1392,7 +1740,7 @@ def main():
           "served mean latency far from the analytic W")
     check(abs(rep.power - res.eval.p_bar) < 0.05 * res.eval.p_bar,
           "served power far from the analytic P")
-    serve_scan_row(torch, np, res.action_table(), rows["serve_scan"])
+    serve_scan_row(torch, np, res.action_table(), energy, rows["serve_scan"])
 
     # --- checks beside the main path ---------------------------------------
     warm, _ = solve_checked(np, kernels, RHO)
@@ -1414,12 +1762,18 @@ def main():
     sweep_phase(torch, np, kernels, rows, res, energy)
     poisoned_grid_phase(np, kernels, rows)
 
+    # --- single-server serving: overload shedding, the adaptive bank --------
+    shedding_phase(torch, np, kernels, rows)
+    adaptive_phase(torch, np, kernels, rows)
+
     # --- the attention kernels, the model checks and the LLM serving path ---
     attention_phase(torch, np, rows)
     model_checks(torch, np)
     llm_path(torch, np, kernels, rows)
 
     order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
+             "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",
+             "serve_scan_grid_plain", "serve_scan_grid_adaptive",
              "flash_attention", "decode_attention")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,7 +3,9 @@
 ``csrc/*.cu`` are compiled by nvcc at first use (``_build``).  Every
 wrapper counts its kernel launches in a plain integer attribute
 ``launches``; ``launch_counts()`` / ``reset_launch_counts()`` read and zero
-them all, so a run can show that it went through the kernels.
+them all, so a run can show that it went through the kernels.  A wrapper
+with several kernel instances also counts each in ``instance_launches``
+(reported as ``"<wrapper>:<instance>"``).
 """
 from typing import Dict
 
@@ -22,9 +24,15 @@ WRAPPERS = {
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    for name, fn in WRAPPERS.items():
+        for inst, n in sorted(getattr(fn, "instance_launches", {}).items()):
+            counts[f"{name}:{inst}"] = n
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "instance_launches"):
+            fn.instance_launches = {}

@@ -3,10 +3,12 @@
 serving.engine runs every mode (profiled virtual clock, wall-clock
 executor, trace replay) through a single Python event loop, and exposes
 the same semantics compiled (run(backend="compiled")) -- one launch of the
-CUDA event kernel, serving.compiled; serving.arrivals supplies the numpy
-arrival processes; serving.scheduler the policy tables; serving.metrics
-the latency quantiles (P² on the Python path, a fixed-bin histogram
-sketch on the compiled path).
+CUDA event kernel, serving.compiled, whose run_grid / run_grid_adaptive
+run whole seeds x tables sweeps in one launch; serving.arrivals supplies
+the numpy arrival processes; serving.scheduler the policy tables and the
+bank-retuning AdaptiveController; serving.metrics the latency quantiles
+(P² on the Python path, a fixed-bin histogram sketch on the compiled
+path).
 """
 from .arrivals import (  # noqa: F401
     ArrivalEvent,
@@ -19,6 +21,7 @@ from .arrivals import (  # noqa: F401
     as_process,
 )
 from .scheduler import (  # noqa: F401
+    AdaptiveController,
     GreedyScheduler,
     OraclePhaseScheduler,
     QPolicyScheduler,
@@ -40,7 +43,11 @@ from .engine import (  # noqa: F401
     verify_backends,
 )
 from .compiled import (  # noqa: F401
+    AdaptiveLane,
     CompiledResult,
     pad_arrivals,
+    pad_arrivals_batch,
+    run_grid,
+    run_grid_adaptive,
     simulate_compiled,
 )

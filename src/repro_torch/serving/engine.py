@@ -27,8 +27,10 @@ asserts exactly that.
 Every mode streams per-batch observations into ServingMetrics (P² latency
 quantiles, power; the compiled path reports quantiles from its fixed-bin
 histogram sketch) and supports snapshot()/restore().  Admission control
-(``buffer=`` / ``shed_expired=``) runs on the Python backend; its compiled
-lane is not ported yet and raises.
+(``buffer=`` / ``shed_expired=``) runs on both backends (the compiled one
+through the kernel's managed-queue lane), and an AdaptiveController lowers
+to the kernel's adaptive lane; after a compiled run the engine, its queue
+and the controller are where the Python loop would have left them.
 """
 from __future__ import annotations
 
@@ -412,32 +414,37 @@ class ServingEngine:
         drain: bool,
         unit_draws: Optional[np.ndarray] = None,
     ) -> EngineReport:
-        from .compiled import simulate_compiled
-        from .scheduler import as_action_table
+        from .compiled import AdaptiveLane, simulate_compiled
+        from .scheduler import AdaptiveController, as_action_table
 
         if self.energy_model is not None and self.energy_table is None:
             raise ValueError(
                 "compiled backend accounts energy via energy_table=; "
                 "per-batch energy_model callbacks need backend='python'"
             )
-        if self.buffer is not None or self.shed_expired:
-            raise NotImplementedError(
-                "buffer= / shed_expired= on the compiled backend are not "
-                "ported yet (see ROADMAP.md); run backend='python'"
-            )
+        # the bank-retuning controller lowers to the kernel's adaptive lane,
+        # resumed from the live object's state and synced back after the run
         sched = self.scheduler
-        table = as_action_table(sched, self.b_max)
+        lane = None
         phase_fn = None
-        # phase-indexed stacks need the per-arrival phase stream: the
-        # scheduler provides it (oracle switch trace via phase_at, or
-        # the pinned phase of a plain 2-D SMDP table)
-        if table.ndim == 2:
-            phase_fn = getattr(sched, "phase_at", None)
-            if phase_fn is None:
-                raise TypeError(
-                    f"{type(sched).__name__} has a phase-indexed "
-                    "table but no phase_at(times); run backend='python'"
-                )
+        if isinstance(sched, AdaptiveController):
+            lane = AdaptiveLane.from_controller(sched)
+            table = None
+            if lane.tables.shape[1] > 1:
+                # phase-axis bank: the pinned phase row
+                phase_fn = sched.scheduler.phase_at
+        else:
+            table = as_action_table(sched, self.b_max)
+            # phase-indexed stacks need the per-arrival phase stream: the
+            # scheduler provides it (oracle switch trace via phase_at, or
+            # the pinned phase of a plain 2-D SMDP table)
+            if table.ndim == 2:
+                phase_fn = getattr(sched, "phase_at", None)
+                if phase_fn is None:
+                    raise TypeError(
+                        f"{type(sched).__name__} has a phase-indexed "
+                        "table but no phase_at(times); run backend='python'"
+                    )
         means = np.asarray(
             [0.0]
             + [float(self.service.mean(b)) for b in range(1, self.b_max + 1)]
@@ -484,7 +491,9 @@ class ServingEngine:
                 means=means, zeta=self.energy_table, draws=draws,
                 b_max=self.b_max, max_epochs=budget, t0=t0,
                 horizon=horizon, drain=drain, deadlines=deadlines,
-                phases=ph, record=True, device=self.device,
+                phases=ph, adaptive=lane, buffer=self.buffer,
+                shed_expired=self.shed_expired, record=True,
+                device=self.device,
             )
             if not (infinite and res.n_admitted >= n_arr):
                 break
@@ -503,10 +512,15 @@ class ServingEngine:
         # --- sync engine state so later runs continue the same stream ----
         self.t = res.t_final
         admitted, future = events[: res.n_admitted], events[res.n_admitted:]
-        # surviving queue: the un-served suffix of the admitted events
-        # (rids count every admitted arrival, as the Python loop assigns
-        # the rid at peek)
-        surv = list(range(res.n_served, len(admitted)))
+        # surviving queue: without shedding it is exactly the un-served
+        # suffix; the managed-queue lane reports the survivors' slots
+        # (door-refused and expired requests are gone).  rids count every
+        # door-seen arrival either way: the Python loop assigns the rid at
+        # peek, before the buffer check.
+        if res.queue_slots is not None:
+            surv = [int(i) for i in res.queue_slots]
+        else:
+            surv = list(range(res.n_served, len(admitted)))
         if any(ev.rid is not None for ev in admitted):
             reqs = [self._to_request(ev) for ev in admitted]
             self.queue = [reqs[i] for i in surv]
@@ -526,6 +540,21 @@ class ServingEngine:
             # (the un-admitted tail is always a suffix of what drain() took,
             # since buffered/queued events precede trace events in time)
             self.arrivals.rewind(len(future))
+        # the controller ends the run where the Python backend would have
+        # left it (estimator state, bank entry, hysteresis clock), so later
+        # runs continue identically
+        if lane is not None:
+            st = res.adaptive_state
+            bank = sched.bank
+            sched.key = bank._sorted_keys[st["sel"]]
+            sched.scheduler.swap_table(bank.tables[sched.key])
+            est = sched.estimator
+            est._gap_bar = st["gap_bar"] if st["have_gap_bar"] else None
+            est._last = st["last"] if st["have_last"] else None
+            # door-refused arrivals were never observed by the estimator
+            est.n_observed += res.n_admitted - res.n_shed
+            sched._last_switch = st["last_switch"]
+            sched.n_switches = st["n_switches"]
         lat = res.latencies
         # a run with no served batch accounted no energy (NaN, like the
         # Python kernel's have_energy flag)
@@ -565,6 +594,8 @@ class ServingEngine:
             mean_batch=mean_batch,
             batch_sizes=res.batch_sizes,
             metrics=metrics,
+            n_shed=res.n_shed,
+            n_expired=res.n_expired,
         )
 
     def run_executor(
@@ -635,7 +666,10 @@ def verify_backends(
     horizon: Optional[float] = None,
     drain: Optional[bool] = None,
     slo: Optional[float] = None,
+    buffer: Optional[int] = None,
+    shed_expired: bool = False,
     phases=None,
+    scheduler=None,
     seed: int = 0,
     atol: float = 1e-9,
     device: DeviceLike = None,
@@ -653,9 +687,16 @@ def verify_backends(
     (OraclePhaseScheduler on the switch log the phase stream implies), the
     compiled side the phase-indexed table lookup.
 
-    Energy is a sum of per-batch terms: the Python loop adds them in
-    order, the compiled backend reduces them in parallel, so it is held at
-    rtol 1e-12 (plus ``atol``) rather than bitwise.
+    ``buffer=`` / ``shed_expired=`` arm the admission control on both
+    backends and also assert the refusal and expiry counters match (the
+    gate of the managed-queue lane).  ``scheduler`` -- a zero-argument
+    factory returning a fresh scheduler per backend -- replaces
+    ``table``/``phases``: an `AdaptiveController` factory pits the Python
+    estimator / hysteresis loop against the kernel's adaptive lane.
+
+    Energy is a sum of per-batch terms, which both backends add in serve
+    order; it is held at rtol 1e-12 (plus ``atol``), the bar the port
+    keeps against the reference's tree-ordered sum.
     """
     from .scheduler import OraclePhaseScheduler, SMDPScheduler
 
@@ -664,7 +705,14 @@ def verify_backends(
         drain = n_epochs is None
     budget = n_epochs if n_epochs is not None else 2 * len(trace) + 2
     draws = service.unit_draws(np.random.default_rng(seed), budget)
-    if np.asarray(table).ndim == 2:
+    if scheduler is not None:
+        if table is not None or phases is not None:
+            raise ValueError(
+                "scheduler= (a fresh-instance factory) replaces "
+                "table=/phases="
+            )
+        mk_sched = scheduler
+    elif np.asarray(table).ndim == 2:
         table = np.asarray(table, dtype=np.int64)
         if phases is None:
             raise ValueError("a (K, L) table stack needs phases= per arrival")
@@ -698,7 +746,8 @@ def verify_backends(
             mk_sched(),
             arrivals=TraceProcess(trace),
             b_max=b_max, service=svc, energy_table=energy_table,
-            slo=slo, seed=seed, device=device,
+            slo=slo, buffer=buffer, shed_expired=shed_expired, seed=seed,
+            device=device,
         )
 
     rep_py = engine(_ScriptedService(service, draws)).run(
@@ -711,6 +760,8 @@ def verify_backends(
     assert rep_py.n_served == rep_c.n_served
     np.testing.assert_allclose(rep_py.latencies, rep_c.latencies, atol=atol)
     assert rep_py.n_slo_miss == rep_c.n_slo_miss
+    assert rep_py.n_shed == rep_c.n_shed
+    assert rep_py.n_expired == rep_c.n_expired
     if energy_table is not None:
         np.testing.assert_allclose(
             rep_py.energy, rep_c.energy, rtol=1e-12, atol=atol

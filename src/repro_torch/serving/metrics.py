@@ -5,14 +5,15 @@ Two O(1)-memory latency-quantile sketches, one per backend:
   * P² streaming estimation (Jain & Chlamtac) for the Python event loop —
     sequential updates, arbitrary stream shapes, no samples retained; every
     engine mode streams its batches through ServingMetrics.
-  * A fixed-bin log-spaced histogram for the compiled backend
-    (serving.compiled bins the per-request latencies on the device after
-    the event kernel; a bincount is a batch op where P²'s data-dependent
-    marker moves are not).  `histogram_quantiles` reconstructs
+  * A fixed-bin log-spaced histogram for the compiled backend (the
+    event kernel bins each served request's latency as it serves; a
+    fixed-bin count is O(1) per request where P²'s marker moves are
+    data-dependent).  `histogram_quantiles` reconstructs
     P50/P95/P99 from the counts by within-bin linear interpolation.
 
 RateEstimator is the online lambda-hat (EWMA of inter-arrival gaps, or a
-sliding window) for the bank-retuning controller, which is not ported yet.
+sliding window) for the bank-retuning AdaptiveController
+(serving.scheduler); the compiled adaptive lane carries the EWMA form.
 """
 from __future__ import annotations
 

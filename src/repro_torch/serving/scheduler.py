@@ -18,8 +18,15 @@ core.sweep.sweep_bank(): a keyed table bank the serving layer hot-swaps
 profile shifts, without re-solving online; ``stacked()`` turns a bank into
 one (P, L) array.
 
-Copied from the reference.  The online AdaptiveController and the
-belief-filtered scheduler come with a later slice of the port.
+AdaptiveController closes the loop: an online arrival-rate estimate
+(serving.metrics.RateEstimator) retunes the active table against the bank,
+with hysteresis at regime boundaries; non-rate axes (w2, profile) are
+pinned coordinates.  The compiled backend runs it inside the event kernel
+(serving.compiled.AdaptiveLane).
+
+Copied from the reference.  The belief-filtered schedulers (and
+``AdaptiveController(phase_filter=...)``) come with a later slice of the
+port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -254,6 +261,109 @@ class SMDPSchedulerBank:
             raise KeyError(f"keys not in bank: {missing}")
         L = max(self.tables[k].shape[-1] for k in ks)
         return ks, np.stack([_extend_last(self.tables[k], L) for k in ks])
+
+
+class AdaptiveController(Scheduler):
+    """Online regime adaptation: rate estimator -> bank retune, hysteresis.
+
+    Wraps a bank-minted SMDPScheduler.  Every observed arrival updates a
+    RateEstimator (serving.metrics); when the estimate drifts toward a
+    different bank entry the controller retunes the scheduler onto it,
+    guarded by a relative-margin hysteresis (the candidate key must be
+    closer than (1 - margin) x the current key's distance) and a minimum
+    dwell time between switches, so the table does not thrash at regime
+    boundaries.  This is the paper's Sec.-VIII "detect the phase, apply
+    the per-phase policy" run against a solved lambda x w2 sweep bank
+    (core.sweep.sweep_bank).  A phase-axis bank serves its pinned phase
+    row; ``phase_filter=`` (a belief-tracked row) is not ported yet.
+    """
+
+    name = "smdp_adaptive"
+
+    def __init__(
+        self,
+        bank: "SMDPSchedulerBank",
+        *,
+        estimator=None,
+        ewma: float = 0.1,
+        margin: float = 0.25,
+        min_dwell: float = 0.0,
+        init_rate: Optional[float] = None,
+        phase_filter=None,
+        **fixed: float,  # pinned non-rate coords, e.g. w2=1.0
+    ):
+        from .metrics import RateEstimator
+
+        if phase_filter is not None:
+            raise NotImplementedError(
+                "AdaptiveController(phase_filter=...) needs PhaseBeliefFilter, "
+                "which is not ported to the PyTorch backend yet (see "
+                "ROADMAP.md); run it with the reference package"
+            )
+        if "lam" not in bank.key_names:
+            raise ValueError(f"bank has no 'lam' axis: {bank.key_names}")
+        lam_keys = sorted({k[bank.key_names.index("lam")] for k in bank.keys()})
+        if init_rate is None:
+            init_rate = float(np.mean(lam_keys))
+        self.bank = bank
+        self.fixed = {k: float(v) for k, v in fixed.items()}
+        self.estimator = estimator if estimator is not None else RateEstimator(
+            ewma=ewma, init=init_rate
+        )
+        self.margin = margin
+        self.min_dwell = min_dwell
+        self.phase_filter = None
+        rate0 = self.estimator.rate
+        if not np.isfinite(rate0):  # custom estimator with no data yet
+            rate0 = init_rate
+        self.key = bank.nearest(lam=rate0, **self.fixed)
+        self.scheduler = SMDPScheduler.from_table(bank.tables[self.key])
+        self.scheduler._bank = bank
+        self._last_switch = -float("inf")
+        self.n_switches = 0
+
+    def observe_arrival(self, t: float) -> None:
+        self.estimator.observe(t)
+        self._maybe_retune(t)
+
+    def _maybe_retune(self, t: float) -> None:
+        if t - self._last_switch < self.min_dwell:
+            return
+        est = self.estimator.rate
+        if not np.isfinite(est):
+            return
+        d = self.bank.distances(lam=est, **self.fixed)
+        i_cand = int(np.argmin(d))
+        cand = self.bank._sorted_keys[i_cand]
+        if cand == self.key:
+            return
+        d_cur = float(d[self.bank._key_index[self.key]])
+        d_cand = float(d[i_cand])
+        if d_cand < (1.0 - self.margin) * d_cur:
+            self.key = cand
+            self.scheduler.swap_table(self.bank.tables[cand])
+            self._last_switch = t
+            self.n_switches += 1
+
+    def decide(self, queue_len: int) -> int:
+        return self.scheduler.decide(queue_len)
+
+    def snapshot(self) -> dict:
+        return {
+            "estimator": self.estimator.snapshot(),
+            "key": self.key,
+            "last_switch": self._last_switch,
+            "n_switches": self.n_switches,
+            "phase": self.scheduler.phase,
+        }
+
+    def restore(self, state: dict) -> None:
+        self.estimator.restore(state["estimator"])
+        self.key = tuple(float(v) for v in state["key"])
+        self.scheduler.swap_table(self.bank.tables[self.key])
+        self.scheduler.phase = int(state.get("phase", 0))
+        self._last_switch = state["last_switch"]
+        self.n_switches = state["n_switches"]
 
 
 def _extend_last(t: np.ndarray, length: int) -> np.ndarray:

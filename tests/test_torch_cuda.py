@@ -13,7 +13,9 @@ warps, K around its 256-wide chunks and 4097, unaligned h_len and bases),
 1e-5 / 1e-6 between the batched and scalar launches of the same kernel
 and against its plain mirror (bellman_banded_split_ref),
 1e-9 on serving latencies (the event walk is bit-for-bit the plain
-version's arithmetic), equal policies between the kernel and banded
+version's arithmetic; every instance of the event kernel -- plain,
+managed queue, adaptive, both -- equals the plain walk exactly in its
+counts, clocks, sums, histograms, queues and records), equal policies between the kernel and banded
 batched solves (lockstep, MPI, Anderson), their g at rtol 1e-6 of each
 other (the float64 finish run to eps 1e-6) and of the same solve through
 the kernel's mirror, and a sweep whose guard ladder
@@ -195,6 +197,142 @@ def test_event_kernel_matches_plain(cuda):
     np.testing.assert_array_equal(got.hist, want.hist)
     assert got.slo_miss == want.slo_miss and got.t_final == want.t_final
     np.testing.assert_allclose(got.energy, want.energy, rtol=1e-12)
+
+
+def _lane_inputs(seed, S=2, n=600, P=3, adaptive=False, dev="cpu"):
+    """Overloaded traces, a few tables (or a bank lowered from a controller)
+    and deadlines: inputs for every instance of the event kernel."""
+    from repro_torch.serving import AdaptiveController, SMDPSchedulerBank
+    from repro_torch.serving.compiled import default_hist_edges, pad_arrivals_batch
+
+    rng = np.random.default_rng(seed)
+    svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY, family="det")
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, 33)])
+    zeta = np.array([0.0] + [float(pt.GOOGLENET_P4_ENERGY(b)) for b in range(1, 33)])
+    lam = 1.3 * 32 / means[32]
+    arr = pad_arrivals_batch([np.cumsum(rng.exponential(1.0 / lam, n)) for _ in range(S)])
+    tabs = np.stack([q_policy(4 + 6 * p, 128, 32) for p in range(P)])[:, None]
+    ad = None
+    if adaptive:
+        bank = SMDPSchedulerBank({(lam * (0.5 + p),): tabs[p, 0] for p in range(P)},
+                                 key_names=("lam",))
+        from repro_torch.serving.compiled import AdaptiveLane
+
+        lane = AdaptiveLane.from_controller(AdaptiveController(bank, ewma=0.3, margin=0.05))
+        tabs = lane.tables
+        ad = [torch.as_tensor(x, device=dev) for x in lane.lowered()]
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
+    args = [t(tabs, torch.int64), t(arr, torch.float64), t(arr + 6.0, torch.float64),
+            t(np.zeros(arr.shape), torch.int64), t(rng.exponential(size=(S, 2 * n)), torch.float64),
+            t(means, torch.float64), t(zeta, torch.float64),
+            t(default_hist_edges(means), torch.float64)]
+    kw = dict(t0=0.0, horizon=float("inf"), max_eps=2 * n + 2, drain=True, b_max=32,
+              adaptive=None if ad is None else tuple(ad))
+    return args, kw
+
+
+def _same_scan(got, want):
+    got = ss.ScanOut(*(None if x is None else x.cpu() for x in got))
+    assert torch.equal(got.agg_i, want.agg_i)
+    assert torch.equal(got.hist, want.hist)
+    torch.testing.assert_close(got.agg_f, want.agg_f, rtol=0, atol=0, equal_nan=True)
+    col = {k: i for i, k in enumerate(ss.AGG_I)}
+    for lane, row in enumerate(want.agg_i.tolist()):
+        n_srv, n_eps = row[col["n_served"]], row[col["n_epochs"]]
+        if want.queue is not None:
+            h, t = row[col["head"]], row[col["tail"]]
+            assert torch.equal(got.queue[lane, h:t], want.queue[lane, h:t])
+        if want.rec_a is not None:
+            assert torch.equal(got.rec_a[lane, :n_eps], want.rec_a[lane, :n_eps])
+            assert torch.equal(got.rec_slot[lane, :n_srv], want.rec_slot[lane, :n_srv])
+            assert torch.equal(got.rec_done[lane, :n_srv], want.rec_done[lane, :n_srv])
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("qman,adaptive", [(False, False), (True, False), (False, True),
+                                           (True, True)])
+def test_event_kernel_instances_match_plain(cuda, qman, adaptive, record):
+    """Every template instance over a multi-lane launch against the plain
+    walk: counts, clocks, sums, histograms, queues and records equal."""
+    args, kw = _lane_inputs(5, adaptive=adaptive)
+    kw.update(record=record, buffer=12 if qman else None, shed=qman)
+    gargs = [a.to(cuda) for a in args]
+    gkw = dict(kw, adaptive=None if not adaptive else tuple(a.to(cuda) for a in kw["adaptive"]))
+    name = ss.instance_name(qman, adaptive, 2 if adaptive else 6)
+    before = ss.serve_scan.instance_launches.get(name, 0)
+    got = ss.serve_scan(*gargs, **gkw)
+    assert ss.serve_scan.instance_launches[name] == before + 1
+    want = ss.serve_scan_ref(*args, **kw)
+    _same_scan(got, want)
+    col = {k: i for i, k in enumerate(ss.AGG_I)}
+    if qman:
+        assert want.agg_i[:, col["n_shed"]].sum() > 0
+        assert want.agg_i[:, col["n_expired"]].sum() > 0
+    if adaptive:
+        assert want.agg_i[:, col["n_switches"]].sum() > 0
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_event_kernel_multi_lane_equals_single_lanes(cuda, adaptive):
+    args, kw = _lane_inputs(6, adaptive=adaptive, dev=cuda)
+    kw["record"] = True
+    grid = ss.serve_scan(*args, **kw)
+    tables, arr, dl, ph, draws = args[:5]
+    n_pol = 1 if adaptive else tables.shape[0]
+    for lane in range(arr.shape[0] * n_pol):
+        s, p = divmod(lane, n_pol)
+        tab = tables if adaptive else tables[p:p + 1]
+        one = ss.serve_scan(tab, arr[s:s + 1], dl[s:s + 1], ph[s:s + 1],
+                            draws[s:s + 1], *args[5:], **kw)
+        part = ss.ScanOut(*(None if x is None else x[lane:lane + 1].cpu() for x in grid))
+        _same_scan(one, part)
+
+
+def test_grid_runners_launch_once(cuda):
+    from repro_torch.serving import AdaptiveController, SMDPSchedulerBank
+    from repro_torch.serving import run_grid, run_grid_adaptive
+
+    args, _ = _lane_inputs(7)
+    tables, arr = args[0].numpy()[:, 0], args[1].numpy()
+    means, zeta = args[5].numpy(), args[6].numpy()
+    kw = dict(means=means, zeta=zeta, b_max=32)
+    before = ss.serve_scan.launches
+    g = run_grid(tables, arr, device=cuda, **kw)
+    assert ss.serve_scan.launches == before + 1
+    want = run_grid(tables, arr, device="cpu", **kw)
+    for k in want:
+        np.testing.assert_array_equal(g[k], want[k], err_msg=k)
+    bank = SMDPSchedulerBank({(0.5 * (p + 1),): tables[p] for p in range(len(tables))},
+                             key_names=("lam",))
+    ctrl = AdaptiveController(bank, ewma=0.3, margin=0.05)
+    before = ss.serve_scan.launches
+    ga = run_grid_adaptive(arr, adaptive=ctrl, device=cuda, **kw)
+    assert ss.serve_scan.launches == before + 1
+    want = run_grid_adaptive(arr, adaptive=ctrl, device="cpu", **kw)
+    for k in want:
+        np.testing.assert_array_equal(ga[k], want[k], err_msg=k)
+
+
+def test_event_kernel_refuses_what_it_does_not_take(cuda):
+    """A CUDA tensor of the wrong type or on another device raises; nothing
+    falls back to the plain version and nothing launches."""
+    args, kw = _lane_inputs(8, dev=cuda)
+    before = ss.serve_scan.launches
+    bad = list(args)
+    bad[1] = args[1].float()  # f32 arrivals
+    with pytest.raises(TypeError, match="arrivals"):
+        ss.serve_scan(*bad, **kw)
+    bad = list(args)
+    bad[3] = args[3].int()  # int32 phases
+    with pytest.raises(TypeError, match="phases"):
+        ss.serve_scan(*bad, **kw)
+    bad = list(args)
+    bad[0] = args[0].cpu()  # tables on the host, arrivals on the card
+    with pytest.raises(ValueError, match="arrivals on cuda"):
+        ss.serve_scan(*bad, **kw)
+    with pytest.raises(ValueError, match="shed needs deadlines"):
+        ss.serve_scan(args[0], args[1], None, *args[3:], shed=True, **kw)
+    assert ss.serve_scan.launches == before
 
 
 def test_kernel_solve_matches_cpu_plain_path(cuda):

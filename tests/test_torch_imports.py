@@ -80,13 +80,18 @@ def _entry_points():
     from repro_torch.interop import params_from_reference
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    from repro_torch.serving import ServingEngine, SMDPScheduler, simulate_compiled
+    from repro_torch.serving import (
+        AdaptiveController, ServingEngine, SMDPScheduler, SMDPSchedulerBank,
+        run_grid, run_grid_adaptive, simulate_compiled,
+    )
     from repro_torch.serving.kv_cache import KVCachePool
 
     svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
     spec = SMDPSpec(lam=0.5, service=svc, energy=GOOGLENET_P4_ENERGY,
                     b_max=4, s_max=8)
     table = np.array([0, 1, 2, 3, 4])
+    bank = SMDPSchedulerBank({(0.5,): table, (1.0,): table}, key_names=("lam",))
+    padded = np.concatenate([np.arange(5.0), np.full(4, np.inf)])[None]
     h = np.zeros(9)
     pm = np.full((3, 5), 0.2)
     cfg = ARCHS["qwen2.5-32b"].reduced()
@@ -105,6 +110,16 @@ def _entry_points():
             SMDPScheduler.from_table(table), lam=0.5, b_max=4, service=svc),
         "simulate_compiled": lambda: simulate_compiled(
             table, np.arange(5.0), means=np.arange(5.0), b_max=4),
+        "simulate_compiled(buffer=)": lambda: simulate_compiled(
+            table, np.arange(5.0), means=np.arange(5.0), b_max=4, buffer=2),
+        "simulate_compiled(adaptive=)": lambda: simulate_compiled(
+            None, np.arange(5.0), means=np.arange(5.0), b_max=4,
+            adaptive=AdaptiveController(bank)),
+        "run_grid": lambda: run_grid(table[None], padded, means=np.arange(5.0),
+                                     b_max=4),
+        "run_grid_adaptive": lambda: run_grid_adaptive(
+            padded, adaptive=AdaptiveController(bank), means=np.arange(5.0),
+            b_max=4),
         "bellman_backup": lambda: ops.bellman_backup(h, pm, np.zeros((5, 3)), 0.0),
         "bellman_backup_batched": lambda: ops.bellman_backup_batched(
             h[None], pm[None], np.zeros((1, 5, 3)), np.zeros(1)),
@@ -147,14 +162,16 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
             torch.empty(5, 3, **f), torch.empty((), **f),
         )
     d = dict(dtype=torch.float64, device="meta")
+    i = dict(dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         serve_scan.serve_scan(
-            torch.empty(1, 4, dtype=torch.int64, device="meta"),
-            torch.empty(8, **d), torch.empty(8, dtype=torch.int64, device="meta"),
-            torch.empty(1, **d), torch.empty(5, **d),
+            torch.empty(1, 1, 4, **i), torch.empty(1, 8, **d), None,
+            torch.empty(1, 8, **i), torch.empty(1, 1, **d),
+            torch.empty(5, **d), torch.empty(5, **d), torch.empty(9, **d),
             t0=0.0, horizon=float("inf"), max_eps=4, drain=True, b_max=4,
         )
     assert bellman.bellman_banded.launches == 0
+    assert serve_scan.serve_scan.launches == 0
     from repro_torch.kernels import decode_attention, flash_attention
 
     f = dict(dtype=torch.bfloat16, device="meta")

@@ -156,14 +156,12 @@ def test_drain_capped_at_b_max():
 
 
 def test_unported_lanes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.simulate_compiled(TABLE, _poisson(10), means=MEANS, b_max=B_MAX,
-                             buffer=4, device="cpu")
+    """The belief lanes are not ported yet (ROADMAP queue 1): their entry
+    points raise and say where the work is queued."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ps.simulate_compiled(TABLE, _poisson(10), means=MEANS, b_max=B_MAX,
                              phase_mode="belief_mix", device="cpu")
-    eng = ps.ServingEngine(ps.SMDPScheduler.from_table(TABLE), lam=LAM, b_max=B_MAX,
-                           service=_port_svc(), buffer=8, device="cpu")
+    bank = ps.SMDPSchedulerBank({(LAM,): TABLE, (2 * LAM,): TABLE},
+                                key_names=("lam",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run(100, backend="compiled")
-    assert eng.run(100).n_served > 0  # the Python backend sheds fine
+        ps.AdaptiveController(bank, phase_filter=object())
