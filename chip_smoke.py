@@ -69,6 +69,24 @@
    run_grid_adaptive over 6 seeds, one launch each, every lane's W + w2 P
    held against the Python engines at rtol 1e-9 and the switch counts
    exactly; events/s of both backends.
+4f. MMPP-aware serving (examples/serve_mmpp_exact.py, serve_belief_compiled.py,
+   mmpp_bursty.py's exact_modulated section), counters zeroed just before
+   and read just after: the exact (phase, queue) solve at rho 0.10 / 0.85,
+   dwell 4000 / 800, w2 0.5, s_max 128 up to 384 on the card (float64 torch
+   ops), equal to the CPU path (policy, s_max; g, W, P at rtol 1e-9), no
+   guard rung, busy share profiled; the per-phase heuristic (solves on the
+   Bellman kernel) no better on the exact chain; the K = 1 rail equal to
+   the main path's policy.  One 20 000 ms trace served five ways (exact +
+   oracle phase, heuristic + oracle, exact + belief argmax, exact + belief
+   mix, AdaptiveController(phase_filter=) on a sweep_bank(phases=) bank),
+   each through ServingEngine(backend="compiled") and verify_backends.  The
+   bursty scenario: the exact_modulated gaps (chain and simulated, 5
+   seeds), the belief kernel over the 6-seed batch against its plain
+   version on the card (atol 1e-12, argmax rows equal), run_grid with
+   belief_argmax and belief_mix (one launch each, W + w2 P of every lane
+   against its Python engine at rtol 1e-9).  The mix instance is also held
+   and timed on the main path's inputs with two equal phase rows, where it
+   must equal the plain lane.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -536,7 +554,7 @@ def scan_inputs(torch, np, tables, arrivals, draws, means, zeta, *,
     return args, ad
 
 
-def scan_check(torch, np, name, args, kw, adaptive=None, reps=3):
+def scan_check(torch, np, name, args, kw, adaptive=None, beliefs=None, reps=3):
     """One instance of the event kernel on the card against its plain
     version on the same inputs: counts, clocks, sums, histograms, surviving
     queues and records equal.  Returns the row's measured numbers."""
@@ -545,19 +563,20 @@ def scan_check(torch, np, name, args, kw, adaptive=None, reps=3):
     cuda = lambda x: None if x is None else x.cuda()  # noqa: E731
     gargs = [cuda(a) for a in args]
     gad = None if adaptive is None else tuple(cuda(a) for a in adaptive)
-    out = ss.serve_scan(*gargs, adaptive=gad, **kw)  # builds and warms
+    gbel = cuda(beliefs)
+    out = ss.serve_scan(*gargs, adaptive=gad, beliefs=gbel, **kw)  # builds and warms
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        ss.serve_scan(*gargs, adaptive=gad, **kw)
+        ss.serve_scan(*gargs, adaptive=gad, beliefs=gbel, **kw)
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     t0 = time.perf_counter()
-    ref = ss.serve_scan_ref(*args, adaptive=adaptive, **kw)
+    ref = ss.serve_scan_ref(*args, adaptive=adaptive, beliefs=beliefs, **kw)
     plain = (time.perf_counter() - t0) * 1e3
     got = ss.ScanOut(*(None if x is None else x.cpu() for x in out))
     check(torch.equal(got.agg_i, ref.agg_i), f"{name}: counts differ from the plain version")
@@ -590,13 +609,17 @@ def scan_check(torch, np, name, args, kw, adaptive=None, reps=3):
     per_trace = a["n_admitted"].reshape(arr.shape[0], n_pol).max(1) + 1
     bat = a["n_batches"].reshape(arr.shape[0], n_pol).max(1)
     rec = 0 if ref.rec_a is None else int(4 * a["n_epochs"].sum() + 12 * a["n_served"].sum())
-    n_bytes = int(8 * per_trace.sum() * (2 + (dl is not None)) + 8 * bat.sum()
+    n_bytes = int(8 * per_trace.sum() * (2 + (dl is not None)
+                                         + (0 if beliefs is None else beliefs.shape[-1]))
+                  + 8 * bat.sum()
                   + 8 * tables.numel() + 8 * 3 * args[5].numel() + 8 * args[7].numel()
                   + lanes * 8 * (len(ss.AGG_I) + len(ss.AGG_F) + ref.hist.shape[1])
                   + (0 if ref.queue is None else int(4 * a["tail"].sum())) + rec)
     # operations: the f64 clock, latency and sums per event, and per taken
     # arrival the EWMA and P scaled distances of the adaptive lane
     flops = 2 * a["n_epochs"].sum() + 4 * a["n_served"].sum()
+    if beliefs is not None:  # the blend: K products and sums an epoch
+        flops += 2 * tables.shape[1] * a["n_epochs"].sum()
     if adaptive is not None:
         flops += (6 + 5 * tables.shape[0]) * (a["n_admitted"] - a["n_shed"]).sum()
     b_ms, b_by = bound(n_bytes, int(flops), F64_FLOPS)
@@ -1276,6 +1299,324 @@ def adaptive_phase(torch, np, kernels, rows):
         launches=counts["serve_scan:grid_adaptive"])
 
 
+# ---------------------------------------------------------------------------
+# MMPP-aware serving: the exact phase-modulated solve, the belief kernel and
+# the event kernel's belief lanes (examples/serve_mmpp_exact.py,
+# examples/serve_belief_compiled.py, mmpp_bursty.py's exact_modulated
+# section and roofline_report.py's belief grid)
+# ---------------------------------------------------------------------------
+
+#: serve_mmpp_exact.py's point: rho 0.10 / 0.85 of mu_max, dwell 4000 / 800,
+#: w2 0.5, s_max 128 growing to at most 384; one 20 000 ms trace (seed 7)
+EXACT = dict(r1=0.10, r2=0.85, w2=0.5, dwell1=4000.0, dwell2=800.0)
+EXACT_S_CAP, EXACT_HORIZON, EXACT_SEED = 384, 20_000.0, 7
+#: mmpp_bursty.py's exact_modulated section: s_cap 384, 5 seeds (500 + s)
+GAP_SEEDS = 5
+BELIEF_REPLACES = ("src/repro/serving/arrivals.py:431-467 (the lax.scan of "
+                   "belief_forward_jax, not a Pallas kernel)")
+
+
+def _lift(np, tab, s_max):
+    """A 1-D table -> a feasible (S,) policy on an s_max chain (eq. 30)."""
+    t = np.asarray(tab, dtype=np.int64)
+    pol = np.array([t[min(s, len(t) - 1)] for s in range(s_max + 1)], dtype=np.int64)
+    return np.append(pol, pol[s_max])
+
+
+def belief_row(torch, np, filt, arrs, launches):
+    """The belief kernel at the bursty batch's shape against its plain
+    version on the card: atol 1e-12, argmax rows equal; timed."""
+    from repro_torch.kernels import belief_forward as bf
+
+    dev = torch.device("cuda")
+    times = torch.as_tensor(arrs, device=dev)
+    b_init = torch.as_tensor(filt.belief, device=dev)
+    c = filt.consts(dev)
+    got = bf.belief_forward(times, b_init, filt._last, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = bf.belief_forward_ref(times, b_init, filt._last, c)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = (got[0] - want[0]).abs().max().item()
+    check(err <= 1e-12, f"belief_forward: max abs err {err} above 1e-12")
+    check(torch.equal(got[0].argmax(-1), want[0].argmax(-1)), "belief_forward argmax rows differ")
+    check((got[1] - want[1]).abs().max().item() <= 1e-12 and torch.equal(got[2], want[2]),
+          "belief_forward final state differs")
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        bf.belief_forward(times, b_init, filt._last, c)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    S, N = arrs.shape
+    K = len(filt.rates)
+    n_valid = int(np.isfinite(arrs).sum())
+    n_long = int(np.isfinite(arrs).sum(1).max())  # the longest trace: the serial chain
+    # bytes: the times read, the rows and the final state written; operations:
+    # per valid slot the step matrix (K exps, 4K^3 + 8K^2 flops) and the fold
+    n_bytes = 8 * S * N * (1 + K) + 8 * S * (K + 1) + 8 * (6 * K * K + 5 * K + 1)
+    flops = n_valid * (4 * K ** 3 + 8 * K * K + 10 * K)
+    b_ms, b_by = bound(n_bytes, flops, F64_FLOPS)
+    log(f"belief_forward ({S} traces x {N} slots, {n_valid} arrivals, the longest trace "
+        f"{n_long}, K={K}): kernel_ms={best:.6f} ({1e3 * best / n_long:.4f} us an arrival "
+        f"of the longest trace: the serial fold) "
+        f"plain_ms={plain:.3f} (the plain torch fold on the card) bound_ms={b_ms:.6f} "
+        f"({b_by}); max_abs_err={err:.3e} (atol 1e-12), argmax rows equal")
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/belief_forward.cu",
+                replaces=BELIEF_REPLACES, launches=launches, max_abs_err=err, ms=best,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=[S, N, K], longest_trace=n_long, us_per_arrival=1e3 * best / n_long)
+
+
+def mmpp_phase(torch, np, kernels, rows, main_res, energy):
+    """Exact MMPP-aware serving on the card, counters zeroed just before and
+    read just after: the product-chain solve, the five contenders of one
+    trace, the belief kernel over the bursty batch, the belief grid lanes and
+    the exact_modulated gaps."""
+    from repro_torch.configs.googlenet_p4 import B_MAX as BM, energy_table, paper_spec, service
+    from repro_torch.core import (PhaseConfig, build_smdp_modulated, evaluate_policy_modulated,
+                                  modulated_spec, solve_modulated, sweep_bank)
+    from repro_torch.serving import (AdaptiveController, BeliefPhaseScheduler,
+                                     OraclePhaseScheduler, PhaseBeliefFilter, ServingEngine,
+                                     SMDPScheduler, TraceProcess, belief_forward,
+                                     pad_arrivals_batch, run_grid, solve_phase_policies,
+                                     verify_backends)
+    from repro_torch.serving.arrivals import MMPP2
+    from repro_torch.serving.compiled import pad_arrivals
+
+    svc, en = service(), energy_table()
+    mu_max = BM / float(svc.mean(BM))
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, BM + 1)])
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # --- 1. the serve_mmpp_exact point: exact solve on the card ------------
+    w2 = EXACT["w2"]
+    m = MMPP2(lam1=EXACT["r1"] * mu_max, lam2=EXACT["r2"] * mu_max,
+              dwell1=EXACT["dwell1"], dwell2=EXACT["dwell2"])
+    phases = PhaseConfig.from_mmpp(m)
+    spec = modulated_spec(paper_spec(rho=0.5, w2=w2), phases)
+    sink = []
+    t0 = time.perf_counter()
+    exact = solve_modulated(spec, phases, max_s_max=EXACT_S_CAP, device="cuda",
+                            report_sink=sink)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    check(not sink[0].any_fired and sink[0].healthy.all(),
+          f"modulated solve: guard rungs fired {sink[0].rungs}")
+    cpu = solve_modulated(spec, phases, max_s_max=EXACT_S_CAP, device="cpu")
+    check(cpu.spec.s_max == exact.spec.s_max, "modulated solve: s_max card vs CPU")
+    check(np.array_equal(exact.policy, cpu.policy), "modulated solve: policy card vs CPU")
+    for k in ("g", "w_bar", "p_bar"):
+        a, b = getattr(exact.eval, k), getattr(cpu.eval, k)
+        check(abs(a - b) <= 1e-9 * abs(b), f"modulated solve: {k} {a} vs CPU {b}")
+    busy = profile_busy(torch, lambda: solve_modulated(spec, phases, max_s_max=EXACT_S_CAP,
+                                                       device="cuda"))
+    busy_txt = ("not measured (no device time in the profile)" if busy[0] is None else
+                f"{busy[0]:.3f} ms of device time in {busy[1]} kernels, busy share "
+                f"{busy[0] / 1e3 / solve_s:.3f} of the unprofiled wall")
+    log(f"exact modulated solve (rho {EXACT['r1']}/{EXACT['r2']}, dwell "
+        f"{EXACT['dwell1']:.0f}/{EXACT['dwell2']:.0f}, w2 {w2}): s_max={exact.spec.s_max} "
+        f"iterations={exact.rvi.iterations} g={exact.eval.g:.9f} W={exact.eval.w_bar:.6f} ms "
+        f"P={exact.eval.p_bar:.6f} W wall_s={solve_s:.3f} rvi_s={exact.rvi.wall_time_s:.3f}; "
+        f"{busy_txt}; policy == CPU plain path, g / W / P within rtol 1e-9, no rung fired")
+    s_max = exact.spec.s_max
+    heur = solve_phase_policies(paper_spec(rho=0.5, w2=w2),
+                                {z: float(r) for z, r in enumerate(phases.rates)},
+                                backup="pallas", device="cuda")
+    heur_pol = np.stack([_lift(np, heur[z], s_max) for z in range(phases.n_phases)])
+    mb = build_smdp_modulated(exact.spec, phases)
+    g_heur = evaluate_policy_modulated(mb, 0, heur_pol).g
+    check(g_heur >= exact.eval.g * (1 - 1e-9), f"heuristic g {g_heur} below exact {exact.eval.g}")
+    k1 = solve_modulated(main_res.spec, PhaseConfig.poisson(main_res.spec.lam), device="cuda")
+    check(np.array_equal(k1.policy[0], main_res.policy) and k1.spec.s_max == main_res.spec.s_max,
+          "K = 1 modulated solve differs from the main path's policy")
+    log(f"phase heuristic (per-phase Poisson solves on the Bellman kernel) on the exact chain: "
+        f"g={g_heur:.9f} >= exact {exact.eval.g:.9f} (exact gains "
+        f"{100 * (g_heur - exact.eval.g) / g_heur:.3f}%); K = 1 rail: the Table-I point through "
+        f"solve_modulated == the main path's policy (s_max {k1.spec.s_max})")
+
+    # --- 2. one trace served five ways, each certified ---------------------
+    trace, switches = m.sample_arrivals(EXACT_HORIZON, np.random.default_rng(EXACT_SEED))
+    trace = np.asarray(trace)
+    stack = exact.action_table()
+    lam_grid = [round(f * phases.mean_rate, 9) for f in (0.6, 0.8, 1.0, 1.2, 1.4)]
+    t0 = time.perf_counter()
+    mod_bank = sweep_bank(paper_spec(rho=0.5, w2=w2), lam_grid, phases=phases,
+                          max_s_max=EXACT_S_CAP, device="cuda")
+    bank_s = time.perf_counter() - t0
+
+    def filt():
+        return PhaseBeliefFilter(phases.rates, phases.gen)
+
+    contenders = {
+        "exact+oracle": lambda: OraclePhaseScheduler(dict(enumerate(stack)), switches),
+        "heuristic+oracle": lambda: OraclePhaseScheduler(heur, switches),
+        "exact+belief_argmax": lambda: BeliefPhaseScheduler(stack, filt()),
+        "exact+belief_mix": lambda: BeliefPhaseScheduler(stack, filt(), mode="mix"),
+        "adaptive+filter": lambda: AdaptiveController(mod_bank, w2=w2, phase_filter=filt(),
+                                                      **ADAPTIVE_KW),
+    }
+    for name, mk in contenders.items():
+        out = verify_backends(None, trace, service=svc, energy_table=en, b_max=BM,
+                              scheduler=mk, device="cuda")
+        t0 = time.perf_counter()
+        rep = ServingEngine(mk(), arrivals=TraceProcess(trace), b_max=BM, service=svc,
+                            energy_table=en, seed=0, device="cuda").run(
+                                n_epochs=None, backend="compiled")
+        wall = time.perf_counter() - t0
+        check(np.array_equal(rep.batch_sizes, out["python"].batch_sizes),
+              f"{name}: engine run differs from the Python loop")
+        log(f"{name:20s} ({len(trace)} arrivals): python loop == compiled, "
+            f"{out['n_decisions']} batches, max latency err {out['max_latency_err']:.3e}; "
+            f"cost={rep.weighted_cost(w2):.6f} W={rep.latencies.mean():.6f} ms "
+            f"P={rep.power:.6f} W P95={rep.percentile(95):.6f} ms (compiled wall {wall:.3f} s)")
+    log(f"modulated bank: {len(lam_grid)} (K, S) stacks by sweep_bank(phases=) in {bank_s:.2f} s")
+
+    # --- 3. the bursty scenario: belief kernel, belief grids, exact gaps ----
+    b = BURSTY
+    mb_ = MMPP2(lam1=b["r1"] * mu_max, lam2=b["r2"] * mu_max, dwell1=b["dwell1"],
+                dwell2=b["dwell2"])
+    ph_b = PhaseConfig.from_mmpp(mb_)
+    lam_b = sorted({round(float(x), 9) for x in
+                    [*np.linspace(mb_.lam1, mb_.lam2, BURSTY_POINTS), mb_.mean_rate]})
+    pbank = sweep_bank(paper_spec(rho=0.5, w2=b["w2"]), lam_b, backup="pallas", device="cuda")
+    exact_b = solve_modulated(modulated_spec(paper_spec(rho=0.5, w2=b["w2"]), ph_b), ph_b,
+                              max_s_max=EXACT_S_CAP, device="cuda")
+    sb = exact_b.spec.s_max
+    heur_b = np.stack([_lift(np, pbank.tables[pbank.nearest(lam=lam, w2=b["w2"])], sb)
+                       for lam in (mb_.lam1, mb_.lam2)])
+    single_b = np.tile(_lift(np, pbank.tables[pbank.nearest(lam=mb_.mean_rate, w2=b["w2"])],
+                             sb)[None], (2, 1))
+    mbb = build_smdp_modulated(exact_b.spec, ph_b)
+    g_ex = float(exact_b.eval.g)
+    g_he = float(evaluate_policy_modulated(mbb, 0, heur_b).g)
+    g_si = float(evaluate_policy_modulated(mbb, 0, single_b).g)
+    check(g_ex <= g_he * (1 + 1e-9), "exact_modulated: exact worse than the heuristic on its chain")
+    tables3 = np.stack([exact_b.action_table(sb), heur_b[:, : sb + 1], single_b[:, : sb + 1]])
+    traces_g, streams = [], []
+    for s_ in range(GAP_SEEDS):
+        tr, sw = mb_.sample_arrivals(BURSTY_HORIZON, np.random.default_rng(500 + s_))
+        st = np.array([t for t, _ in sw])
+        sp = np.array([p for _, p in sw], dtype=np.int64)
+        traces_g.append(np.asarray(tr))
+        streams.append(sp[np.maximum(np.searchsorted(st, tr, side="right") - 1, 0)])
+    verify_backends(tables3[0], traces_g[0], service=svc, energy_table=en, b_max=BM,
+                    phases=streams[0], device="cuda")
+    arrs_g = pad_arrivals_batch(traces_g)
+    phs = np.stack([pad_arrivals(t, phases=p_, size=arrs_g.shape[1])[2]
+                    for t, p_ in zip(traces_g, streams)])
+    gg = run_grid(tables3, arrs_g, phases=phs, means=means, zeta=en, b_max=BM, device="cuda")
+    sim = (gg["w_mean"] + b["w2"] * gg["power"]).mean(0)
+    log(f"exact_modulated (bursty, s_cap {EXACT_S_CAP}, s_max {sb}, {GAP_SEEDS} seeds): chain "
+        f"g exact {g_ex:.6f} heuristic {g_he:.6f} single {g_si:.6f}, gaps heuristic "
+        f"{100 * (g_he - g_ex) / g_he:.3f}% single {100 * (g_si - g_ex) / g_si:.3f}%; simulated "
+        f"W + w2 P exact {sim[0]:.6f} heuristic {sim[1]:.6f} single {sim[2]:.6f}, gaps "
+        f"heuristic {100 * (sim[1] - sim[0]) / sim[1]:.3f}% single "
+        f"{100 * (sim[2] - sim[0]) / sim[2]:.3f}% (phase lane verified on seed 500)")
+
+    traces_b = [np.asarray(mb_.sample_arrivals(BURSTY_HORIZON, np.random.default_rng(100 + s_))[0])
+                for s_ in range(BURSTY_SEEDS)]
+    arrs_b = pad_arrivals_batch(traces_b)
+    f_b = PhaseBeliefFilter(ph_b.rates, ph_b.gen)
+    t0 = time.perf_counter()
+    bel_b = belief_forward(arrs_b, f_b, device="cuda")[0]
+    torch.cuda.synchronize()
+    bel_s = time.perf_counter() - t0
+    stacks_b = tables3[:2]  # exact and heuristic (K, L) stacks
+    grid = {}
+    for pm in ("belief_argmax", "belief_mix"):
+        t0 = time.perf_counter()
+        grid[pm] = run_grid(stacks_b, arrs_b, phase_mode=pm, beliefs=bel_b, means=means,
+                            zeta=en, b_max=BM, device="cuda")
+        grid[pm]["wall"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pm, g in grid.items():
+        mode = "mix" if pm == "belief_mix" else "argmax"
+        py = np.empty((len(traces_b), len(stacks_b)))
+        for s_, tr in enumerate(traces_b):
+            for p_, tab in enumerate(stacks_b):
+                rep = ServingEngine(BeliefPhaseScheduler(tab, PhaseBeliefFilter(ph_b.rates, ph_b.gen),
+                                                         mode=mode),
+                                    arrivals=TraceProcess(tr), b_max=BM, service=svc,
+                                    energy_table=en, device="cpu").run(n_epochs=None)
+                py[s_, p_] = rep.weighted_cost(b["w2"])
+        c_cost = g["w_mean"] + b["w2"] * g["power"]
+        check(np.allclose(c_cost, py, rtol=1e-9, atol=0),
+              f"run_grid {pm}: off the Python engines by {np.max(np.abs(c_cost / py - 1))}")
+        log(f"run_grid {pm}: {len(traces_b)} seeds x {len(stacks_b)} stacks (exact, heuristic) "
+            f"in one launch, every lane's W + w2 P == its Python engine at rtol 1e-9; events "
+            f"{g['events_total']}, wall {g['wall']:.3f} s; mean cost exact "
+            f"{py[:, 0].mean():.6f} heuristic {py[:, 1].mean():.6f}")
+    t_py = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    counts = kernels.launch_counts()
+    log(f"mmpp path launches: {counts} (phase wall {wall:.2f} s, of it the Python engines of "
+        f"the grids {t_py:.2f} s; belief_forward over the batch {bel_s:.3f} s of wall)")
+    for name in ("bellman_banded", "bellman_banded_batched", "belief_forward",
+                 "serve_scan:mix", "serve_scan:grid_mix", "serve_scan:plain",
+                 "serve_scan:adaptive", "serve_scan:grid_plain"):
+        check(counts.get(name, 0) > 0, f"the MMPP path never launched {name}")
+
+    # --- each new kernel (instance) at the shape this path launched it ------
+    rows["belief_forward"] = belief_row(torch, np, f_b, arrs_b, counts["belief_forward"])
+    from repro_torch.serving.compiled import pad_arrivals as pad
+
+    arr1, _ = pad(trace)
+    bel1 = belief_forward(arr1, filt(), device="cuda")[0].cpu()[None]
+    n1 = len(trace)
+    args, _ = scan_inputs(torch, np, stack[None], arr1[None], np.ones((1, 2 * n1 + 2)),
+                          means, en)
+    one = dict(t0=0.0, horizon=float("inf"), max_eps=2 * n1 + 2, drain=True, b_max=BM,
+               record=True)
+    rows["serve_scan_mix"] = dict(
+        scan_check(torch, np, "serve_scan_mix", args, one, beliefs=bel1),
+        replaces=SCAN_REPLACES.format(", mix=True"), launches=counts["serve_scan:mix"])
+    n_max = int(np.isfinite(arrs_b).sum(1).max())
+    args, _ = scan_inputs(torch, np, stacks_b, arrs_b, np.ones((len(arrs_b), 1)), means, en)
+    rows["serve_scan_grid_mix"] = dict(
+        scan_check(torch, np, "serve_scan_grid_mix", args,
+                   dict(t0=0.0, horizon=float("inf"), max_eps=2 * n_max + 2, drain=True,
+                        b_max=BM), beliefs=bel_b.cpu()),
+        replaces=SCAN_REPLACES.format(", mix=True, under run_grid's vmap"),
+        launches=counts["serve_scan:grid_mix"])
+
+
+def mix_at_main_shape(torch, np, table, energy):
+    """The mix instance on the main path's own inputs (10^5 epochs), both
+    phase rows the Table-I table, beliefs of a bursty filter over the
+    stream: the blend is the table's action, so it must equal the plain
+    lane, and its time compares with the plain lane's row."""
+    from repro_torch.core import GOOGLENET_P4_LATENCY
+    from repro_torch.kernels import serve_scan as ss
+    from repro_torch.serving import PhaseBeliefFilter, PoissonProcess, belief_forward
+    from repro_torch.serving.arrivals import take
+    from repro_torch.serving.compiled import pad_arrivals
+
+    means = np.array([0.0] + [float(GOOGLENET_P4_LATENCY(b)) for b in range(1, B_MAX + 1)])
+    lam = RHO * B_MAX / float(means[B_MAX])
+    ev, _ = take(PoissonProcess(lam), np.random.default_rng(0), n=4 * N_EPOCHS)
+    arr, _ = pad_arrivals(np.array([e.time for e in ev]))
+    filt = PhaseBeliefFilter([0.5 * lam, 1.5 * lam], [[-1e-3, 1e-3], [1e-3, -1e-3]])
+    bel = belief_forward(arr, filt, device="cuda")[0].cpu()[None]
+    stack = np.stack([table, table])
+    args, _ = scan_inputs(torch, np, stack[None], arr[None], np.ones((1, N_EPOCHS)), means,
+                          energy)
+    kw = dict(t0=0.0, horizon=float("inf"), max_eps=N_EPOCHS, drain=False, b_max=B_MAX,
+              record=True)
+    got = scan_check(torch, np, "serve_scan_mix (main path shape)", args, kw, beliefs=bel)
+    plain = ss.serve_scan_ref(*args, **kw)
+    mixed = ss.serve_scan_ref(*args, beliefs=bel, **kw)
+    check(torch.equal(plain.agg_i, mixed.agg_i) and torch.equal(plain.rec_a, mixed.rec_a),
+          "mix over two equal rows differs from the plain lane")
+    return got
+
+
 def _normal(torch, rng, shape, dtype):
     return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
                            device="cuda").to(dtype)
@@ -1766,6 +2107,13 @@ def main():
     shedding_phase(torch, np, kernels, rows)
     adaptive_phase(torch, np, kernels, rows)
 
+    # --- MMPP-aware serving: exact solve, belief kernel, belief lanes -------
+    mmpp_phase(torch, np, kernels, rows, res, energy)
+    main_mix = mix_at_main_shape(torch, np, res.action_table(), energy)
+    rows["serve_scan_mix"]["main_path_shape"] = dict(
+        ms=main_mix["ms"], plain_ms=main_mix["plain_ms"], bound_ms=main_mix["bound_ms"],
+        shape=main_mix["shape"], plain_lane_ms=rows["serve_scan"]["ms"])
+
     # --- the attention kernels, the model checks and the LLM serving path ---
     attention_phase(torch, np, rows)
     model_checks(torch, np)
@@ -1774,6 +2122,7 @@ def main():
     order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
              "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",
              "serve_scan_grid_plain", "serve_scan_grid_adaptive",
+             "serve_scan_mix", "serve_scan_grid_mix", "belief_forward",
              "flash_attention", "decode_attention")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

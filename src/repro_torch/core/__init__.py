@@ -4,7 +4,9 @@ The SMDP construction, the benchmark policies and the policy evaluators
 are numpy (copies of the reference's numpy-only modules); the relative
 value iteration -- scalar, batched and accelerated -- runs on torch
 tensors, its banded Bellman core on the hand-written CUDA kernels with
-``backup="pallas"``.  sweep_solve batches a spec grid through it.
+``backup="pallas"``.  sweep_solve batches a spec grid through it;
+solve_modulated / sweep_solve_modulated solve the (phase, queue) product
+chain of MMPP traffic exactly, in float64 torch ops.
 """
 from .service_models import (  # noqa: F401
     AffineProfile,
@@ -20,10 +22,15 @@ from .service_models import (  # noqa: F401
 )
 from .smdp import (  # noqa: F401
     BatchedSMDP,
+    ModulatedBatchedSMDP,
+    PhaseConfig,
     SMDPSpec,
     TruncatedSMDP,
     build_smdp,
     build_smdp_batched,
+    build_smdp_modulated,
+    build_smdp_modulated_batched,
+    modulated_spec,
 )
 from .rvi import (  # noqa: F401
     BatchedRVIResult,
@@ -31,6 +38,7 @@ from .rvi import (  # noqa: F401
     SolveReport,
     relative_value_iteration,
     relative_value_iteration_batched,
+    relative_value_iteration_modulated,
 )
 from .policies import (  # noqa: F401
     static_policy,
@@ -38,6 +46,16 @@ from .policies import (  # noqa: F401
     q_policy,
     optimal_q_closed_form,
 )
-from .evaluate import PolicyEval, evaluate_policy  # noqa: F401
-from .solve import SolveResult, solve  # noqa: F401
-from .sweep import pad_specs, sweep_bank, sweep_solve  # noqa: F401
+from .evaluate import (  # noqa: F401
+    PolicyEval,
+    evaluate_policy,
+    evaluate_policy_modulated,
+)
+from .solve import ModulatedSolveResult, SolveResult, solve  # noqa: F401
+from .sweep import (  # noqa: F401
+    pad_specs,
+    solve_modulated,
+    sweep_bank,
+    sweep_solve,
+    sweep_solve_modulated,
+)

@@ -18,6 +18,14 @@ Two families of routines live here:
     -- the linear-solve polish of the accelerated batched RVI
     (rvi accel="mpi").  Both are dense-free: the (S, A, S) tensor is never
     materialized, only the (S, S) matrix of each frozen policy.
+
+Both families have phase-modulated counterparts on the K*S product chain
+of smdp.ModulatedBatchedSMDP (phase-blocked flattening, z * S + s):
+evaluate_policy_modulated(_batched) for the physical chain -- delta sums
+over *every* phase's overflow state -- and policy_matrix_banded_modulated
+feeding the same policy_eval_linear for the MPI polish and exact gain of
+the modulated RVI.  Nothing is densified beyond the (K*S, K*S) matrix of
+one frozen policy.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .smdp import BatchedSMDP, TruncatedSMDP
+from .smdp import BatchedSMDP, ModulatedBatchedSMDP, TruncatedSMDP
 
 
 @dataclasses.dataclass
@@ -83,7 +91,8 @@ def _finish_eval(
     """Aggregate (g, Delta, W_bar, P_bar, ...) from mu and gathered rows.
 
     ``overflow`` marks the overflow state(s) for the Delta term; default is
-    the last state (the scalar chain).
+    the last state (the scalar chain).  The modulated chain passes a mask
+    over every phase's S_o.
     """
     denom = float(mu @ y_pi)
     g = float(mu @ c_pi) / denom
@@ -214,6 +223,99 @@ def evaluate_policy_batched(
 
 
 # ---------------------------------------------------------------------------
+# Phase-modulated product chain (K*S states, phase-blocked flattening)
+# ---------------------------------------------------------------------------
+
+
+def _gather_modulated(mbatch: ModulatedBatchedSMDP, i: int, acts: np.ndarray):
+    """Flattened (K*S,) per-state rows of y/c/hold/energy under a policy."""
+    K, S = mbatch.n_phases, mbatch.n_states
+    zz = np.arange(K)[:, None]
+    ss = np.arange(S)[None, :]
+    gather = lambda arr: arr[i, zz, ss, acts].reshape(-1)  # noqa: E731
+    return (
+        gather(mbatch.y),
+        gather(mbatch.c_hat),
+        gather(mbatch.c_hold),
+        gather(mbatch.c_energy),
+    )
+
+
+def _check_feasible_modulated(
+    mbatch: ModulatedBatchedSMDP, i: int, acts: np.ndarray
+) -> None:
+    K, S = mbatch.n_phases, mbatch.n_states
+    if acts.shape != (K, S):
+        raise ValueError(f"policy shape {acts.shape} != ({K}, {S})")
+    feas = mbatch.feasible[i][np.arange(S)[None, :], acts]
+    if not feas.all():
+        bad = np.argwhere(~feas)
+        raise ValueError(
+            f"policy takes infeasible actions at (phase, state) {bad[:5]}"
+        )
+
+
+def _overflow_mask(K: int, S: int) -> np.ndarray:
+    m = np.zeros((K, S), dtype=bool)
+    m[:, -1] = True
+    return m.reshape(-1)
+
+
+def _finish_modulated(
+    mbatch: ModulatedBatchedSMDP, i: int, acts: np.ndarray, mu: np.ndarray
+) -> PolicyEval:
+    y_pi, c_pi, hold_pi, energy_pi = _gather_modulated(mbatch, i, acts)
+    return _finish_eval(
+        mu,
+        acts.reshape(-1),
+        y_pi,
+        c_pi,
+        hold_pi,
+        energy_pi,
+        overflow=_overflow_mask(mbatch.n_phases, mbatch.n_states),
+    )
+
+
+def evaluate_policy_modulated(
+    mbatch: ModulatedBatchedSMDP, i: int, policy: np.ndarray
+) -> PolicyEval:
+    """evaluate_policy on the (phase, queue) product chain of spec ``i``.
+
+    ``policy`` is a (K, S) phase-indexed action table.  Delta (the paper's
+    tail-tolerance, eq. 22) sums the contribution of every phase's overflow
+    state, so the adaptive-truncation rule carries over unchanged.
+    """
+    acts = np.asarray(policy, dtype=np.int64)
+    _check_feasible_modulated(mbatch, i, acts)
+    p_pi = mbatch.take([i]).policy_transitions_batched(acts[None])[0]
+    mu = stationary_distribution(p_pi)
+    return _finish_modulated(mbatch, i, acts, mu)
+
+
+def evaluate_policy_modulated_batched(
+    mbatch: ModulatedBatchedSMDP, policies: np.ndarray
+) -> List[PolicyEval]:
+    """Per-spec evaluation of (N, K, S) policies: one batched K*S solve.
+
+    Specs whose batched stationary solve degenerates fall back to the
+    scalar-path solver, mirroring evaluate_policy_batched.
+    """
+    acts = np.asarray(policies, dtype=np.int64)
+    if acts.shape[0] != mbatch.n_specs:
+        raise ValueError(f"{acts.shape[0]} policies for {mbatch.n_specs} specs")
+    for i in range(mbatch.n_specs):
+        _check_feasible_modulated(mbatch, i, acts[i])
+    p = mbatch.policy_transitions_batched(acts)
+    mu, ok = stationary_distribution_batched(p)
+    return [
+        _finish_modulated(
+            mbatch, i, acts[i], mu[i] if ok[i] else stationary_distribution(p[i])
+        )
+        for i in range(mbatch.n_specs)
+    ]
+
+
+# ---------------------------------------------------------------------------
 # Dense-free policy evaluation of the *discretized* MDP (m_tilde under a
 # frozen policy), over a leading spec axis: the building blocks of the
 # modified-policy-iteration polish in rvi.py.  They run on the device of
@@ -286,3 +388,53 @@ def policy_eval_linear(c_pi, m_pi, ref_state: int = 0):
     g = x[..., ref_state].clone()
     x[..., ref_state] = 0.0
     return g, x
+
+
+def policy_matrix_banded_modulated(pmfs, tails, wait_m, scale, s_max: int, policy):
+    """(N, K*S, K*S) discretized transition matrices of frozen (K, S) policies.
+
+    The modulated analogue of policy_matrix_banded: built from the
+    phase-coupled banded data only (pmfs possibly band-trimmed), feeding
+    the same policy_eval_linear for the MPI polish and the exact final
+    gain of the modulated RVI.  Flattened index = z * S + s.
+
+    pmfs: (N, A, K, K, Kb); tails: (N, A, K, K, s_max+1); wait_m: (N, K, K);
+    scale: (N, K, S, A); policy: (N, K, S) int64.  The reference builds one
+    spec per call under vmap; here the spec axis is written out.
+    """
+    N, K, S, _ = scale.shape
+    Kb = pmfs.shape[-1]
+    dev = scale.device
+    s_o = S - 1
+    s_idx = torch.arange(S, device=dev)
+    s_val = torch.clamp(s_idx, max=s_max)
+    a = policy  # (N, K, S)
+    sc = torch.gather(scale, 3, a[..., None])[..., 0]  # (N, K, S)
+    serve = a >= 1
+    base = torch.clamp(s_val - a, 0, s_max)  # (N, K, S)
+    k = torch.arange(s_max + 1, device=dev) - base[..., None]  # (N, K, S, s_max+1)
+    in_band = (k >= 0) & (k < Kb)
+    n_i = torch.arange(N, device=dev)[:, None, None, None, None]
+    z_i = torch.arange(K, device=dev)[None, :, None, None, None]
+    w_i = torch.arange(K, device=dev)[None, None, None, :, None]
+    # window[n, z, s, w, j] = pmfs[n, a[n,z,s], z, w, k[n,z,s,j]]
+    window = torch.where(
+        (in_band & serve[..., None])[:, :, :, None, :],
+        pmfs[n_i, a[..., None, None], z_i, w_i,
+             torch.clamp(k, 0, Kb - 1)[:, :, :, None, :]],
+        0.0,
+    )  # (N, K, S, K, s_max+1)
+    m_hat = torch.zeros((N, K, S, K, S), dtype=scale.dtype, device=dev)
+    m_hat[..., : s_max + 1] = window
+    tail = tails[n_i[..., 0], a[..., None], z_i[..., 0], w_i[..., 0],
+                 base[..., None]]  # (N, K, S, K)
+    m_hat[..., s_o] += torch.where(serve[..., None], tail, 0.0)
+    # wait rows: (z, s) -> (w, s + 1) (S_o self-block) weighted by wait_m
+    nxt = torch.where(s_idx < s_max, s_idx + 1, s_o)
+    onehot = torch.zeros((S, S), dtype=scale.dtype, device=dev)
+    onehot[s_idx, nxt] = 1.0
+    wait_rows = wait_m[:, :, None, :, None] * onehot[None, None, :, None, :]
+    m_hat = torch.where(serve[..., None, None], m_hat, wait_rows)
+    m_flat = m_hat.reshape(N, K * S, K * S)
+    sc_flat = sc.reshape(N, K * S)
+    return sc_flat[..., None] * m_flat + torch.diag_embed(1.0 - sc_flat)

@@ -45,6 +45,12 @@ Both accelerants finish with an exact linear-solve gain of the final
 greedy policy.  ``guard=True`` wraps a batched solve in the reference's
 fallback ladder (SolveReport).  The scalar float64 ``solve()`` path stays
 the untouched oracle these are tested against.
+
+relative_value_iteration_modulated runs the same lockstep / MPI loops on
+the (phase, queue) product chain of a ModulatedBatchedSMDP, always in
+float64 torch ops (the reference's phase-coupled correlation is a
+jnp.einsum outside any Pallas kernel).  avi / api are the reference's
+numpy Appendix-F baselines.
 """
 from __future__ import annotations
 
@@ -57,7 +63,11 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .evaluate import policy_eval_linear, policy_matrix_banded
+from .evaluate import (
+    policy_eval_linear,
+    policy_matrix_banded,
+    policy_matrix_banded_modulated,
+)
 from .smdp import TruncatedSMDP, build_smdp
 
 F64 = torch.float64
@@ -1097,5 +1107,426 @@ def relative_value_iteration_batched(
         iterations=it_conv.cpu().numpy() + it_coarse,
         span=span,
         converged=span < np.maximum(eps, eps_rel * np.abs(g)),
+        wall_time_s=time.perf_counter() - t0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Phase-modulated RVI: the same lockstep / MPI machinery on the (phase,
+# queue) product chain.  h carries a (K, S) phase-blocked layout; the backup
+# is the phase-coupled windowed correlation (one einsum against the K x K
+# matrix-valued arrival pmfs), the wait column mixes phases through the
+# arrival-phase matrix, and the MPI polish reuses policy_eval_linear on the
+# (K*S, K*S) matrix of the frozen policy.  Always float64 torch ops on the
+# device, as in the reference (its correlation is a jnp.einsum outside any
+# Pallas kernel): no kernel backup, no mixed precision.
+# ---------------------------------------------------------------------------
+
+
+def _make_backup_modulated(c_tilde, pmfs, tails, wait_m, scale, s_max: int):
+    """The modulated Q-backup h -> q over a spec batch, index tensors built
+    once.  c_tilde/scale (N, K, S, A) (+inf at infeasible), pmfs (N, A, K,
+    K, Kb) (possibly band-trimmed), tails (N, A, K, K, T), wait_m (N, K, K),
+    h (N, K, S).  The reference's vmap over specs, written out.
+
+    For a != 0 and base t = s - a:
+        (M^ h)(z, s) = sum_{w,k<=s_max-t} p^{[a]}_k[z,w] h(w, t+k)
+                       + sum_w tail[a,z,w,t] h(w, S_o)
+    For a == 0: (M^ h)(z, s) = sum_w wait_m[z,w] h(w, min(s+1 -> S_o)).
+    Discretized:  Q = c~ + scale * (M^ h) + (1 - scale) * h(z, s).
+    """
+    dev = c_tilde.device
+    S, A = c_tilde.shape[-2:]
+    T = s_max + 1
+    Kb = pmfs.shape[-1]
+    j = torch.arange(T, device=dev)[:, None] + torch.arange(Kb, device=dev)[None, :]
+    valid = j <= s_max
+    j_c = torch.clamp(j, max=s_max)
+    s_idx = torch.arange(S, device=dev)
+    acts = torch.arange(A, device=dev)
+    s_val = torch.clamp(s_idx, max=s_max)
+    base = torch.clamp(s_val[:, None] - acts[None, :], 0, s_max)  # (S, A)
+    act_idx = acts[None, :].expand(S, A)
+    nxt = torch.where(s_idx < s_max, s_idx + 1, S - 1)
+    one_minus_scale = 1.0 - scale
+
+    def backup(h):
+        hwin = torch.where(valid, h[..., j_c], 0.0)  # (N, K, T, Kb)
+        # G[n, z, t, a] = sum_{w, k} pmfs[n, a, z, w, k] hwin[n, w, t, k]
+        G = torch.einsum("nazwk,nwtk->nzta", pmfs, hwin)
+        G = G + torch.einsum("nazwt,nw->nzta", tails, h[..., S - 1])
+        mh = G[:, :, base, act_idx]  # (N, K, S, A)
+        mh[..., 0] = wait_m @ h[..., nxt]
+        return c_tilde + scale * mh + one_minus_scale * h[..., None]
+
+    return backup
+
+
+def banded_backup_modulated(c_tilde, pmfs, tails, wait_m, scale, s_max: int, h):
+    """Phase-blocked structured backup of one spec; K = 1 degenerates to
+    banded_backup.  c_tilde/scale (K, S, A), pmfs (A, K, K, Kb), tails (A,
+    K, K, T), wait_m (K, K), h (K, S); returns q (K, S, A)."""
+    fn = _make_backup_modulated(c_tilde[None], pmfs[None], tails[None],
+                                wait_m[None], scale[None], s_max)
+    return fn(h[None])[0]
+
+
+def trimmed_band_modulated(pm: np.ndarray, tol: float = BAND_TOL) -> int:
+    """Band width holding all but ``tol`` of every (action, phase) row.
+
+    ``pm`` is (N, A, K, K, T); the row mass sums over end phases w.  The
+    overflow tails stay full-width (exact), so trimming only drops in-band
+    mass below ``tol`` — the same guarantee as trimmed_band.
+    """
+    row = pm[:, 1:].sum(axis=3)  # (N, A-1, K, T): mass per (a, z) over w
+    tot = row.sum(axis=-1, keepdims=True)
+    width = int((np.cumsum(row, axis=-1) < tot - tol).sum(-1).max()) + 2
+    return min(width, pm.shape[-1])
+
+
+def _span_flat(diff):
+    d = diff.reshape(diff.shape[0], -1)
+    return d.amax(dim=-1) - d.amin(dim=-1)
+
+
+def _rvi_loop_modulated(c_tilde, pmfs, tails, wait_m, scale, eps: float,
+                        eps_rel: float, max_iter: int, s_max: int, h0=None):
+    """Lockstep RVI on the product chain (gauge at (z=0, s=0)).
+
+    The reference's while_loop step for step: every spec advances until
+    every span is below its threshold, ``it_conv`` records the backup at
+    which each first converged; one device -> host read per backup.
+    """
+    N, K, S, _ = c_tilde.shape
+    backup = _make_backup_modulated(c_tilde, pmfs, tails, wait_m, scale, s_max)
+    dev = c_tilde.device
+    h = torch.zeros((N, K, S), dtype=F64, device=dev) if h0 is None else h0.to(F64)
+    span = torch.full((N,), math.inf, dtype=F64, device=dev)
+    g = torch.zeros((N,), dtype=F64, device=dev)
+    it_conv = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    i, running = 0, True
+    while i < max_iter and running:
+        j = backup(h).amin(dim=-1)  # (N, K, S)
+        g = j[:, 0, 0]
+        h_new = j - g[:, None, None]
+        span = _span_flat(h_new - h)
+        th = _thresh(g, eps, eps_rel)
+        it_conv = torch.where((span < th) & (it_conv < 0), i + 1, it_conv)
+        h = h_new
+        i += 1
+        running = bool((span >= th).any())  # one device -> host read
+    policies = torch.argmin(backup(h), dim=-1)
+    it_conv = torch.where(it_conv < 0, i, it_conv)
+    return policies, g, h, i, span, it_conv
+
+
+def _rvi_loop_modulated_mpi(c_tilde, pmfs, tails, wait_m, scale, eps: float,
+                            eps_rel: float, max_iter: int, s_max: int,
+                            period: int = 6, h0=None):
+    """Modulated modified policy iteration: lockstep + periodic exact polish.
+
+    The polish freezes the greedy (K, S) policy and replaces h by its exact
+    gauge-fixed evaluation on the (K*S, K*S) policy matrix, accepted per
+    spec only where finite and span-shrinking and never for a spec that
+    already converged — so it can never do worse than plain lockstep.
+    """
+    N, K, S, _ = c_tilde.shape
+    backup = _make_backup_modulated(c_tilde, pmfs, tails, wait_m, scale, s_max)
+    dev = c_tilde.device
+
+    def bell(h):
+        q = backup(h)
+        j = q.amin(dim=-1)
+        g = j[:, 0, 0]
+        return q, j - g[:, None, None], g
+
+    h = torch.zeros((N, K, S), dtype=F64, device=dev) if h0 is None else h0.to(F64)
+    span = torch.full((N,), math.inf, dtype=F64, device=dev)
+    g = torch.zeros((N,), dtype=F64, device=dev)
+    it_conv = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    acc = torch.zeros((N,), dtype=torch.int64, device=dev)
+    rej = torch.zeros_like(acc)
+    it = nb = 0
+    running = True
+    while it < max_iter and running:
+        q, hb, g = bell(h)
+        nb += 1
+        span = _span_flat(hb - h)
+        conv = span < _thresh(g, eps, eps_rel)
+        if (it + 1) % period == 0:
+            pol = torch.argmin(q, dim=-1)  # (N, K, S)
+            m_pi = policy_matrix_banded_modulated(pmfs, tails, wait_m, scale, s_max, pol)
+            c_pi = torch.gather(c_tilde, 3, pol[..., None])[..., 0].reshape(N, K * S)
+            g_pol, h_pol_flat = policy_eval_linear(c_pi, m_pi, 0)
+            h_pol = h_pol_flat.reshape(N, K, S)
+            _, hb2, g2 = bell(h_pol)
+            span2 = _span_flat(hb2 - h_pol)
+            ok = (
+                torch.isfinite(g_pol)
+                & torch.isfinite(h_pol_flat).all(dim=-1)
+                & (span2 < span)
+                & ~conv
+            )
+            h = torch.where(ok[:, None, None], hb2, hb)
+            span = torch.where(ok, span2, span)
+            g = torch.where(ok, g2, g)
+            nb += 1
+            acc = acc + ok
+            rej = rej + (~ok & ~conv)
+        else:
+            h = hb
+        th = _thresh(g, eps, eps_rel)
+        it_conv = torch.where((span < th) & (it_conv < 0), nb, it_conv)
+        it += 1
+        running = bool((span >= th).any())  # one device -> host read
+    policies = torch.argmin(backup(h), dim=-1)
+    it_conv = torch.where(it_conv < 0, nb, it_conv)
+    return policies, g, h, nb, span, it_conv, acc, rej
+
+
+def _exact_gain_modulated(c_tilde, pmfs, tails, wait_m, scale, s_max, policies,
+                          ref_state=0):
+    """Exact linear-solve gain + relative values of frozen (K, S) policies."""
+    N, K, S, _ = c_tilde.shape
+    m_pi = policy_matrix_banded_modulated(pmfs, tails, wait_m, scale, s_max, policies)
+    c_pi = torch.gather(c_tilde, 3, policies[..., None])[..., 0].reshape(N, K * S)
+    g, h = policy_eval_linear(c_pi, m_pi, ref_state)
+    return g, h.reshape(N, K, S)
+
+
+def _guarded_modulated(mbatch, eps: float, max_iter: int, eps_rel: float, h0,
+                       accel: str, accel_period: int,
+                       device: torch.device) -> BatchedRVIResult:
+    """Guardrail ladder for the modulated batched RVI (the reference's).
+
+    The rungs that apply to the product chain (always float64, no kernel
+    backup): the MPI accelerant and any caller h0 fall back to the plain
+    lockstep loop, and rows still unhealthy are quarantined into
+    single-spec plain-f64 re-solves — the oracle path the K = 1 tests pin
+    the modulated solver against.
+    """
+
+    def run(b, h0_, ac):
+        return relative_value_iteration_modulated(
+            b, eps=eps, max_iter=max_iter, eps_rel=eps_rel, h0=h0_,
+            accel=ac, accel_period=accel_period, device=device,
+        )
+
+    res = run(mbatch, h0, accel)
+    healthy = _spec_health(res)
+    rungs: Dict[str, List[int]] = {}
+    quarantined: List[int] = []
+    failed: List[int] = []
+    if not healthy.all():
+        res = _writable(res)
+        bad = np.flatnonzero(~healthy)
+        if accel != "none" or h0 is not None:
+            sub_res = run(mbatch.take([int(i) for i in bad]), None, "none")
+            ok = _spec_health(sub_res)
+            rungs["plain_restart"] = [int(i) for i in bad]
+            if ok.any():
+                _patch_rows(res, sub_res, bad[ok], np.flatnonzero(ok))
+            bad = bad[~ok]
+        if bad.size:
+            rungs["quarantine"] = [int(i) for i in bad]
+            for i in bad:
+                i = int(i)
+                quarantined.append(i)
+                oracle = run(mbatch.take([i]), None, "none")
+                if _spec_health(oracle)[0]:
+                    _patch_rows(res, oracle, np.array([i]), np.array([0]))
+                else:
+                    failed.append(i)
+        healthy = _spec_health(res)
+    return dataclasses.replace(
+        res,
+        report=SolveReport(
+            eps=eps,
+            span=np.asarray(res.span),
+            converged=np.asarray(res.converged),
+            healthy=healthy,
+            rungs=rungs,
+            quarantined=quarantined,
+            failed=failed,
+        ),
+    )
+
+
+def relative_value_iteration_modulated(
+    mbatch,  # ModulatedBatchedSMDP
+    eps: float = 1e-2,
+    max_iter: int = 10_000,
+    eps_rel: float = 2e-4,
+    h0: Optional[np.ndarray] = None,
+    accel: str = "auto",
+    accel_period: int = 6,
+    guard: bool = False,
+    *,
+    device: DeviceLike = None,
+) -> BatchedRVIResult:
+    """Solve every spec of a ModulatedBatchedSMDP in float64 on ``device``.
+
+    Returns a BatchedRVIResult whose per-spec policy/h carry the (K, S)
+    phase-blocked layout.  ``accel`` in {"none", "mpi", "auto"}; "auto"
+    routes through the MPI polish once any spec's *within-phase* traffic
+    intensity reaches ACCEL_RHO_THRESHOLD (the burst phase sets the mixing
+    wall, so the decision keys on max_z rho_z, not on the mean).  g/h are
+    replaced by the exact linear-solve evaluation of the final greedy
+    policy wherever that solve is finite.  ``guard=True`` wraps the solve
+    in the guardrail ladder and attaches a SolveReport.  ``device=None``
+    means CUDA.
+    """
+    from .smdp import phase_rho
+
+    dev = resolve_device(device)
+    if guard:
+        return _guarded_modulated(
+            mbatch, eps=eps, max_iter=max_iter, eps_rel=eps_rel, h0=h0,
+            accel=accel, accel_period=accel_period, device=dev,
+        )
+    t0 = time.perf_counter()
+    pm = mbatch.pmfs_banded
+    band = trimmed_band_modulated(pm)
+    args = tuple(
+        torch.as_tensor(np.ascontiguousarray(x), dtype=F64, device=dev)
+        for x in (mbatch.c_tilde, pm[..., :band], mbatch.tails, mbatch.wait_m,
+                  mbatch.scale)
+    )
+    s_max = mbatch.s_max
+    if accel == "auto":
+        rho_z = max(phase_rho(sp, ph) for sp, ph in zip(mbatch.specs, mbatch.phases))
+        accel = "mpi" if rho_z >= ACCEL_RHO_THRESHOLD else "none"
+    h0_t = None if h0 is None else torch.as_tensor(np.asarray(h0), dtype=F64, device=dev)
+    acc = rej = None
+    if accel == "mpi":
+        policies, g, h, _, span, it_conv, acc, rej = _rvi_loop_modulated_mpi(
+            *args, eps, eps_rel, max_iter, s_max, period=accel_period, h0=h0_t
+        )
+        acc, rej = acc.cpu().numpy(), rej.cpu().numpy()
+    elif accel == "none":
+        policies, g, h, _, span, it_conv = _rvi_loop_modulated(
+            *args, eps, eps_rel, max_iter, s_max, h0=h0_t
+        )
+    else:
+        raise ValueError(f"unknown accel {accel!r} for modulated RVI")
+    g_exact, h_exact = _exact_gain_modulated(*args, s_max, policies)
+    g_exact, h_exact = g_exact.cpu().numpy(), h_exact.cpu().numpy()
+    ok = np.isfinite(g_exact) & np.isfinite(h_exact.reshape(mbatch.n_specs, -1)).all(axis=-1)
+    g = np.where(ok, g_exact, g.cpu().numpy())
+    h = np.where(ok[:, None, None], h_exact, h.cpu().numpy())
+    span = span.cpu().numpy()
+    return BatchedRVIResult(
+        policies=policies.cpu().numpy(),
+        g=g,
+        h=h,
+        iterations=it_conv.cpu().numpy(),
+        span=span,
+        converged=span < np.maximum(eps, eps_rel * np.abs(g)),
+        wall_time_s=time.perf_counter() - t0,
+        accel=accel,
+        accel_accepts=acc,
+        accel_rejects=rej,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Appendix-F baselines: approximate value / policy iteration on the
+# *untruncated* associated DTMDP with an expanding state window (numpy, as
+# in the reference: the baselines of benchmarks/table3_iteration_algos.py).
+# ---------------------------------------------------------------------------
+
+
+def _untruncated_arrays(spec, n_states: int):
+    """c~, p_k, y for states 0..n_states-1 of the untruncated DTMDP."""
+    big = dataclasses.replace(spec, s_max=max(n_states - 2, spec.b_max), c_o=0.0)
+    mdp = build_smdp(big)
+    return mdp
+
+
+def avi(
+    spec,
+    n_outer: int = 400,
+    n0: int = 8,
+    growth: int = 1,
+    eval_s_max: int = 160,
+) -> RVIResult:
+    """Thomas–Stengos Scheme I: VI with an expanding state window.
+
+    Iteration i backs up states {0..n0 + growth*i}; values outside the
+    current window are taken as the boundary value (h of the largest known
+    state), which mirrors the scheme's 'latter states see fewer backups'.
+    """
+    t0 = time.perf_counter()
+    n_final = n0 + growth * n_outer + spec.b_max + 2
+    mdp = _untruncated_arrays(spec, n_final + 2)
+    n_states = mdp.n_states  # n_final + 2 (incl. S_o)
+    c = np.where(mdp.feasible, mdp.c_tilde, np.inf)[: n_final + 1]
+    m = mdp.m_tilde[: n_final + 1, :, :]  # (n_final+1, A, n_states)
+    h = np.zeros(n_states)
+    g = 0.0
+    for i in range(n_outer):
+        n_i = min(n0 + growth * i, n_final)
+        q = c[: n_i + 1] + np.einsum("saj,j->sa", m[: n_i + 1, :, :], h)
+        j = np.min(q, axis=1)
+        g = j[0]
+        h[: n_i + 1] = j - g
+    q = c + np.einsum("saj,j->sa", m, h)
+    policy = np.argmin(q, axis=1)
+    pol = policy[: eval_s_max + 2].copy()
+    pol[-1] = pol[eval_s_max]  # overflow state mirrors s_max
+    return RVIResult(
+        policy=pol,
+        g=float(g),
+        h=h[: eval_s_max + 2],
+        iterations=n_outer,
+        span=float("nan"),
+        converged=True,
+        wall_time_s=time.perf_counter() - t0,
+    )
+
+
+def api(
+    spec,
+    n_outer: int = 12,
+    inner_per_outer: int = 20,
+    n0: int = 8,
+    growth: int = 1,
+    eval_s_max: int = 160,
+) -> RVIResult:
+    """Thomas–Stengos Scheme IV: policy iteration with AVI inner evaluation."""
+    t0 = time.perf_counter()
+    max_inner = sum(inner_per_outer * (i + 1) for i in range(n_outer))
+    n_final = n0 + growth * max_inner + spec.b_max + 2
+    mdp = _untruncated_arrays(spec, n_final + 2)
+    n_states = mdp.n_states
+    c = np.where(mdp.feasible, mdp.c_tilde, np.inf)[: n_final + 1]
+    m = mdp.m_tilde[: n_final + 1, :, :]
+    policy = np.zeros(n_final + 1, dtype=np.int64)  # initial: always wait
+    h = np.zeros(n_states)
+    g = 0.0
+    step = 0
+    for outer in range(n_outer):
+        # inner: approximate evaluation of `policy` with expanding window
+        for _ in range(inner_per_outer * (outer + 1)):
+            n_i = min(n0 + growth * step, n_final)
+            step += 1
+            rows = np.arange(n_i + 1)
+            cp = c[rows, policy[: n_i + 1]]
+            mp = m[rows, policy[: n_i + 1], :]
+            j = cp + mp @ h
+            g = j[0]
+            h[: n_i + 1] = j - g
+        # improvement
+        q = c + np.einsum("saj,j->sa", m, h)
+        policy = np.argmin(q, axis=1)
+    pol = policy[: eval_s_max + 2].copy()
+    pol[-1] = pol[eval_s_max]
+    return RVIResult(
+        policy=pol,
+        g=float(g),
+        h=h[: eval_s_max + 2],
+        iterations=step,
+        span=float("nan"),
+        converged=True,
         wall_time_s=time.perf_counter() - t0,
     )

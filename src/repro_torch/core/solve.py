@@ -14,7 +14,7 @@ import numpy as np
 from ..device import DeviceLike, resolve_device
 from .evaluate import PolicyEval, evaluate_policy
 from .rvi import RVIResult, relative_value_iteration
-from .smdp import SMDPSpec, TruncatedSMDP, build_smdp
+from .smdp import PhaseConfig, SMDPSpec, TruncatedSMDP, build_smdp
 
 
 @dataclasses.dataclass
@@ -45,6 +45,39 @@ class SolveResult:
         """Dense lookup table for the serving scheduler."""
         upto = upto if upto is not None else self.spec.s_max
         return np.array([self.action(s) for s in range(upto + 1)], dtype=np.int64)
+
+
+@dataclasses.dataclass
+class ModulatedSolveResult:
+    """Solved phase-modulated SMDP: (K, S) policy over the product chain.
+
+    The serving-side contract mirrors SolveResult — ``action_table()``
+    returns the dense lookup table, here a (K, upto+1) phase-indexed stack
+    that SMDPScheduler / the compiled phase lane consume directly.
+    """
+
+    spec: SMDPSpec
+    phases: PhaseConfig
+    rvi: RVIResult  # policy / h carry the (K, S) layout
+    eval: PolicyEval
+
+    @property
+    def policy(self) -> np.ndarray:
+        return self.rvi.policy  # (K, S)
+
+    def action(self, z: int, s: int) -> int:
+        """Infinite-state extension per phase (eq. 30 within each block)."""
+        s_max = self.spec.s_max
+        return int(self.policy[z, min(s, s_max)])
+
+    def action_table(self, upto: Optional[int] = None) -> np.ndarray:
+        """(K, upto + 1) phase-indexed lookup stack for the serving layer."""
+        upto = upto if upto is not None else self.spec.s_max
+        K = self.phases.n_phases
+        return np.array(
+            [[self.action(z, s) for s in range(upto + 1)] for z in range(K)],
+            dtype=np.int64,
+        )
 
 
 def resolve_abstract_cost(spec: SMDPSpec) -> SMDPSpec:

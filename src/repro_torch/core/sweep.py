@@ -21,16 +21,21 @@ anchor-interpolated warm starts chain along the rho axis.  The c_o probe
 batch is reused as the first solve batch.  Results always come back in
 the caller's original spec order.
 
+sweep_solve_modulated / sweep_bank(phases=...) are the exact MMPP-aware
+mirrors: the same ordering, c_o-probe reuse, warm-start chaining and
+adaptive-truncation machinery runs on the (phase, queue) product chain
+(smdp.build_smdp_modulated_batched) in float64 on the device, producing
+(K, S) phase-indexed policies the serving layer consumes as table stacks.
+
 guard=True (default) routes every batched solve through the rvi
 guardrail ladder, and report_sink=[...] collects the merged SolveReport.
-The durable, checkpointed sweep (checkpoint_dir=) and the phase-modulated
-sweeps (sweep_solve_modulated, sweep_bank(phases=...)) are not ported yet
-(ROADMAP.md, queue 1) and raise NotImplementedError.
+The durable, checkpointed sweep (checkpoint_dir=) is not ported yet
+(ROADMAP.md, queue 1) and raises NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,6 +45,8 @@ from .evaluate import (
     _finish_from_batch,
     evaluate_policy_banded,
     evaluate_policy_batched,
+    evaluate_policy_modulated,
+    evaluate_policy_modulated_batched,
     stationary_distribution_batched,
 )
 from .policies import greedy_policy
@@ -47,9 +54,17 @@ from .rvi import (
     ACCEL_RHO_THRESHOLD as _ACCEL_RHO_THRESHOLD,
     SolveReport,
     relative_value_iteration_batched,
+    relative_value_iteration_modulated,
 )
-from .smdp import SMDPSpec, build_smdp_batched
-from .solve import SolveResult
+from .smdp import (
+    PhaseConfig,
+    SMDPSpec,
+    build_smdp_batched,
+    build_smdp_modulated_batched,
+    modulated_spec,
+    phase_rho,
+)
+from .solve import ModulatedSolveResult, SolveResult
 
 
 def sweep_bank(
@@ -57,7 +72,7 @@ def sweep_bank(
     lams: Sequence[float],
     w2s: Optional[Sequence[float]] = None,
     profiles: Optional[dict] = None,
-    phases=None,
+    phases: Optional[PhaseConfig] = None,
     **solve_kw,
 ):
     """Solve a lambda x w2 (x service-profile) grid as an SMDPSchedulerBank.
@@ -72,18 +87,37 @@ def sweep_bank(
     for dataclasses.replace).  Keys become (lam, w2, profile).  All
     profiles must share b_max (the action axis cannot be padded).
     ``solve_kw`` goes to sweep_solve (``backup=``, ``device=``, ...).
+
+    ``phases`` switches the bank to *exact MMPP-aware* solves: each lam is
+    the target mean rate, the PhaseConfig's per-phase rates are scaled to
+    hit it (same burst ratio and switching dynamics), and every table
+    becomes a (K, S) phase-indexed stack solved on the (phase, queue)
+    product chain (sweep_solve_modulated; ``solve_kw`` goes there).
+    Mutually exclusive with ``profiles``.
     """
     from ..serving.scheduler import SMDPScheduler
 
-    if phases is not None:
-        raise NotImplementedError(
-            "sweep_bank(phases=...) needs the phase-modulated solve, which "
-            "is not ported yet (see ROADMAP.md, queue 1)"
-        )
     lams = list(lams)
     w2s = [base.w2] if w2s is None else list(w2s)
     if len(lams) == 0 or len(w2s) == 0:
         raise ValueError("sweep_bank needs at least one lam and one w2")
+    if phases is not None:
+        if profiles is not None:
+            raise ValueError("phases= and profiles= are mutually exclusive")
+        specs, phase_list, keys = [], [], []
+        for lam in lams:
+            ph = phases.scaled(float(lam) / phases.mean_rate)
+            for w2 in w2s:
+                specs.append(
+                    modulated_spec(dataclasses.replace(base, w2=float(w2)), ph)
+                )
+                phase_list.append(ph)
+                keys.append((float(lam), float(w2)))
+        return SMDPScheduler.bank(
+            sweep_solve_modulated(specs, phase_list, **solve_kw),
+            keys=keys,
+            key_names=("lam", "w2"),
+        )
     variants = [(None, {})] if profiles is None else [
         (float(pid), dict(over)) for pid, over in profiles.items()
     ]
@@ -211,24 +245,30 @@ def _nan_eval(n_states: int) -> PolicyEval:
     )
 
 
-def _eval_healthy(batch, policies: np.ndarray, healthy: np.ndarray) -> List[PolicyEval]:
+def _eval_healthy(
+    batch,
+    policies: np.ndarray,
+    healthy: np.ndarray,
+    batched_eval: Callable,
+    n_states: Callable[[SMDPSpec], int],
+) -> List[PolicyEval]:
     """Evaluate only ladder-healthy rows; failed rows get NaN placeholders.
 
-    evaluate_policy_batched rejects the garbage policies a failed row
-    carries, so those rows are masked out of the batched stationary solve
-    entirely and come back as all-NaN PolicyEvals (the sweep accepts them
-    without regrowing)."""
+    evaluate_* rejects the garbage policies a failed row carries, so those
+    rows are masked out of the batched stationary solve entirely and come
+    back as all-NaN PolicyEvals (the sweep accepts them without
+    regrowing)."""
     if healthy.all():
-        return evaluate_policy_batched(batch, policies)
+        return batched_eval(batch, policies)
     evs: List[Optional[PolicyEval]] = [None] * len(healthy)
     ok = [int(i) for i in np.flatnonzero(healthy)]
     if ok:
-        sub = evaluate_policy_batched(batch.take(ok), policies[np.asarray(ok)])
+        sub = batched_eval(batch.take(ok), policies[np.asarray(ok)])
         for j, e in zip(ok, sub):
             evs[j] = e
     return [
-        e if e is not None else _nan_eval(batch.n_states - 1)
-        for e in evs
+        e if e is not None else _nan_eval(n_states(batch.specs[j]))
+        for j, e in enumerate(evs)
     ]
 
 
@@ -281,6 +321,28 @@ def _anchor_warm_start(batch, eps: float, max_iter: int, **rvi_kw):
     mask = batch.feasible.all(axis=0)  # finite c_tilde in every spec
     t = _warm_start_t(batch.specs, batch.c_tilde[:, mask])
     return (1.0 - t)[:, None] * anchors.h[0] + t[:, None] * anchors.h[1]
+
+
+def _anchor_warm_start_modulated(mbatch, eps: float, max_iter: int, **rvi_kw):
+    """Modulated anchor warm start: h0 chains along rho per phase block.
+
+    The discipline of _anchor_warm_start — the anchors are the
+    extreme-(rho, w2) specs of the pre-sorted batch — with the (K, S)
+    phase-blocked h interpolated jointly (every phase block shares the
+    spec's interpolation coordinate: the whole chain moves with (rho, w2)).
+    """
+    if mbatch.n_specs < _WARM_START_MIN:
+        return None
+    anchors = relative_value_iteration_modulated(
+        mbatch.take([0, mbatch.n_specs - 1]), eps=eps, max_iter=max_iter, **rvi_kw
+    )
+    mask = mbatch.feasible.all(axis=0)  # (S, A) feasible in every spec
+    c_feat = mbatch.c_tilde[:, :, mask].reshape(mbatch.n_specs, -1)
+    t = _warm_start_t(mbatch.specs, c_feat)
+    return (
+        (1.0 - t)[:, None, None] * anchors.h[0]
+        + t[:, None, None] * anchors.h[1]
+    )
 
 
 def sweep_solve(
@@ -391,7 +453,8 @@ def sweep_solve(
                 report_parts.append((rvi.report, [idx for idx, _ in chunk]))
             else:
                 healthy = np.ones(len(chunk), dtype=bool)
-            evs = _eval_healthy(batch, rvi.policies, healthy)
+            evs = _eval_healthy(batch, rvi.policies, healthy,
+                                evaluate_policy_batched, lambda sp: sp.s_max + 1)
             for row, (idx, sp) in enumerate(chunk):
                 ev = evs[row]
                 if (
@@ -448,3 +511,177 @@ def _report_of(results: List[SolveResult], eps: float) -> SolveReport:
         healthy=healthy,
         failed=[k for k in range(len(results)) if not healthy[k]],
     )
+
+
+# ---------------------------------------------------------------------------
+# Phase-modulated sweeps (exact MMPP-aware solves)
+# ---------------------------------------------------------------------------
+
+
+def _greedy_c_o_modulated(mbatch) -> np.ndarray:
+    """Per-spec abstract cost c_o = max(100, 2 * g_greedy), modulated chain.
+
+    The greedy policy is phase-independent (largest feasible batch now), so
+    its (K, S) lift is the scalar table tiled across phases; gains come
+    from the batched product-chain stationary solve."""
+    K = mbatch.n_phases
+    pols = np.stack(
+        [
+            np.tile(greedy_policy(sp.s_max, sp.b_min, sp.b_max)[None, :], (K, 1))
+            for sp in mbatch.specs
+        ]
+    )
+    out = np.empty(mbatch.n_specs)
+    try:
+        evs = evaluate_policy_modulated_batched(mbatch, pols)
+        for i, ev in enumerate(evs):
+            out[i] = max(100.0, 2.0 * ev.g)
+    except RuntimeError:
+        for i in range(mbatch.n_specs):
+            try:
+                g = evaluate_policy_modulated(mbatch, i, pols[i]).g
+            except RuntimeError:
+                g = 100.0
+            out[i] = max(100.0, 2.0 * g)
+    return out
+
+
+def sweep_solve_modulated(
+    specs: Sequence[SMDPSpec],
+    phases,
+    eps: float = 1e-2,
+    max_iter: int = 10_000,
+    delta: float = 1e-3,
+    grow_factor: float = 1.5,
+    max_s_max: int = 1024,
+    auto_c_o: bool = True,
+    accel: str = "auto",
+    guard: bool = True,
+    report_sink: Optional[list] = None,
+    checkpoint_dir: Optional[str] = None,
+    chunk_size: Optional[int] = None,
+    *,
+    device: DeviceLike = None,
+) -> List[ModulatedSolveResult]:
+    """Batched exact MMPP-aware solves over aligned (spec, phases) pairs.
+
+    The modulated mirror of sweep_solve: specs are padded to a shared
+    s_max, sorted along (rho, w2) so anchor warm starts chain along the
+    rho axis per phase block, the c_o = 0 probe batch calibrates every
+    abstract cost with one batched product-chain stationary solve (then
+    row-patched via with_c_o, never rebuilt), and the paper's adaptive
+    truncation rule regrows only the specs whose Delta (summed over every
+    phase's overflow state) still exceeds ``delta``.  Results return in
+    input order; each carries the (K, S) phase-indexed policy.  The RVI
+    runs in float64 on ``device`` (CUDA unless ``device="cpu"``).
+
+    ``phases`` may be one shared PhaseConfig or a sequence aligned with
+    ``specs``.  ``max_s_max`` defaults lower than the scalar sweep: the
+    product chain is K x larger per state.  ``guard`` / ``report_sink``
+    behave as in sweep_solve; ``checkpoint_dir`` is not ported yet.
+    """
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpointed sweeps (checkpoint_dir=) are not ported yet "
+            "(see ROADMAP.md, queue 1)"
+        )
+    dev = resolve_device(device)
+    specs = list(specs)
+    if not specs:
+        return []
+    if isinstance(phases, PhaseConfig):
+        phases = [phases] * len(specs)
+    phases = list(phases)
+    if len(phases) != len(specs):
+        raise ValueError(f"{len(phases)} phase configs for {len(specs)} specs")
+    specs = pad_specs(specs)
+    if accel == "auto":
+        # the burst phase sets the mixing wall: key on max within-phase rho
+        rho_z = max(phase_rho(sp, ph) for sp, ph in zip(specs, phases))
+        accel = "mpi" if rho_z >= _ACCEL_RHO_THRESHOLD else "none"
+    order = sorted(range(len(specs)), key=lambda i: (specs[i].rho, specs[i].w2))
+    prebuilt = None
+    if auto_c_o:
+        probe = build_smdp_modulated_batched(
+            [dataclasses.replace(specs[i], c_o=0.0) for i in order],
+            [phases[i] for i in order],
+        )
+        prebuilt = probe.with_c_o(_greedy_c_o_modulated(probe))
+        base = list(prebuilt.specs)
+    else:
+        base = [specs[i] for i in order]
+    pending = [(i, sp, phases[i]) for i, sp in zip(order, base)]
+    results: List[ModulatedSolveResult] = [None] * len(specs)  # type: ignore[list-item]
+    report_parts: List[Tuple[SolveReport, List[int]]] = []
+    next_round: List[tuple] = []
+    rvi_kw = dict(accel=accel, device=dev)
+    while pending:
+        for chunk in _round_plan(pending, chunk_size):
+            if (
+                prebuilt is not None
+                and len(chunk) == prebuilt.n_specs
+                and all(a is b for (_, a, _), b in zip(chunk, prebuilt.specs))
+            ):
+                mbatch = prebuilt
+            else:
+                mbatch = build_smdp_modulated_batched(
+                    [sp for _, sp, _ in chunk], [ph for _, _, ph in chunk]
+                )
+            rvi = relative_value_iteration_modulated(
+                mbatch,
+                eps=eps,
+                max_iter=max_iter,
+                h0=_anchor_warm_start_modulated(mbatch, eps, max_iter, **rvi_kw),
+                guard=guard,
+                **rvi_kw,
+            )
+            if rvi.report is not None:
+                healthy = rvi.report.healthy
+                report_parts.append((rvi.report, [idx for idx, _, _ in chunk]))
+            else:
+                healthy = np.ones(len(chunk), dtype=bool)
+            evs = _eval_healthy(
+                mbatch, rvi.policies, healthy, evaluate_policy_modulated_batched,
+                lambda sp: mbatch.n_phases * (sp.s_max + 1),
+            )
+            for row, (idx, sp, ph) in enumerate(chunk):
+                ev = evs[row]
+                if (
+                    not healthy[row]
+                    or delta is None
+                    or ev.delta < delta
+                    or sp.s_max >= max_s_max
+                ):
+                    results[idx] = ModulatedSolveResult(
+                        spec=sp, phases=ph, rvi=rvi.unstack(row), eval=ev
+                    )
+                else:
+                    next_round.append((
+                        idx,
+                        dataclasses.replace(
+                            sp,
+                            s_max=min(int(np.ceil(sp.s_max * grow_factor)), max_s_max),
+                        ),
+                        ph,
+                    ))
+        prebuilt = None
+        pending, next_round = next_round, []
+    if report_sink is not None:
+        report_sink.append(
+            SolveReport.merged(report_parts, len(specs), eps)
+            if report_parts
+            else _report_of(results, eps)
+        )
+    return results
+
+
+def solve_modulated(
+    spec: SMDPSpec, phases: PhaseConfig, **kw
+) -> ModulatedSolveResult:
+    """Exact MMPP-aware solve of one spec (the N == 1 modulated sweep).
+
+    ``spec.lam`` must equal ``phases.mean_rate`` (use smdp.modulated_spec).
+    The K = 1 degenerate config reproduces the scalar solve() policy — the
+    safety rail the tests pin.  ``device=None`` means CUDA.
+    """
+    return sweep_solve_modulated([spec], phases, **kw)[0]

@@ -9,6 +9,7 @@ with several kernel instances also counts each in ``instance_launches``
 """
 from typing import Dict
 
+from . import belief_forward as _belief
 from . import bellman as _bellman
 from . import decode_attention as _decode
 from . import flash_attention as _flash
@@ -18,6 +19,7 @@ WRAPPERS = {
     "bellman_banded": _bellman.bellman_banded,
     "bellman_banded_batched": _bellman.bellman_banded_batched,
     "serve_scan": _serve_scan.serve_scan,
+    "belief_forward": _belief.belief_forward,
     "flash_attention": _flash.flash_attention,
     "decode_attention": _decode.decode_attention,
 }

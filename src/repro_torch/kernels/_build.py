@@ -35,7 +35,9 @@ BASE_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: per-source extra flags.  serve_scan must round t + means[a] * draw as
 #: numpy does (product first): FMA contraction would move admissions by
 #: one ulp and break decision-for-decision equality with the reference.
+#: belief_forward fuses only where its plain version does (explicit fma).
 EXTRA_FLAGS: Dict[str, List[str]] = {
+    "belief_forward": ["-fmad=false"],
     "bellman": [],
     "serve_scan": ["-fmad=false"],
     "flash_attention": [],

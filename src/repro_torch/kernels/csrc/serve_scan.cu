@@ -8,7 +8,7 @@
 // draw the service time means[a] * draws[min(n_batches, n_draws - 1)],
 // advance the clock.
 //
-// One __global__, two template flags (four instances):
+// One __global__, three template flags (eight instances):
 //   QMAN      the managed-queue lane: an explicit admitted-slot queue per
 //             lane, door refusals past buffer_cap queued requests (counted
 //             against the running queue, which still holds expired
@@ -18,6 +18,14 @@
 //   ADAPTIVE  the AdaptiveController in the loop: every taken arrival, in
 //             time order, folds into the EWMA gap estimate and may switch
 //             the live bank entry (relative margin, minimum dwell).
+//   MIX       the belief-mixture action rule (BeliefPhaseScheduler(mode=
+//             "mix")): the action is rint(sum_k beliefs[last, k] *
+//             table[k, min(q, L - 1)]) with beliefs the phase posterior
+//             row of the last admitted arrival (the managed-queue index
+//             where that lane is used), summed in order k = 0..K-1 with
+//             each product and sum rounded on its own; rint rounds half
+//             to even, as np.round.  Then the same clip / wait / terminate
+//             rules.
 // Lanes: block -> (trace s = lane / n_pol, table p = lane % n_pol); the
 // adaptive lane runs over the whole bank (n_pol = 1).
 //
@@ -68,10 +76,11 @@ struct ScanParams {
   int* rec_a;               // (n_lanes, rec_cap) action per epoch, or null
   int* rec_slot;            // (n_lanes, size) served slots in service order, or null
   double* rec_done;         // (n_lanes, size) their completion times, or null
+  const double* beliefs;    // (S, size, K) phase posterior rows; mix lane only
   long long n_lanes, n_pol, n_tables, K, L, size, n_draws, n_edges;
   long long max_eps, rec_cap, b_max, buffer_cap;
   double t0, horizon;
-  int drain, shed, check_deadlines, qman, adaptive;
+  int drain, shed, check_deadlines, qman, adaptive, mix;
 };
 
 namespace {
@@ -200,7 +209,7 @@ __device__ void consume(const ScanParams& p, const Ring& r, long long lane,
 }
 
 // Lane 0 of warp 0: the event loop of the lane.
-template <bool QMAN, bool ADAPTIVE>
+template <bool QMAN, bool ADAPTIVE, bool MIX>
 __device__ void produce(const ScanParams& p, const Ring& r, long long lane,
                         const double* arr, const double* __restrict__ dl,
                         int* queue) {
@@ -214,9 +223,12 @@ __device__ void produce(const ScanParams& p, const Ring& r, long long lane,
   const long long* tab = p.tables + (ADAPTIVE ? 0 : (lane % p.n_pol) * KL);
   int* rec_a = p.rec_a ? p.rec_a + lane * p.rec_cap : nullptr;
   const double* means = p.means;
+  const long long K = p.K;
+  const double* bel = MIX ? p.beliefs + s * size * K : nullptr;
   // keep the loop's invariants in registers (the compiler would reload them
   // from the constant bank inside the event loop, on its critical path)
   asm volatile("" : "+l"(arr), "+l"(ph), "+l"(draws), "+l"(tab), "+l"(means));
+  if (MIX) asm volatile("" : "+l"(bel));
   asm volatile("" : "+l"(size), "+l"(L), "+l"(b_max), "+l"(max_eps), "+d"(horizon));
 
   // the controller: constants, then the state the lane starts from
@@ -316,7 +328,17 @@ __device__ void produce(const ScanParams& p, const Ring& r, long long lane,
     }
     const long long q = QMAN ? tail - head : n_adm - n_srv;
     const long long li = QMAN ? (last_adm > 0 ? last_adm : 0) : (n_adm > 0 ? n_adm - 1 : 0);
-    long long a = tab[ph[li] * L + (q < L - 1 ? q : L - 1)];
+    const long long col = q < L - 1 ? q : L - 1;
+    long long a;
+    if (MIX) {  // posterior-weighted blend of the phase rows, rounded
+      const double* b = bel + li * K;
+      double acc = __dmul_rn(b[0], static_cast<double>(tab[col]));
+      for (long long k = 1; k < K; ++k)
+        acc = __dadd_rn(acc, __dmul_rn(b[k], static_cast<double>(tab[k * L + col])));
+      a = static_cast<long long>(rint(acc));
+    } else {
+      a = tab[ph[li] * L + col];
+    }
     const long long cap = q < b_max ? q : b_max;
     a = a < 0 ? 0 : (a > cap ? cap : a);
     const bool live = isfinite(x);
@@ -377,7 +399,7 @@ __device__ void produce(const ScanParams& p, const Ring& r, long long lane,
   of[F_LAST_SWITCH] = last_sw;
 }
 
-template <bool QMAN, bool ADAPTIVE>
+template <bool QMAN, bool ADAPTIVE, bool MIX>
 __global__ void __launch_bounds__(64) serve_scan_kernel(const ScanParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long produced, consumed;
@@ -408,20 +430,20 @@ __global__ void __launch_bounds__(64) serve_scan_kernel(const ScanParams p) {
   if (threadIdx.x >= 32) {
     consume<QMAN>(p, r, lane, arr, dl, queue);
   } else if (threadIdx.x == 0) {
-    produce<QMAN, ADAPTIVE>(p, r, lane, arr, dl, queue);
+    produce<QMAN, ADAPTIVE, MIX>(p, r, lane, arr, dl, queue);
   }
 }
 
-template <bool QMAN, bool ADAPTIVE>
+template <bool QMAN, bool ADAPTIVE, bool MIX>
 int launch(const ScanParams& p, cudaStream_t st) {
   const long long bytes = smem_bytes(p.n_edges);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        serve_scan_kernel<QMAN, ADAPTIVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        serve_scan_kernel<QMAN, ADAPTIVE, MIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  serve_scan_kernel<QMAN, ADAPTIVE>
+  serve_scan_kernel<QMAN, ADAPTIVE, MIX>
       <<<static_cast<unsigned>(p.n_lanes), 64, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -438,14 +460,19 @@ extern "C" long long serve_scan_smem_bytes(long long n_edges) {
   return smem_bytes(n_edges);
 }
 
+template <bool MIX>
+int launch_mix(const ScanParams& p, cudaStream_t st) {
+  if (p.qman && p.adaptive) return launch<true, true, MIX>(p, st);
+  if (p.qman) return launch<true, false, MIX>(p, st);
+  if (p.adaptive) return launch<false, true, MIX>(p, st);
+  return launch<false, false, MIX>(p, st);
+}
+
 // Launches one block of two warps per lane, the instance chosen by
-// params->qman / params->adaptive.  Returns a CUDA error code (0: none).
+// params->qman / ->adaptive / ->mix.  Returns a CUDA error code (0: none).
 extern "C" int serve_scan_launch(const ScanParams* params, void* stream) {
   const ScanParams p = *params;
   if (p.n_lanes <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.qman && p.adaptive) return launch<true, true>(p, st);
-  if (p.qman) return launch<true, false>(p, st);
-  if (p.adaptive) return launch<false, true>(p, st);
-  return launch<false, false>(p, st);
+  return p.mix ? launch_mix<true>(p, st) : launch_mix<false>(p, st);
 }

@@ -11,7 +11,11 @@ the lane, as in the reference's ``_scan_core``:
   lane, door refusals past ``buffer`` queued requests, and the sweep of
   the expired queue prefix before every decision;
 * the adaptive lane (``adaptive=``): the AdaptiveController's EWMA
-  estimate and hysteresis-guarded bank retune, folded per taken arrival.
+  estimate and hysteresis-guarded bank retune, folded per taken arrival;
+* the mix rule (``beliefs=``): the action is the phase posterior of the
+  last admitted arrival blended over the table's phase rows,
+  ``round(sum_k beliefs[last, k] * table[k, min(q, L - 1)])``
+  (BeliefPhaseScheduler(mode="mix")); it composes with both.
 
 Many lanes go in one launch: lane = (trace s, table p) with
 ``s = lane // P``, ``p = lane % P`` over ``tables`` (P, K, L); the
@@ -22,7 +26,8 @@ reference's ``lax.scan``, not of a Pallas kernel).  Lanes given as CPU
 tensors run the plain version below; CUDA tensors launch the kernel or
 raise.  ``serve_scan.launches`` counts launches, and
 ``serve_scan.instance_launches`` splits them by template instance
-(``plain`` / ``qman`` / ``adaptive`` / ``qman_adaptive``, prefixed
+(``plain`` / ``qman`` / ``adaptive`` / ``qman_adaptive``, each also with a
+``_mix`` suffix -- ``mix`` alone for the plain lane -- and prefixed
 ``grid_`` for a launch of more than one lane).
 """
 from __future__ import annotations
@@ -59,13 +64,16 @@ class ScanOut(NamedTuple):
     rec_done: Optional[torch.Tensor]  # (lanes, >= n_served) f64 their completion times
 
 
-def instance_name(qman: bool, adaptive: bool, n_lanes: int) -> str:
+def instance_name(qman: bool, adaptive: bool, n_lanes: int,
+                  mix: bool = False) -> str:
     inst = INSTANCES[int(qman) + 2 * int(adaptive)]
+    if mix:
+        inst = "mix" if inst == "plain" else f"{inst}_mix"
     return f"grid_{inst}" if n_lanes > 1 else inst
 
 
-def _walk(tab, arr, dl, ph, dr, mu, zeta, edges, ad, *, t0, horizon, max_eps,
-          drain, b_max, buffer_cap, qman, shed, check_dl, record):
+def _walk(tab, arr, dl, ph, dr, mu, zeta, edges, ad, bel, *, t0, horizon,
+          max_eps, drain, b_max, buffer_cap, qman, shed, check_dl, record):
     """One lane in Python floats (IEEE f64, each operation rounded on its
     own, as in the kernel)."""
     L = len(tab[0])
@@ -130,7 +138,14 @@ def _walk(tab, arr, dl, ph, dr, mu, zeta, edges, ad, *, t0, horizon, max_eps,
         q = len(queue) - head if qman else n_adm - n_srv
         li = max(last_adm, 0) if qman else max(n_adm - 1, 0)
         cap = min(q, b_max)
-        a = min(max(tab[ph[li]][min(q, L - 1)], 0), cap)
+        col = min(q, L - 1)
+        if bel is not None:  # posterior-weighted blend, half to even
+            acc = bel[li][0] * tab[0][col]
+            for k in range(1, len(tab)):
+                acc = acc + bel[li][k] * tab[k][col]
+            a = min(max(round(acc), 0), cap)
+        else:
+            a = min(max(tab[ph[li]][col], 0), cap)
         nxt = due[n_adm]
         live = math.isfinite(nxt)
         wait = a == 0 and live
@@ -173,7 +188,7 @@ def _walk(tab, arr, dl, ph, dr, mu, zeta, edges, ad, *, t0, horizon, max_eps,
 def serve_scan_ref(tables, arrivals, deadlines, phases, draws, means, zeta,
                    edges, *, t0: float, horizon: float, max_eps: int,
                    drain: bool, b_max: int, buffer: Optional[int] = None,
-                   shed: bool = False, adaptive=None,
+                   shed: bool = False, adaptive=None, beliefs=None,
                    record: bool = False) -> ScanOut:
     """Plain version: the same lanes walked in Python floats.
 
@@ -194,10 +209,12 @@ def serve_scan_ref(tables, arrivals, deadlines, phases, draws, means, zeta,
     ad = None
     if adaptive is not None:
         ad = (adaptive[0].tolist(), adaptive[1].tolist(), len(tabs), tabs)
+    bel_all = beliefs.tolist() if beliefs is not None else None
     lanes = [
         _walk(tabs[lane % n_pol], arr_all[lane // n_pol],
               dl_all[lane // n_pol] if dl_all is not None else None,
               ph_all[lane // n_pol], dr_all[lane // n_pol], mu, zt, ed, ad,
+              bel_all[lane // n_pol] if bel_all is not None else None,
               t0=t0, horizon=horizon, max_eps=max_eps, drain=drain,
               b_max=b_max, buffer_cap=buffer_cap, qman=qman, shed=shed,
               check_dl=deadlines is not None, record=record)
@@ -221,7 +238,7 @@ def serve_scan_ref(tables, arrivals, deadlines, phases, draws, means, zeta,
 
 
 def _check(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
-           b_max: int, adaptive) -> None:
+           b_max: int, adaptive, beliefs) -> None:
     want = [
         ("tables", tables, torch.int64, 3),
         ("arrivals", arrivals, torch.float64, 2),
@@ -236,6 +253,8 @@ def _check(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
     if adaptive is not None:
         want += [("adaptive f64", adaptive[0], torch.float64, 1),
                  ("adaptive int64", adaptive[1], torch.int64, 1)]
+    if beliefs is not None:
+        want.append(("beliefs", beliefs, torch.float64, 3))
     for name, x, dtype, nd in want:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
@@ -249,6 +268,10 @@ def _check(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
     if phases.shape != arrivals.shape or (
             deadlines is not None and deadlines.shape != arrivals.shape):
         raise ValueError("phases and deadlines must align with arrivals (S, size)")
+    if beliefs is not None and beliefs.shape != (S, size, tables.shape[1]):
+        raise ValueError(
+            f"beliefs must be (S, size, K) = {(S, size, tables.shape[1])}, "
+            f"got {tuple(beliefs.shape)}")
     if size >= 2 ** 31:
         raise ValueError("arrival slots are int32: at most 2^31 - 1 per trace")
     if draws.shape[0] != S or draws.shape[1] < 1:
@@ -272,13 +295,13 @@ class _Params(ctypes.Structure):
         [(n, ctypes.c_void_p) for n in (
             "tables", "arrivals", "deadlines", "phases", "draws", "means",
             "zeta", "edges", "ad_f", "ad_i", "agg_i", "agg_f", "hist",
-            "queue", "rec_a", "rec_slot", "rec_done")]
+            "queue", "rec_a", "rec_slot", "rec_done", "beliefs")]
         + [(n, ctypes.c_longlong) for n in (
             "n_lanes", "n_pol", "n_tables", "K", "L", "size", "n_draws",
             "n_edges", "max_eps", "rec_cap", "b_max", "buffer_cap")]
         + [("t0", ctypes.c_double), ("horizon", ctypes.c_double)]
         + [(n, ctypes.c_int) for n in (
-            "drain", "shed", "check_deadlines", "qman", "adaptive")]
+            "drain", "shed", "check_deadlines", "qman", "adaptive", "mix")]
     )
 
 
@@ -309,7 +332,7 @@ def _launcher(n_edges: int):
 def serve_scan(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
                *, t0: float, horizon: float, max_eps: int, drain: bool,
                b_max: int, buffer: Optional[int] = None, shed: bool = False,
-               adaptive=None, record: bool = False) -> ScanOut:
+               adaptive=None, beliefs=None, record: bool = False) -> ScanOut:
     """Walk every lane: ``tables`` (P, K, L) int64, ``arrivals`` /
     ``deadlines`` (S, size) f64 sorted and +inf padded (``deadlines=None``:
     no deadline anywhere), ``phases`` (S, size) int64 rows of ``tables``
@@ -318,16 +341,18 @@ def serve_scan(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
 
     ``buffer`` / ``shed`` select the managed-queue lane; ``adaptive`` is
     the (f64, int64) pair of ``AdaptiveLane.lowered()`` and makes each
-    trace one lane over the whole bank ``tables``.  ``record`` also returns
-    every epoch's action and every served request's slot and completion.
+    trace one lane over the whole bank ``tables``.  ``beliefs`` (S, size, K)
+    f64, the phase posterior per arrival, selects the mix rule (``phases``
+    are then unread).  ``record`` also returns every epoch's action and
+    every served request's slot and completion.
     """
     _check(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
-           b_max, adaptive)
+           b_max, adaptive, beliefs)
     if shed and deadlines is None:
         raise ValueError("shed needs deadlines")
     kw = dict(t0=t0, horizon=horizon, max_eps=max_eps, drain=drain,
               b_max=b_max, buffer=buffer, shed=shed, adaptive=adaptive,
-              record=record)
+              beliefs=beliefs, record=record)
     if arrivals.device.type == "cpu":
         return serve_scan_ref(tables, arrivals, deadlines, phases, draws,
                               means, zeta, edges, **kw)
@@ -343,6 +368,7 @@ def serve_scan(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
     tables, arrivals, phases, draws, means, zeta, edges = ins
     deadlines = deadlines.contiguous() if deadlines is not None else None
     ad = [x.contiguous() for x in adaptive] if adaptive is not None else None
+    beliefs = beliefs.contiguous() if beliefs is not None else None
     rec_cap = max(int(max_eps), 1)
     n_edges = edges.numel()
 
@@ -366,20 +392,20 @@ def serve_scan(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
         ptr(tables), ptr(arrivals), ptr(deadlines) or ptr(arrivals),
         ptr(phases), ptr(draws), ptr(means), ptr(zeta), ptr(edges),
         ptr(ad[0]) if ad else None, ptr(ad[1]) if ad else None,
-        *(ptr(x) for x in out),
+        *(ptr(x) for x in out), ptr(beliefs),
         n_lanes, n_pol, P, K, L, size, draws.shape[1], n_edges,
         int(max_eps), rec_cap, int(b_max),
         size + 1 if buffer is None else int(buffer),
         float(t0), float(horizon),
         int(bool(drain)), int(bool(shed)), int(deadlines is not None),
-        int(qman), int(adaptive is not None),
+        int(qman), int(adaptive is not None), int(beliefs is not None),
     )
     rc = _launcher(n_edges)(ctypes.byref(params),
                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"serve_scan launch failed: CUDA error {rc}")
     serve_scan.launches += 1
-    name = instance_name(qman, adaptive is not None, n_lanes)
+    name = instance_name(qman, adaptive is not None, n_lanes, beliefs is not None)
     serve_scan.instance_launches[name] = serve_scan.instance_launches.get(name, 0) + 1
     return out
 

@@ -5,8 +5,11 @@ executor, trace replay) through a single Python event loop, and exposes
 the same semantics compiled (run(backend="compiled")) -- one launch of the
 CUDA event kernel, serving.compiled, whose run_grid / run_grid_adaptive
 run whole seeds x tables sweeps in one launch; serving.arrivals supplies
-the numpy arrival processes; serving.scheduler the policy tables and the
-bank-retuning AdaptiveController; serving.metrics the latency quantiles
+the numpy arrival processes and the MMPP phase filter (belief_forward: a
+whole trace's posterior in one launch of the belief kernel);
+serving.scheduler the policy tables and the
+bank-retuning AdaptiveController and the phase schedulers (oracle,
+belief-filtered, rate-tracked); serving.metrics the latency quantiles
 (P² on the Python path, a fixed-bin histogram sketch on the compiled
 path).
 """
@@ -16,19 +19,24 @@ from .arrivals import (  # noqa: F401
     DiurnalProcess,
     MMPP2,
     MMPP2Process,
+    PhaseBeliefFilter,
     PoissonProcess,
     TraceProcess,
     as_process,
+    belief_forward,
 )
 from .scheduler import (  # noqa: F401
     AdaptiveController,
+    BeliefPhaseScheduler,
     GreedyScheduler,
     OraclePhaseScheduler,
+    PhaseAwareScheduler,
     QPolicyScheduler,
     SMDPScheduler,
     SMDPSchedulerBank,
     StaticScheduler,
     as_action_table,
+    solve_phase_policies,
 )
 from .metrics import (  # noqa: F401
     P2Quantile,
@@ -43,6 +51,7 @@ from .engine import (  # noqa: F401
     verify_backends,
 )
 from .compiled import (  # noqa: F401
+    PHASE_MODES,
     AdaptiveLane,
     CompiledResult,
     pad_arrivals,

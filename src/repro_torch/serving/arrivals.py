@@ -19,12 +19,18 @@ Implemented processes:
 `as_process` coerces a rate, an MMPP2, an array of times, or a Request list
 into the right process, so engine call-sites stay terse.
 
+PhaseBeliefFilter is the MMPP forward filter (posterior over the hidden
+phase from observed inter-arrival gaps) behind the non-oracle
+phase-indexed schedulers (scheduler.BeliefPhaseScheduler and
+AdaptiveController(phase_filter=...)); `belief_forward` folds it over whole
+traces in one launch of the belief kernel (kernels/belief_forward.py).
+
 The compiled backend (serving.compiled) replays every mode as a padded
 sorted arrival array, pre-generated eagerly: `take(process, rng, ...)`
 drains the stateful numpy process up to a horizon/count, consuming exactly
 the draws the lazy engine path would (draw-for-draw parity with
 backend="python", and with the reference package at equal seeds).  The
-MMPP phase filter and the on-device samplers come with a later slice.
+on-device samplers come with a later slice.
 """
 from __future__ import annotations
 
@@ -32,6 +38,10 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..kernels import belief_forward as _bf
 
 
 @dataclasses.dataclass
@@ -317,6 +327,147 @@ class TraceProcess(ArrivalProcess):
 
     def restore(self, state: dict) -> None:
         self._i = state["i"]
+
+
+# Posterior-mass floor below which a propagated belief counts as degenerate
+# (shared by the numpy filter and the belief kernel with its plain version).
+_BELIEF_TINY = _bf.BELIEF_TINY
+
+
+class PhaseBeliefFilter:
+    """Forward filter for the hidden MMPP phase from observed arrivals.
+
+    The exact Bayesian posterior over the modulating phase given the
+    arrival times seen so far:  between arrivals the belief evolves by
+    exp((R - Lambda) * gap) (phase diffusion weighted by "no arrival
+    occurred"), and each arrival multiplies in the per-phase rates:
+
+        b'  propto  b @ expm((R - Lambda) gap) @ Lambda.
+
+    The matrix exponential is precomputed as an eigendecomposition of
+    (R - Lambda), so each observation costs O(K^2).  This is the
+    non-oracle counterpart of the true-phase trace: schedulers select the
+    argmax-phase table (scheduler.BeliefPhaseScheduler,
+    AdaptiveController(phase_filter=...)).
+    """
+
+    def __init__(self, rates, gen, t0: float = 0.0, b0=None):
+        self.rates = np.asarray(rates, dtype=np.float64)
+        self.gen = np.asarray(gen, dtype=np.float64)
+        K = len(self.rates)
+        if self.gen.shape != (K, K):
+            raise ValueError(f"gen shape {self.gen.shape} != ({K}, {K})")
+        sub = self.gen - np.diag(self.rates)  # (R - Lambda)
+        d, V = np.linalg.eig(sub)
+        self._d, self._V = d, V
+        self._Vinv = np.linalg.inv(V)
+        if b0 is None:
+            # stationary phase distribution of the modulating chain
+            a = self.gen.T.copy()
+            a[-1, :] = 1.0
+            rhs = np.zeros(K)
+            rhs[-1] = 1.0
+            try:
+                b0 = np.clip(np.linalg.solve(a, rhs), 0.0, None)
+            except np.linalg.LinAlgError:
+                b0 = np.ones(K)
+        self._b0 = np.asarray(b0, dtype=np.float64) / np.sum(b0)
+        self.belief = self._b0.copy()
+        self._last = float(t0)
+        self._t0 = float(t0)
+        self.n_observed = 0
+
+    def _propagate(self, gap: float) -> np.ndarray:
+        e = (self._V * np.exp(self._d * gap)) @ self._Vinv
+        return np.real(self.belief @ e)
+
+    def observe(self, t: float) -> None:
+        """Fold in one arrival at absolute time t (monotone in t).
+
+        Long inter-arrival gaps drive exp((R - Lambda) gap) toward zero
+        and round-off can leave tiny negative / non-finite entries, so
+        the propagated mass is clipped and renormalized *before* the
+        rate reweighting; if the whole vector degenerates the belief
+        falls back to the stationary phase distribution instead of
+        emitting NaNs.
+        """
+        gap = max(float(t) - self._last, 0.0)
+        p = self._propagate(gap)
+        p = np.where(np.isfinite(p), np.clip(p, 0.0, None), 0.0)
+        s = float(p.sum())
+        if not np.isfinite(s) or s <= _BELIEF_TINY:
+            p = self._b0  # degenerate propagation: stationary fallback
+            s = float(p.sum())
+        b = (p / s) * self.rates
+        s2 = float(b.sum())
+        if not np.isfinite(s2) or s2 <= _BELIEF_TINY:
+            b = self._b0 * self.rates
+            s2 = float(b.sum())
+        self.belief = b / s2
+        self._last = float(t)
+        self.n_observed += 1
+
+    @property
+    def phase(self) -> int:
+        """MAP phase under the current belief."""
+        return int(np.argmax(self.belief))
+
+    def consts(self, device: torch.device) -> _bf.FilterConsts:
+        """The filter's constants as the belief kernel's f64 tensors."""
+        def f64(x):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64,
+                                   device=device)
+
+        d, V, Vi = (np.asarray(x, dtype=np.complex128)
+                    for x in (self._d, self._V, self._Vinv))
+        return _bf.FilterConsts(f64(d.real), f64(d.imag), f64(V.real), f64(V.imag),
+                                f64(Vi.real), f64(Vi.imag), f64(self.rates),
+                                f64(self._b0))
+
+    def snapshot(self) -> dict:
+        return {
+            "belief": self.belief.tolist(),
+            "last": self._last,
+            "n_observed": self.n_observed,
+        }
+
+    def restore(self, state: dict) -> None:
+        self.belief = np.asarray(state["belief"], dtype=np.float64)
+        self._last = state["last"]
+        self.n_observed = state["n_observed"]
+
+
+def belief_forward(times, filt: PhaseBeliefFilter, *, device: DeviceLike = None):
+    """Phase-belief posteriors for a (padded) arrival-time vector, one launch.
+
+    The counterpart of the reference's ``belief_forward_jax``: the fold of
+    ``PhaseBeliefFilter.observe`` over ``times`` in one launch of the
+    belief kernel on ``device`` (CUDA unless ``device="cpu"``, which runs
+    its plain version).  It starts from ``filt``'s *current* (belief,
+    last) state without mutating it, which is what an engine run that
+    resumes mid-stream needs.
+
+    ``times`` may be 1-D ``(N,)`` or 2-D ``(S, N)`` (a seeds axis, every
+    trace from the same state); +inf / NaN padded slots keep the carry
+    unchanged and repeat the previous belief row, so padded tails are
+    harmless.  Returns ``(beliefs, (b_final, t_final))`` as float64
+    tensors on ``device``, where ``beliefs[..., i, :]`` is the posterior
+    just after observing ``times[..., i]``.  Feed ``beliefs`` to the
+    compiled serving lane (`serving.compiled` ``phase_mode=
+    "belief_argmax"`` / ``"belief_mix"``).
+    """
+    dev = resolve_device(device)
+    t = torch.as_tensor(np.asarray(times, dtype=np.float64), device=dev)
+    if t.dim() not in (1, 2):
+        raise ValueError(f"times must be 1-D or 2-D, got shape {tuple(t.shape)}")
+    one = t.dim() == 1
+    b_init = torch.as_tensor(np.asarray(filt.belief, dtype=np.float64), device=dev)
+    beliefs, b_fin, t_fin = _bf.belief_forward(
+        t[None] if one else t, b_init, float(filt._last), filt.consts(dev)
+    )
+    if one:
+        return beliefs[0], (b_fin[0], t_fin[0])
+    return beliefs, (b_fin, t_fin)
 
 
 def take(

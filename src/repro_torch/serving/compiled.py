@@ -18,15 +18,17 @@ options are the reference's:
     decision, and the surviving queue (``queue_slots``);
   * the adaptive lane (``adaptive=``): an `AdaptiveController` lowered to
     `AdaptiveLane` retunes the bank entry inside the kernel, and the
-    result carries the controller's final state.
+    result carries the controller's final state;
+  * the belief lanes (``phase_mode="belief_argmax"`` / ``"belief_mix"``
+    with ``beliefs=``, the phase posterior per arrival from
+    arrivals.belief_forward): argmax lowers on the host to a phase stream
+    for the oracle lane, as the reference does; mix is the event kernel's
+    mix rule, ``round(sum_k b_k table[k, q])``.
 
 `run_grid` (traces x tables) and `run_grid_adaptive` (traces, each over a
 whole bank) are one launch over all their lanes.  The kernel runs every
 lane to its end, so there is no step budget to escalate: the reference's
 ``n_steps_used``, ``max_record_slots`` and step cache have no counterpart.
-
-Not ported yet (they raise NotImplementedError): the belief lanes
-(``phase_mode="belief_argmax"`` / ``"belief_mix"``) -- see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -260,25 +262,29 @@ class AdaptiveLane:
 
 
 #: the phase_mode knob shared by simulate_compiled / run_grid: "oracle"
-#: rows tables by the per-arrival true-phase ints; the belief modes are
-#: not ported yet
+#: rows tables by the per-arrival true-phase ints, the belief modes by the
+#: filtered posterior (argmax row / mixture action)
 PHASE_MODES = ("oracle", "belief_argmax", "belief_mix")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch backend yet (see ROADMAP.md); "
-        "run it with the reference package"
-    )
-
-
-def _check_phase_mode(phase_mode: str, beliefs) -> None:
+def _check_phase_mode(phase_mode: str, beliefs, n_phases: int):
+    """Validate the phase_mode / beliefs pairing; returns belief ndarray."""
     if phase_mode not in PHASE_MODES:
         raise ValueError(f"phase_mode must be one of {PHASE_MODES}")
-    if phase_mode != "oracle":
-        raise _not_ported(f"phase_mode={phase_mode!r} (the belief lanes)")
-    if beliefs is not None:
-        raise ValueError('beliefs= needs phase_mode="belief_*"')
+    if phase_mode == "oracle":
+        if beliefs is not None:
+            raise ValueError('beliefs= needs phase_mode="belief_*"')
+        return None
+    if beliefs is None:
+        raise ValueError(f'phase_mode="{phase_mode}" needs beliefs=')
+    if isinstance(beliefs, torch.Tensor):
+        beliefs = beliefs.cpu().numpy()
+    bel = np.asarray(beliefs, dtype=np.float64)
+    if bel.shape[-1] != n_phases:
+        raise ValueError(
+            f"beliefs K={bel.shape[-1]} != table phase axis K={n_phases}"
+        )
+    return bel
 
 
 def _coerce_adaptive(adaptive) -> Optional[AdaptiveLane]:
@@ -298,7 +304,7 @@ def _zeta_table(zeta, b_max: int) -> np.ndarray:
 
 
 def _launch(dev, tables, arr, dl, ph, draws, means, zeta_a, edges, *, lane,
-            buffer, shed_expired, record, **kw):
+            buffer, shed_expired, record, bel=None, **kw):
     """One event-kernel launch over (S traces) x (P tables, or the bank)."""
 
     def on_dev(x, dtype):
@@ -316,8 +322,9 @@ def _launch(dev, tables, arr, dl, ph, draws, means, zeta_a, edges, *, lane,
         on_dev(ph, torch.int64), on_dev(draws, torch.float64),
         on_dev(means, torch.float64), on_dev(zeta_a, torch.float64),
         on_dev(edges, torch.float64),
-        buffer=buffer, shed=bool(shed_expired), adaptive=ad, record=record,
-        **kw,
+        buffer=buffer, shed=bool(shed_expired), adaptive=ad,
+        beliefs=None if bel is None else on_dev(bel, torch.float64),
+        record=record, **kw,
     )
 
 
@@ -355,6 +362,13 @@ def simulate_compiled(
     (the row is the phase of the last admitted arrival).  ``record=True``
     returns the per-epoch decisions and per-request latencies too.
 
+    Who rows the phase axis is the ``phase_mode`` knob: ``"oracle"`` (the
+    ``phases`` ints), ``"belief_argmax"`` (``beliefs`` (N, K) posterior rows
+    aligned with ``arrivals``, arrivals.belief_forward; the argmax phase
+    rows the stack, lowered to a phase stream on the host) or
+    ``"belief_mix"`` (the same ``beliefs``; the action is
+    ``round(sum_k b_k table[k, q])``, the event kernel's mix rule).
+
     ``adaptive`` (an `AdaptiveLane` or the `AdaptiveController` to lower)
     runs the bank-retuning controller inside the kernel: ``table`` may then
     be None (the lane's (P, K, L) bank stack is used) and the result
@@ -367,7 +381,9 @@ def simulate_compiled(
     needs deadlines nondecreasing in arrival order (``deadline = arrival +
     slo`` always is).  Either knob selects the managed-queue lane, and the
     result gains ``queue_slots``, the surviving queue as arrival-slot
-    indices.  ``buffer`` composes with ``phase_mode="oracle"`` only.
+    indices.  ``buffer`` composes with ``phase_mode="oracle"`` only (the
+    posterior folds admitted arrivals, which a finite room makes
+    decision-dependent).
 
     ``device=None`` means CUDA (the event kernel); ``device="cpu"`` runs
     the kernel's plain version.
@@ -383,7 +399,6 @@ def simulate_compiled(
                 "finite waiting room is decision-dependent; run the "
                 "Python backend"
             )
-    _check_phase_mode(phase_mode, beliefs)
     dev = resolve_device(device)
     if lane is not None:
         table = lane.tables if table is None else np.asarray(table, dtype=np.int64)
@@ -402,16 +417,37 @@ def simulate_compiled(
             raise ValueError(f"table must be (L,) or (K, L); got {table.shape}")
         tables = table[None]
     n_phases = tables.shape[1]
-    if n_phases > 1 and phases is None and lane is None:
+    bel = _check_phase_mode(phase_mode, beliefs, n_phases)
+    if bel is not None:
+        if phases is not None:
+            raise ValueError("phases= and beliefs= are mutually exclusive")
+        if bel.ndim != 2:
+            raise ValueError(f"beliefs must be (N, K); got {bel.shape}")
+    elif n_phases > 1 and phases is None and lane is None:
         raise ValueError("phase-indexed table needs phases= per arrival")
     arr = np.asarray(arrivals, dtype=np.float64)
+    if bel is not None and len(bel) != len(arr):
+        raise ValueError("beliefs must align with arrivals")
+    if phase_mode == "belief_argmax":
+        # the argmax rule is an oracle-phase stream derived from the
+        # posterior: the phases plumbing, no kernel change
+        phases = np.argmax(bel, axis=-1)
+        bel = None
     if len(arr) < _PAD_MARGIN or not np.isinf(arr[-_PAD_MARGIN:]).all():
+        raw = arr
         padded = pad_arrivals(arr, deadlines, phases=phases)
         if phases is None:
             arr, dl = padded
             ph = np.zeros(len(arr), dtype=np.int64)
         else:
             arr, dl, ph = padded
+        if bel is not None:
+            # co-sort / pad the posterior rows exactly like pad_arrivals
+            finite = np.isfinite(raw)
+            kept = bel[finite]
+            order = np.argsort(raw[finite], kind="stable")
+            bel = np.zeros((len(arr), bel.shape[1]))
+            bel[: len(kept)] = kept[order]
     else:
         dl = (
             np.asarray(deadlines, dtype=np.float64)
@@ -450,7 +486,8 @@ def simulate_compiled(
     out = _launch(
         dev, tables, arr[None], dl[None], ph[None], draws[None], means,
         _zeta_table(zeta, b_max), edges, lane=lane, buffer=buffer,
-        shed_expired=shed_expired, record=record, t0=float(t0),
+        shed_expired=shed_expired, record=record,
+        bel=None if bel is None else bel[None], t0=float(t0),
         horizon=np.inf if horizon is None else float(horizon),
         max_eps=max_eps, drain=bool(drain), b_max=int(b_max),
     )
@@ -523,8 +560,26 @@ def _grid_inputs(arr, phases, deadlines, draws, n_phases: int,
     return arr, dl, ph, draws
 
 
+def _grid_beliefs(phase_mode, beliefs, phases, arr_shape, n_phases):
+    """(phases, beliefs) of a grid call: argmax lowers to a phase stream,
+    mix keeps the (S, N, K) rows for the kernel."""
+    bel = _check_phase_mode(phase_mode, beliefs, n_phases)
+    if bel is None:
+        return phases, None
+    if phases is not None:
+        raise ValueError("phases= and beliefs= are mutually exclusive")
+    if bel.ndim != 3 or bel.shape[:2] != arr_shape:
+        raise ValueError(
+            f"beliefs must be (S, N, K) aligned with arrivals {arr_shape}; "
+            f"got {bel.shape}"
+        )
+    if phase_mode == "belief_argmax":
+        return np.argmax(bel, axis=-1), None
+    return None, bel
+
+
 def _grid_run(dev, tables, arr, dl, ph, draws, *, means, zeta, b_max,
-              max_epochs, t0, horizon, drain, hist_edges, lane):
+              max_epochs, t0, horizon, drain, hist_edges, lane, bel=None):
     means = np.asarray(means, dtype=np.float64)
     n_arr_max = int(np.isfinite(arr).sum(axis=1).max())
     max_eps = 2 * n_arr_max + 2 if max_epochs is None else int(max_epochs)
@@ -536,7 +591,8 @@ def _grid_run(dev, tables, arr, dl, ph, draws, *, means, zeta, b_max,
     out = _launch(
         dev, tables, arr, dl, ph, draws, means, _zeta_table(zeta, b_max),
         edges, lane=lane, buffer=None, shed_expired=False, record=False,
-        t0=float(t0), horizon=np.inf if horizon is None else float(horizon),
+        bel=bel, t0=float(t0),
+        horizon=np.inf if horizon is None else float(horizon),
         max_eps=max_eps, drain=bool(drain), b_max=int(b_max),
     )
     S = arr.shape[0]
@@ -591,7 +647,10 @@ def run_grid(
 
     ``tables`` -- (P, L) stacked action tables (SMDPSchedulerBank.stacked()
     or scheduler.as_action_table per contender), or (P, K, L) phase-indexed
-    stacks with ``phases`` = (S, N) per-arrival phase ints;
+    stacks with ``phases`` = (S, N) per-arrival phase ints, or with
+    ``phase_mode="belief_argmax"`` / ``"belief_mix"`` and ``beliefs`` =
+    (S, N, K) posterior rows per trace (arrivals.belief_forward over the
+    padded batch): the deployable, non-oracle policy sweep;
     ``arrivals`` -- (S, N) padded sorted traces (`pad_arrivals_batch`);
     ``draws`` -- (S, D) unit service draws per trace (ones for det
     service).  Lane (s, p) runs table p over trace s; all S x P lanes are
@@ -609,14 +668,16 @@ def run_grid(
         tables = tables[:, None, :]
     elif tables.ndim != 3:
         raise ValueError(f"tables must be (P, L) or (P, K, L); got {tables.shape}")
-    _check_phase_mode(phase_mode, beliefs)
     dev = resolve_device(device)
+    arr_shape = np.shape(arrivals)
+    phases, bel = _grid_beliefs(phase_mode, beliefs, phases,
+                                arr_shape, tables.shape[1])
     arr, dl, ph, draws = _grid_inputs(arrivals, phases, deadlines, draws,
-                                      tables.shape[1], need_phases=True)
+                                      tables.shape[1], need_phases=bel is None)
     return _grid_run(
         dev, tables, arr, dl, ph, draws, means=means, zeta=zeta, b_max=b_max,
         max_epochs=max_epochs, t0=t0, horizon=horizon, drain=drain,
-        hist_edges=hist_edges, lane=None,
+        hist_edges=hist_edges, lane=None, bel=bel,
     )
 
 
@@ -677,15 +738,19 @@ def run_grid_adaptive(
     replication-sweep semantics).  Returns the same dict as `run_grid`
     with (S,) aggregates plus the final per-lane controller state
     (``ad_*`` keys), and no ``n_steps_used`` (see `run_grid`).
+    ``phase_mode`` / ``beliefs`` / ``phases`` row the bank entries' phase
+    axis as in `run_grid` (a belief-tracked row on top of bank retuning is
+    AdaptiveController(phase_filter=...)).
     """
     lane = _coerce_adaptive(adaptive)
-    _check_phase_mode(phase_mode, beliefs)
     dev = resolve_device(device)
+    phases, bel = _grid_beliefs(phase_mode, beliefs, phases,
+                                np.shape(arrivals), lane.tables.shape[1])
     # a phase-axis bank without phases= rows every entry by phase 0
     arr, dl, ph, draws = _grid_inputs(arrivals, phases, deadlines, draws,
                                       lane.tables.shape[1], need_phases=False)
     return _grid_run(
         dev, lane.tables, arr, dl, ph, draws, means=means, zeta=zeta,
         b_max=b_max, max_epochs=max_epochs, t0=t0, horizon=horizon,
-        drain=drain, hist_edges=hist_edges, lane=lane,
+        drain=drain, hist_edges=hist_edges, lane=lane, bel=bel,
     )

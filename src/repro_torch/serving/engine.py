@@ -28,9 +28,11 @@ Every mode streams per-batch observations into ServingMetrics (P² latency
 quantiles, power; the compiled path reports quantiles from its fixed-bin
 histogram sketch) and supports snapshot()/restore().  Admission control
 (``buffer=`` / ``shed_expired=``) runs on both backends (the compiled one
-through the kernel's managed-queue lane), and an AdaptiveController lowers
-to the kernel's adaptive lane; after a compiled run the engine, its queue
-and the controller are where the Python loop would have left them.
+through the kernel's managed-queue lane), an AdaptiveController lowers
+to the kernel's adaptive lane, and a BeliefPhaseScheduler (or a controller
+with ``phase_filter=``) to one belief-kernel launch and the event kernel's
+belief lanes; after a compiled run the engine, its queue, the controller
+and the filter are where the Python loop would have left them.
 """
 from __future__ import annotations
 
@@ -341,7 +343,8 @@ class ServingEngine:
         (serving.compiled): same decisions, same per-request latencies,
         same energy on the same arrival stream.  Requirements: a
         table-representable scheduler (SMDP / static / greedy / Q-policy /
-        oracle-phase) and zeta-table (or absent) energy accounting.  With
+        oracle-phase) or an online one the kernels lower (AdaptiveController,
+        BeliefPhaseScheduler), and zeta-table (or absent) energy accounting.  With
         deterministic service the two backends are draw-for-draw
         reproductions of each other at equal seeds; stochastic service
         draws the same law from a differently-ordered stream (the compiled
@@ -414,25 +417,37 @@ class ServingEngine:
         drain: bool,
         unit_draws: Optional[np.ndarray] = None,
     ) -> EngineReport:
+        from .arrivals import belief_forward
         from .compiled import AdaptiveLane, simulate_compiled
-        from .scheduler import AdaptiveController, as_action_table
+        from .scheduler import (
+            AdaptiveController, BeliefPhaseScheduler, as_action_table,
+        )
 
         if self.energy_model is not None and self.energy_table is None:
             raise ValueError(
                 "compiled backend accounts energy via energy_table=; "
                 "per-batch energy_model callbacks need backend='python'"
             )
-        # the bank-retuning controller lowers to the kernel's adaptive lane,
-        # resumed from the live object's state and synced back after the run
+        # online-adaptive schedulers lower to the compiled lanes: the
+        # bank-retuning controller to the kernel's adaptive lane, the phase
+        # posterior to one belief-kernel launch per run -- both resumed from
+        # the live object's state and synced back after the run
         sched = self.scheduler
         lane = None
+        belief_filter = None
+        belief_mode = "argmax"
         phase_fn = None
         if isinstance(sched, AdaptiveController):
             lane = AdaptiveLane.from_controller(sched)
             table = None
-            if lane.tables.shape[1] > 1:
-                # phase-axis bank: the pinned phase row
+            belief_filter = sched.phase_filter
+            if belief_filter is None and lane.tables.shape[1] > 1:
+                # phase-axis bank without a filter: the pinned phase row
                 phase_fn = sched.scheduler.phase_at
+        elif isinstance(sched, BeliefPhaseScheduler):
+            table = sched.tables
+            belief_filter = sched.filter
+            belief_mode = sched.mode
         else:
             table = as_action_table(sched, self.b_max)
             # phase-indexed stacks need the per-arrival phase stream: the
@@ -445,6 +460,14 @@ class ServingEngine:
                         f"{type(sched).__name__} has a phase-indexed "
                         "table but no phase_at(times); run backend='python'"
                     )
+        if self.buffer is not None and belief_filter is not None:
+            raise NotImplementedError(
+                "buffer= with a belief-filtered scheduler needs "
+                "backend='python': the posterior folds admitted arrivals "
+                "only, and admission under a finite waiting room is "
+                "decision-dependent (the compiled lane precomputes the "
+                "posterior per arrival)"
+            )
         means = np.asarray(
             [0.0]
             + [float(self.service.mean(b)) for b in range(1, self.b_max + 1)]
@@ -484,14 +507,22 @@ class ServingEngine:
                 ]
             )
             # recomputed every extension pass: extended streams get their
-            # phases from the same (stateful) trace the python path reads
+            # phases from the same (stateful) trace the python path reads,
+            # and the belief rows from the filter's unchanged start state
             ph = None if phase_fn is None else phase_fn(times)
+            bel = None
+            pm = "oracle"
+            if belief_filter is not None:
+                bel = belief_forward(times, belief_filter, device=self.device)[0]
+                bel = bel.cpu().numpy()
+                pm = "belief_mix" if belief_mode == "mix" else "belief_argmax"
             res = simulate_compiled(
                 table, times,
                 means=means, zeta=self.energy_table, draws=draws,
                 b_max=self.b_max, max_epochs=budget, t0=t0,
                 horizon=horizon, drain=drain, deadlines=deadlines,
-                phases=ph, adaptive=lane, buffer=self.buffer,
+                phases=ph, phase_mode=pm, beliefs=bel, adaptive=lane,
+                buffer=self.buffer,
                 shed_expired=self.shed_expired, record=True,
                 device=self.device,
             )
@@ -540,9 +571,15 @@ class ServingEngine:
             # (the un-admitted tail is always a suffix of what drain() took,
             # since buffered/queued events precede trace events in time)
             self.arrivals.rewind(len(future))
-        # the controller ends the run where the Python backend would have
-        # left it (estimator state, bank entry, hysteresis clock), so later
-        # runs continue identically
+        # the online scheduler ends the run where the Python backend would
+        # have left it (belief / estimator state, bank entry, hysteresis
+        # clock), so later runs continue identically
+        if belief_filter is not None and res.n_admitted > 0:
+            belief_filter.belief = bel[res.n_admitted - 1].copy()
+            belief_filter._last = float(times[res.n_admitted - 1])
+            belief_filter.n_observed += res.n_admitted
+            if isinstance(sched, AdaptiveController):
+                sched.scheduler.phase = belief_filter.phase
         if lane is not None:
             st = res.adaptive_state
             bank = sched.bank
@@ -691,8 +728,11 @@ def verify_backends(
     backends and also assert the refusal and expiry counters match (the
     gate of the managed-queue lane).  ``scheduler`` -- a zero-argument
     factory returning a fresh scheduler per backend -- replaces
-    ``table``/``phases``: an `AdaptiveController` factory pits the Python
-    estimator / hysteresis loop against the kernel's adaptive lane.
+    ``table``/``phases``: a `BeliefPhaseScheduler` factory pits the Python
+    filter fold against the belief kernel plus the event kernel's row /
+    mixture selection, an `AdaptiveController` factory (with or without
+    ``phase_filter=``) the Python estimator / hysteresis loop against the
+    kernel's adaptive lane.
 
     Energy is a sum of per-batch terms, which both backends add in serve
     order; it is held at rtol 1e-12 (plus ``atol``), the bar the port

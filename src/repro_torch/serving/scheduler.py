@@ -24,12 +24,23 @@ with hysteresis at regime boundaries; non-rate axes (w2, profile) are
 pinned coordinates.  The compiled backend runs it inside the event kernel
 (serving.compiled.AdaptiveLane).
 
-Copied from the reference.  The belief-filtered schedulers (and
-``AdaptiveController(phase_filter=...)``) come with a later slice of the
-port (ROADMAP.md).
+Who sets the phase row of a (K, L) stack:
+
+  * OraclePhaseScheduler — the true switch trace (estimation-free bound);
+  * BeliefPhaseScheduler — the non-oracle counterpart: an MMPP forward
+    filter (arrivals.PhaseBeliefFilter) tracks the phase posterior from
+    inter-arrival gaps; the argmax phase selects the row, or the posterior
+    blends the per-phase actions (``mode="mix"``);
+  * AdaptiveController(phase_filter=...) — belief-tracked phase row on top
+    of online lambda-estimate bank retuning;
+  * PhaseAwareScheduler — per-phase tables (solve_phase_policies, the
+    paper's Sec.-VIII heuristic) tracked by an EWMA rate estimate.
+
+Copied from the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -275,7 +286,8 @@ class AdaptiveController(Scheduler):
     boundaries.  This is the paper's Sec.-VIII "detect the phase, apply
     the per-phase policy" run against a solved lambda x w2 sweep bank
     (core.sweep.sweep_bank).  A phase-axis bank serves its pinned phase
-    row; ``phase_filter=`` (a belief-tracked row) is not ported yet.
+    row, or with ``phase_filter=`` (an arrivals.PhaseBeliefFilter) the row
+    of the filter's argmax phase.
     """
 
     name = "smdp_adaptive"
@@ -289,17 +301,11 @@ class AdaptiveController(Scheduler):
         margin: float = 0.25,
         min_dwell: float = 0.0,
         init_rate: Optional[float] = None,
-        phase_filter=None,
+        phase_filter=None,  # arrivals.PhaseBeliefFilter for phase-axis banks
         **fixed: float,  # pinned non-rate coords, e.g. w2=1.0
     ):
         from .metrics import RateEstimator
 
-        if phase_filter is not None:
-            raise NotImplementedError(
-                "AdaptiveController(phase_filter=...) needs PhaseBeliefFilter, "
-                "which is not ported to the PyTorch backend yet (see "
-                "ROADMAP.md); run it with the reference package"
-            )
         if "lam" not in bank.key_names:
             raise ValueError(f"bank has no 'lam' axis: {bank.key_names}")
         lam_keys = sorted({k[bank.key_names.index("lam")] for k in bank.keys()})
@@ -312,18 +318,26 @@ class AdaptiveController(Scheduler):
         )
         self.margin = margin
         self.min_dwell = min_dwell
-        self.phase_filter = None
+        self.phase_filter = phase_filter
         rate0 = self.estimator.rate
         if not np.isfinite(rate0):  # custom estimator with no data yet
             rate0 = init_rate
         self.key = bank.nearest(lam=rate0, **self.fixed)
         self.scheduler = SMDPScheduler.from_table(bank.tables[self.key])
         self.scheduler._bank = bank
+        if phase_filter is not None:
+            self.scheduler.phase = phase_filter.phase
         self._last_switch = -float("inf")
         self.n_switches = 0
 
     def observe_arrival(self, t: float) -> None:
         self.estimator.observe(t)
+        if self.phase_filter is not None:
+            # belief row selection and lambda retuning move independently:
+            # the filter reacts within a few gaps, the estimator/hysteresis
+            # pair guards the (slower) bank-entry swap
+            self.phase_filter.observe(t)
+            self.scheduler.phase = self.phase_filter.phase
         self._maybe_retune(t)
 
     def _maybe_retune(self, t: float) -> None:
@@ -349,19 +363,24 @@ class AdaptiveController(Scheduler):
         return self.scheduler.decide(queue_len)
 
     def snapshot(self) -> dict:
-        return {
+        snap = {
             "estimator": self.estimator.snapshot(),
             "key": self.key,
             "last_switch": self._last_switch,
             "n_switches": self.n_switches,
             "phase": self.scheduler.phase,
         }
+        if self.phase_filter is not None:
+            snap["phase_filter"] = self.phase_filter.snapshot()
+        return snap
 
     def restore(self, state: dict) -> None:
         self.estimator.restore(state["estimator"])
         self.key = tuple(float(v) for v in state["key"])
         self.scheduler.swap_table(self.bank.tables[self.key])
         self.scheduler.phase = int(state.get("phase", 0))
+        if self.phase_filter is not None and "phase_filter" in state:
+            self.phase_filter.restore(state["phase_filter"])
         self._last_switch = state["last_switch"]
         self.n_switches = state["n_switches"]
 
@@ -386,6 +405,56 @@ def _phase_stack(tables: Dict[int, np.ndarray]) -> np.ndarray:
     tabs = [np.asarray(tables[k], dtype=np.int64) for k in keys]
     L = max(len(t) for t in tabs)
     return np.stack([_extend_last(t, L) for t in tabs])
+
+
+def solve_phase_policies(base, rates: Dict[int, float], **solve_kw):
+    """Offline: one SMDP solution per phase rate (paper Sec. VIII).
+
+    The *heuristic* per-phase decomposition — each phase solved as an
+    independent Poisson queue at its own rate.  The exact alternative is
+    core.solve_modulated, which optimizes the (phase, queue) product chain
+    jointly.  ``solve_kw`` goes to core.solve (``backup=``, ``device=``).
+    """
+    from ..core.solve import solve
+
+    tables = {}
+    for phase, lam in rates.items():
+        spec = dataclasses.replace(base, lam=lam)
+        tables[phase] = solve(spec, **solve_kw).action_table(spec.s_max)
+    return tables
+
+
+class PhaseAwareScheduler(AdaptiveController):
+    """Per-phase SMDP tables selected by an EWMA rate estimator.
+
+    A thin shim: the phase tables become a lambda-keyed SMDPSchedulerBank
+    and AdaptiveController does the estimation + table swapping (margin 0 =
+    always track the nearest phase rate, the original behaviour).
+    """
+
+    name = "smdp_phase"
+
+    def __init__(self, tables: Dict[int, np.ndarray], rates: Dict[int, float],
+                 ewma: float = 0.2):
+        from .metrics import RateEstimator
+
+        bank = SMDPSchedulerBank(
+            {(float(rates[k]),): np.asarray(tables[k], dtype=np.int64)
+             for k in rates},
+            key_names=("lam",),
+        )
+        self._phase_of = {(float(lam),): phase for phase, lam in rates.items()}
+        init = float(np.mean(list(rates.values())))
+        super().__init__(
+            bank,
+            estimator=RateEstimator(ewma=ewma, init=init),
+            margin=0.0,
+            min_dwell=0.0,
+            init_rate=init,
+        )
+
+    def current_phase(self) -> int:
+        return self._phase_of[self.key]
 
 
 class OraclePhaseScheduler(Scheduler):
@@ -434,6 +503,66 @@ class OraclePhaseScheduler(Scheduler):
 
     def restore(self, state: dict) -> None:
         self.phase = state["phase"]
+
+
+class BeliefPhaseScheduler(Scheduler):
+    """Phase-indexed tables selected by the filtered phase posterior.
+
+    The non-oracle counterpart of OraclePhaseScheduler: an MMPP forward
+    filter (arrivals.PhaseBeliefFilter) turns observed inter-arrival gaps
+    into a posterior over the hidden phase.  Two action rules:
+
+      * ``mode="argmax"`` (default) — each decision uses the argmax-phase
+        row of the (K, L) stack;
+      * ``mode="mix"`` — the decision is the posterior-weighted mixture
+        of the per-phase actions, ``round(sum_k b_k table[k, q])`` — a
+        soft blend that hedges near-uniform beliefs instead of snapping
+        to a row.
+
+    Runs on both backends: the Python engine folds the filter per
+    admitted arrival; the compiled lane precomputes the posterior rows in
+    one launch of the belief kernel (arrivals.belief_forward) and rows /
+    blends the stack inside the event kernel (serving.compiled
+    ``phase_mode="belief_argmax"`` / ``"belief_mix"``) — the engine does
+    this lowering for backend="compiled".
+    """
+
+    name = "smdp_belief"
+
+    def __init__(self, tables, phase_filter, mode: str = "argmax"):
+        if isinstance(tables, dict):
+            tables = _phase_stack(tables)
+        self.tables = np.asarray(tables, dtype=np.int64)
+        if self.tables.ndim != 2:
+            raise ValueError("BeliefPhaseScheduler needs a (K, L) stack")
+        if mode not in ("argmax", "mix"):
+            raise ValueError(f'mode must be "argmax" or "mix", got {mode!r}')
+        self.filter = phase_filter
+        self.mode = mode
+        if mode == "mix":
+            self.name = "smdp_belief_mix"
+
+    @property
+    def phase(self) -> int:
+        return min(self.filter.phase, self.tables.shape[0] - 1)
+
+    def observe_arrival(self, t: float) -> None:
+        self.filter.observe(t)
+
+    def decide(self, queue_len: int) -> int:
+        col = min(queue_len, self.tables.shape[1] - 1)
+        if self.mode == "mix":
+            # same op order as the event kernel's mix rule (round of the
+            # posterior-weighted action), so both backends agree
+            return int(np.round(np.dot(self.filter.belief,
+                                       self.tables[:, col])))
+        return int(self.tables[self.phase, col])
+
+    def snapshot(self) -> dict:
+        return {"filter": self.filter.snapshot()}
+
+    def restore(self, state: dict) -> None:
+        self.filter.restore(state["filter"])
 
 
 class StaticScheduler(Scheduler):
@@ -502,5 +631,7 @@ def as_action_table(scheduler: Scheduler, b_max: int) -> np.ndarray:
         )
     raise TypeError(
         f"{type(scheduler).__name__} has no static action table; "
-        "run it on backend='python'"
+        "online-adaptive schedulers lower through the engine's compiled "
+        "belief/adaptive lanes (ServingEngine.run(backend='compiled'), "
+        "serving.compiled AdaptiveLane / phase_mode) instead"
     )

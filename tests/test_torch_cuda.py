@@ -14,8 +14,11 @@ warps, K around its 256-wide chunks and 4097, unaligned h_len and bases),
 and against its plain mirror (bellman_banded_split_ref),
 1e-9 on serving latencies (the event walk is bit-for-bit the plain
 version's arithmetic; every instance of the event kernel -- plain,
-managed queue, adaptive, both -- equals the plain walk exactly in its
-counts, clocks, sums, histograms, queues and records), equal policies between the kernel and banded
+managed queue, adaptive, both, each with and without the belief mix
+rule -- equals the plain walk exactly in its counts, clocks, sums,
+histograms, queues and records), atol 1e-12 and equal argmax rows for the
+belief kernel against its plain version (the same operations, but CUDA's
+exp / sin / cos are within an ulp of the host's, not bit for bit), equal policies between the kernel and banded
 batched solves (lockstep, MPI, Anderson), their g at rtol 1e-6 of each
 other (the float64 finish run to eps 1e-6) and of the same solve through
 the kernel's mirror, and a sweep whose guard ladder
@@ -333,6 +336,127 @@ def test_event_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shed needs deadlines"):
         ss.serve_scan(args[0], args[1], None, *args[3:], shed=True, **kw)
     assert ss.serve_scan.launches == before
+
+
+def _phase_filter(K):
+    """A K-phase filter: the MMPP2 of the bursty scenario for K = 2, a
+    cyclic 3-phase chain (complex eigenvalues) for K = 3."""
+    from repro_torch.serving import PhaseBeliefFilter
+
+    if K == 2:
+        return PhaseBeliefFilter([0.26, 2.79], [[-1 / 4000, 1 / 4000], [1 / 800, -1 / 800]])
+    a = 1 / 300
+    gen = [[-a, a, 0.0], [0.0, -a, a], [a, 0.0, -a]]
+    return PhaseBeliefFilter([0.3, 1.1, 2.6], gen)
+
+
+def _belief_times(seed, S, n, K):
+    """S traces of n arrivals, padded with +inf, a NaN slot inside, and one
+    gap long enough that the propagated mass underflows (the stationary
+    fallback)."""
+    rng = np.random.default_rng(seed)
+    out = np.full((S, n + 7), np.inf)
+    for s in range(S):
+        gaps = rng.exponential(rng.choice([0.4, 3.0], size=n))
+        gaps[n // 2] = 2e5  # degenerate propagation
+        t = np.cumsum(gaps)
+        t[n // 3] = np.nan  # a hole: keeps the carry
+        out[s, :n] = t
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 6])
+@pytest.mark.parametrize("K", [2, 3])
+def test_belief_kernel_matches_plain(cuda, K, S):
+    from repro_torch.kernels import belief_forward as bf
+
+    filt = _phase_filter(K)
+    times = torch.as_tensor(_belief_times(10 + K, S, 3000, K))
+    b_init = torch.as_tensor(filt.belief)
+    before = bf.belief_forward.launches
+    got = bf.belief_forward(times.to(cuda), b_init.to(cuda), 0.5, filt.consts(cuda))
+    assert bf.belief_forward.launches == before + 1
+    want = bf.belief_forward(times, b_init, 0.5, filt.consts(torch.device("cpu")))
+    bel, b_fin, t_fin = (x.cpu() for x in got)
+    torch.testing.assert_close(bel, want[0], rtol=0, atol=1e-12)
+    assert torch.equal(bel.argmax(-1), want[0].argmax(-1))
+    torch.testing.assert_close(b_fin, want[1], rtol=0, atol=1e-12)
+    assert torch.equal(t_fin, want[2])
+    # the fallback fired after the long gap: the row is b0 * rates, normalised
+    fb = filt._b0 * filt.rates / (filt._b0 * filt.rates).sum()
+    np.testing.assert_allclose(bel[0, 1500].numpy(), fb, rtol=0, atol=1e-12)
+    # padded tail repeats the last row
+    assert torch.equal(bel[:, -1], bel[:, 2999])
+
+
+def _mix_inputs(seed, S=2, n=600, P=3, adaptive=False, dev="cpu"):
+    """Overloaded traces, (P, 2, L) phase stacks (or a bank of them lowered
+    from a controller), random posterior rows: inputs for the mix rule."""
+    from repro_torch.serving import AdaptiveController, SMDPSchedulerBank
+    from repro_torch.serving.compiled import AdaptiveLane
+
+    args, kw = _lane_inputs(seed, S=S, n=n, P=P)
+    rng = np.random.default_rng(seed + 100)
+    stacks = np.stack([np.stack([q_policy(2 + 5 * p, 128, 32), q_policy(9 + 5 * p, 128, 32)])
+                       for p in range(P)])
+    lam = 1.3 * 32 / float(args[5][32])
+    ad = None
+    if adaptive:
+        bank = SMDPSchedulerBank({(lam * (0.5 + p),): stacks[p] for p in range(P)},
+                                 key_names=("lam",))
+        lane = AdaptiveLane.from_controller(AdaptiveController(bank, ewma=0.3, margin=0.05))
+        stacks = lane.tables
+        ad = tuple(torch.as_tensor(x, device=dev) for x in lane.lowered())
+    w = rng.uniform(size=args[1].shape)
+    bel = np.stack([w, 1.0 - w], axis=-1)
+    args = [a.to(dev) for a in args]
+    args[0] = torch.as_tensor(stacks, dtype=torch.int64, device=dev)
+    return args, dict(kw, adaptive=ad, beliefs=torch.as_tensor(bel, device=dev))
+
+
+@pytest.mark.parametrize("lanes", ["one", "grid"])
+@pytest.mark.parametrize("qman,adaptive", [(False, False), (True, False), (False, True),
+                                           (True, True)])
+def test_event_kernel_mix_matches_plain(cuda, qman, adaptive, lanes):
+    """The mix rule in every instance, one lane and a grid, against the
+    plain walk: counts, clocks, sums, histograms, queues and records equal."""
+    args, kw = _mix_inputs(11, S=1 if lanes == "one" else 2, P=1 if lanes == "one" else 3,
+                           adaptive=adaptive)
+    kw.update(record=True, buffer=12 if qman else None, shed=qman)
+    n_lanes = args[1].shape[0] * (1 if adaptive else args[0].shape[0])
+    name = ss.instance_name(qman, adaptive, n_lanes, mix=True)
+    assert name.endswith("mix")
+    gkw = dict(kw, beliefs=kw["beliefs"].to(cuda),
+               adaptive=None if not adaptive else tuple(a.to(cuda) for a in kw["adaptive"]))
+    before = ss.serve_scan.instance_launches.get(name, 0)
+    got = ss.serve_scan(*[a.to(cuda) for a in args], **gkw)
+    assert ss.serve_scan.instance_launches[name] == before + 1
+    want = ss.serve_scan_ref(*args, **kw)
+    _same_scan(got, want)
+    # the blend is not either row: it differs from serving phase 0's row
+    plain = ss.serve_scan_ref(*args, **dict(kw, beliefs=None))
+    assert not torch.equal(want.agg_i, plain.agg_i)
+
+
+def test_belief_lanes_on_the_card_equal_the_cpu(cuda):
+    """The engine's belief lowering on the card (belief kernel, then the
+    event kernel) equals the Python loop and the CPU plain path."""
+    from repro_torch.serving import BeliefPhaseScheduler, verify_backends
+
+    svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY, family="det")
+    energy = np.array([0.0] + [float(pt.GOOGLENET_P4_ENERGY(b)) for b in range(1, 33)])
+    trace = _belief_times(3, 1, 4000, 2)[0, :4000]
+    trace = np.sort(trace[np.isfinite(trace)])
+    stack = np.stack([q_policy(3, 128, 32), q_policy(14, 128, 32)])
+    for mode in ("argmax", "mix"):
+        runs = {d: verify_backends(
+            None, trace, service=svc, energy_table=energy, b_max=32, device=d,
+            scheduler=lambda: BeliefPhaseScheduler(stack, _phase_filter(2), mode=mode))
+            for d in ("cpu", cuda)}
+        np.testing.assert_array_equal(runs[cuda]["compiled"].batch_sizes,
+                                      runs["cpu"]["compiled"].batch_sizes)
+        np.testing.assert_allclose(runs[cuda]["compiled"].latencies,
+                                   runs["cpu"]["compiled"].latencies, rtol=0, atol=1e-9)
 
 
 def test_kernel_solve_matches_cpu_plain_path(cuda):

@@ -70,9 +70,10 @@ def test_source_imports_neither_jax_nor_reference(path):
 
 def _entry_points():
     from repro_torch.core import (
-        GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, ServiceModel, SMDPSpec,
-        build_smdp, build_smdp_batched, relative_value_iteration,
-        relative_value_iteration_batched, solve, sweep_bank, sweep_solve,
+        GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, PhaseConfig, ServiceModel, SMDPSpec,
+        build_smdp, build_smdp_batched, build_smdp_modulated, relative_value_iteration,
+        relative_value_iteration_batched, relative_value_iteration_modulated, solve,
+        solve_modulated, sweep_bank, sweep_solve, sweep_solve_modulated,
     )
     from repro_torch.core.tradeoff import smdp_tradeoff_curve
     from repro_torch.launch import tradeoff_sweep
@@ -81,8 +82,9 @@ def _entry_points():
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving import (
-        AdaptiveController, ServingEngine, SMDPScheduler, SMDPSchedulerBank,
-        run_grid, run_grid_adaptive, simulate_compiled,
+        AdaptiveController, PhaseBeliefFilter, ServingEngine, SMDPScheduler,
+        SMDPSchedulerBank, belief_forward, run_grid, run_grid_adaptive,
+        simulate_compiled,
     )
     from repro_torch.serving.kv_cache import KVCachePool
 
@@ -104,6 +106,13 @@ def _entry_points():
             build_smdp_batched([spec])),
         "sweep_solve": lambda: sweep_solve([spec]),
         "sweep_bank": lambda: sweep_bank(spec, [0.5]),
+        "solve_modulated": lambda: solve_modulated(spec, PhaseConfig.poisson(0.5)),
+        "sweep_solve_modulated": lambda: sweep_solve_modulated(
+            [spec], PhaseConfig.poisson(0.5)),
+        "relative_value_iteration_modulated": lambda: relative_value_iteration_modulated(
+            build_smdp_modulated(spec, PhaseConfig.poisson(0.5))),
+        "belief_forward": lambda: belief_forward(
+            np.arange(5.0), PhaseBeliefFilter([0.5, 1.0], [[-1.0, 1.0], [1.0, -1.0]])),
         "smdp_tradeoff_curve": lambda: smdp_tradeoff_curve(spec, [0.0]),
         "tradeoff_sweep.main": lambda: tradeoff_sweep.main(["--w2", "0"]),
         "ServingEngine": lambda: ServingEngine(

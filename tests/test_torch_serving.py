@@ -156,12 +156,32 @@ def test_drain_capped_at_b_max():
 
 
 def test_unported_lanes_raise():
-    """The belief lanes are not ported yet (ROADMAP queue 1): their entry
-    points raise and say where the work is queued."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.simulate_compiled(TABLE, _poisson(10), means=MEANS, b_max=B_MAX,
-                             phase_mode="belief_mix", device="cpu")
-    bank = ps.SMDPSchedulerBank({(LAM,): TABLE, (2 * LAM,): TABLE},
+    """The two entry points this pinned as not ported (the belief lanes)
+    now run: a belief_mix lane equals the reference's decision for
+    decision, and AdaptiveController(phase_filter=) tracks the filter's
+    phase as the reference's does."""
+    from repro.serving import AdaptiveController as RefController
+    from repro.serving import PhaseBeliefFilter as RefFilter
+    from repro.serving import SMDPSchedulerBank as RefBank
+
+    rates, gen = [0.3 * LAM, 1.3 * LAM], [[-1 / 60, 1 / 60], [1 / 30, -1 / 30]]
+    tr = _poisson(400)
+    stack = np.stack([TABLE, q_policy(14, 128, B_MAX)])
+    bel, _ = ps.belief_forward(tr, ps.PhaseBeliefFilter(rates, gen), device="cpu")
+    got = ps.simulate_compiled(stack, tr, means=MEANS, zeta=ENERGY, b_max=B_MAX,
+                               phase_mode="belief_mix", beliefs=bel, record=True,
+                               device="cpu")
+    want = ref_simulate(stack, tr, means=MEANS, zeta=ENERGY, b_max=B_MAX,
+                        phase_mode="belief_mix", beliefs=bel.numpy(), record=True)
+    np.testing.assert_array_equal(got.actions, want.actions)
+    np.testing.assert_allclose(got.latencies, want.latencies, rtol=0, atol=1e-9)
+    bank = ps.SMDPSchedulerBank({(LAM,): stack, (2 * LAM,): stack[::-1]},
                                 key_names=("lam",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.AdaptiveController(bank, phase_filter=object())
+    ref_bank = RefBank({(LAM,): stack, (2 * LAM,): stack[::-1]}, key_names=("lam",))
+    ctrl = ps.AdaptiveController(bank, phase_filter=ps.PhaseBeliefFilter(rates, gen))
+    ref = RefController(ref_bank, phase_filter=RefFilter(rates, gen))
+    for t in tr[:200]:
+        ctrl.observe_arrival(float(t))
+        ref.observe_arrival(float(t))
+        assert ctrl.scheduler.phase == ref.scheduler.phase
+        assert ctrl.decide(9) == ref.decide(9)

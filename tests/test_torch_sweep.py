@@ -190,11 +190,22 @@ class TestSchedulerBank:
 
 
 def test_not_ported_options_raise():
+    """checkpoint_dir= is still not ported (ROADMAP queue 1) and raises;
+    phases= is, and its bank equals the reference's table for table."""
+    from repro.core import PhaseConfig as RefPhaseConfig
+
     base = interop.spec_from_reference(spec_for())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.sweep_solve([base], checkpoint_dir="ckpt", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.sweep_bank(base, [base.lam], phases=object(), device=CPU)
+    ref_base = spec_for(w2=0.5, s_max=32)
+    ph = RefPhaseConfig.mmpp2(0.5 * ref_base.lam, 2.0 * ref_base.lam, 400.0, 200.0)
+    pph = pt.PhaseConfig(rates=ph.rates, gen=ph.gen)
+    lams = [ph.mean_rate]
+    got = pt.sweep_bank(interop.spec_from_reference(ref_base), lams, phases=pph, device=CPU)
+    want = ref_sweep_bank(ref_base, lams, phases=ph)
+    assert got.keys() == want.keys()
+    for k in want.keys():
+        np.testing.assert_array_equal(got.tables[k], want.tables[k])
 
 
 def test_sweep_bank_serves_through_the_compiled_engine():
