@@ -87,6 +87,27 @@
    against its Python engine at rtol 1e-9).  The mix instance is also held
    and timed on the main path's inputs with two equal phase rows, where it
    must equal the plain lane.
+4g. The routed fleet and degraded mode, counters zeroed just before and
+   read just after: benchmarks/fleet_frontier.py at its full size (M = 4
+   replicas solved at lambda / M on the Bellman kernel against one fat
+   server solved at lambda on latency / M; Poisson, MMPP2 and diurnal
+   traces of 20 000 arrivals x 4 seeds, each scenario one run_fleet_grid
+   launch over the 4 routers, the fat server through simulate_compiled;
+   W, P95, power and mean batch printed); every grid cell equal to
+   simulate_fleet of its lane; one seed per scenario x 4 routers through
+   verify_fleet (PythonFleet against the fleet kernel), and an MMPP-aware
+   fleet (per-phase tables, the posterior from the belief kernel, the mix
+   rule) through it too; a 16-chunk FleetStream equal to the one-shot run
+   on every aggregate; examples/serve_fleet.py (M = 8, 20 000 arrivals x 3
+   seeds x 4 routers, one launch); benchmarks/degraded_frontier.py (§1
+   verify_faults for every router on Poisson and MMPP2 with the moderate
+   schedule, buffer 24, slo 2.0, and the no-fault rail; §2 the fault
+   matrix, 3 severities x 4 routers x 4 seeds x 8000 arrivals at M = 3;
+   §3 aware against blind through the M = 1 fleet with buffer 24, gate:
+   aware serves from a lower queue and wins MMPP2 goodput).  Then the
+   fleet kernel's one-lane (faults, buffer), grid and mix instances are
+   held against their plain walk on the inputs of those launches and
+   timed.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -1587,6 +1608,468 @@ def mmpp_phase(torch, np, kernels, rows, main_res, energy):
         launches=counts["serve_scan:grid_mix"])
 
 
+FLEET_SOURCE = "src/repro_torch/kernels/csrc/fleet_scan.cu"
+FLEET_REPLACES = ("src/repro/serving/fleet.py:551 (the lax.scan of _fleet_scan_core{}, "
+                  "with its per-request reconstruction :558-648; not a Pallas kernel)")
+FLEET_M, FLEET_RHO, FLEET_N, FLEET_SEEDS = 4, 0.7, 20_000, 4  # fleet_frontier.py
+FLEET_ROUTERS = ("jsq", "batch_aware", "rr", "pow2")
+FLEET_STREAM_CHUNK, FLEET_STREAM_CHUNKS = 8192, 16
+EXAMPLE_M, EXAMPLE_SEEDS = 8, 3  # examples/serve_fleet.py
+DEGRADED_BMAX, DEGRADED_N, DEGRADED_CERT_N, DEGRADED_SEEDS = 16, 8000, 1200, 4
+DEGRADED_BUFFER = 24
+SEVERITIES = {  # benchmarks/degraded_frontier.py
+    "none": None,
+    "moderate": dict(mtbf=60.0, mttr=5.0, p_straggle=0.05, straggle_mult=3.0),
+    "severe": dict(mtbf=25.0, mttr=8.0, p_straggle=0.15, straggle_mult=4.0),
+}
+
+
+def fleet_inputs(np, tables, traces, rids, *, means, zeta, b_max, faults=None,
+                 buffer=None, slo=None, beliefs=None):
+    """The fleet kernel's card tensors for (P, M, K, L) table stacks over S
+    traces and the router ids, built as serving.fleet builds them for
+    simulate_fleet (S = P = R = 1) and run_fleet_grid: padded traces, pow2
+    uniforms from seed 0, unit draws, a fresh state; ``beliefs`` (one (n,
+    K) posterior a trace) selects the mix rule."""
+    from repro_torch.serving import fleet
+
+    P, M, K, L = tables.shape
+    rows = []
+    for s, tr in enumerate(traces):
+        phases = bel = None
+        if beliefs is not None:
+            phases, bel = fleet._belief_phases("belief_mix", beliefs[s], None, K)
+        rows.append(fleet._prep_inputs(
+            tables[0], tr, means=means, zeta=zeta, draws=None, b_max=b_max,
+            deadlines=None, phases=phases, slo=slo, hist_edges=None, router_u=None,
+            router_seed=0, bel=bel))
+    arr, dl, ph = (np.stack([r[i] for r in rows]) for i in (1, 2, 3))
+    bel = None if beliefs is None else np.stack([r[4] for r in rows])
+    _, _, _, _, _, _, means_a, zeta_a, _, edges = rows[0]
+    fb, fmult, max_retries = fleet._prep_faults(faults, M)
+    max_eps, cap, _ = fleet._budgets(int(np.isfinite(arr).sum(axis=1).max()), M,
+                                     int(np.isfinite(fb).sum()))
+    busy0, state0 = fleet._fresh_state(M)
+    q0 = np.full((M, 1), np.inf)
+    return fleet._kernel_args(
+        "cuda", tables, np.stack([fleet.threshold_gaps(t) for t in tables]),
+        np.asarray(rids), arr, dl, ph, np.random.default_rng(0).random(arr.shape + (2,)),
+        np.ones((len(arr), 1)), means_a, zeta_a, edges, fb, fmult, q0, q0, busy0, state0,
+        bel, None if bel is None else bel[:, 0], t0=0.0, horizon=np.inf, max_eps=max_eps,
+        drain=True, b_max=b_max, buf_cap=fleet._NO_BUFFER if buffer is None else buffer,
+        max_retries=max_retries, cap=cap)
+
+
+def fleet_row(torch, np, name, call, reps=3):
+    """One fleet-kernel launch on the card against its plain version on the
+    same inputs: every output equal.  Returns the row's measured numbers."""
+    from repro_torch.kernels import fleet_scan as fk
+
+    args, kw = call
+    fk.fleet_scan(*args, **kw)  # warm
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fk.fleet_scan(*args, **kw)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    cpu = [None if a is None else a.cpu() for a in args]
+    t0 = time.perf_counter()
+    ref = fk.fleet_scan_ref(*cpu, **kw)
+    plain = (time.perf_counter() - t0) * 1e3
+    got = [x.cpu() for x in out[:5]]
+    for field, g, r in zip(fk.FleetOut._fields, got, ref[:5]):
+        check(torch.equal(g, r), f"{name}: {field} differs from the plain version")
+    if ref.rec is not None:
+        for field, g, r in zip(fk.FleetRecord._fields, out.rec, ref.rec):
+            check(torch.equal(g.cpu(), r), f"{name}: record {field} differs")
+    err = max((got[1] - ref.agg_f).abs().max().item(),
+              (got[3] - ref.busy).nan_to_num(0.0, 0.0, 0.0).abs().max().item())
+    a = {k: ref.agg_i[:, i].numpy() for i, k in enumerate(fk.AGG_I)}
+    rep = {k: ref.rep_i[:, i].numpy() for i, k in enumerate(fk.REP_I)}  # (lanes, M)
+    tables, rids, arr = args[0], args[2].tolist(), args[3]
+    S, size = arr.shape
+    P, M, K, L = tables.shape
+    R = len(rids)
+    lanes = S * P * R
+    lane = np.arange(lanes)
+    rid = np.array(rids)[lane % R]
+    served = rep["n_srv"].sum(1)
+    mix = len(args) > 17 and args[17] is not None
+    n_draws, nfb, n_mult = args[7].shape[1], args[11].shape[1], args[12].shape[1]
+
+    def once(group, n, x):
+        # elements shared by the lanes of a group are read once: count the
+        # most any lane of the group reads
+        most = np.zeros(n)
+        np.maximum.at(most, group, x)
+        return most.sum()
+
+    trace, stack = lane // (P * R), (lane // R) % P
+    adm, eps = a["n_admitted"], a["n_epochs"]
+    # bytes: what each lane reads, from this run's counts -- per admission
+    # its arrival (and the one it looks ahead to) and its phase, the pow2
+    # uniforms on pow2 lanes only; a served request's deadline; at most one
+    # belief row and one table entry (K on the mix lane) a decision; the
+    # batch_aware lanes' gaps, M a routed arrival; one draw and one
+    # multiplier a batch attempt index of a replica (a broadcast element
+    # once); the fault boundaries passed; and every lane's outputs written
+    # once (the FIFO scratch is neither input nor output)
+    n_bytes = int(
+        8 * once(trace, S, np.minimum(adm + 1, size)) + 8 * once(trace, S, adm)
+        + 16 * once(trace, S, np.where(rid == 2, adm, 0))
+        + 8 * once(trace, S, served)
+        + (8 * K * once(trace, S, np.minimum(adm, eps)) if mix else 0)
+        + 8 * once(stack, P, np.minimum(eps * (K if mix else 1), M * K * L))
+        + 8 * once(stack, P, np.where(rid == 3, np.minimum(M * adm, M * K * L), 0))
+        + 8 * once(trace, S, np.minimum(rep["nbat"].max(1), n_draws))
+        + 8 * np.minimum(rep["nbat"].max(0), n_mult).sum()
+        + 8 * np.minimum(rep["fcur"].max(0) + 1, nfb).sum()
+        + lanes * 8 * (len(fk.AGG_I) + len(fk.AGG_F) + (len(fk.REP_I) + 1) * M
+                       + ref.hist.shape[1])
+        + (0 if ref.rec is None else int(8 * eps.sum() + 17 * adm.sum())))
+    # operations (f64): per epoch the service time, its completion and the
+    # crash test; per served request its latency, the sum and the SLO test;
+    # the blend's K products and sums per epoch on the mix lane
+    flops = int(4 * eps.sum() + 3 * served.sum() + (2 * K * eps.sum() if mix else 0))
+    b_ms, b_by = bound(n_bytes, flops, F64_FLOPS)
+    steps = int(a["n_steps_used"].sum())
+    log(f"{name} ({lanes} lanes, M={M}, {steps} steps, {int(served.sum())} served): "
+        f"kernel_ms={best:.3f} plain_ms={plain:.3f} (Python walk on the host) "
+        f"bound_ms={b_ms:.6f} ({b_by}); every output equal to the plain version")
+    return dict(route="cuda", source=FLEET_SOURCE, max_abs_err=err, ms=best,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=[lanes, M, steps], served=int(served.sum()))
+
+
+def _fleet_traces(np, mode, lam, n, seeds, base):
+    """fleet_frontier.py's _traces (seeds base + s)."""
+    from repro_torch.serving.arrivals import MMPP2, DiurnalProcess
+
+    out = []
+    for s in range(seeds):
+        rng = np.random.default_rng(base + s)
+        if mode == "poisson":
+            out.append(np.cumsum(rng.exponential(1.0 / lam, n)))
+        elif mode == "mmpp2":
+            m = MMPP2(lam1=0.3 * lam, lam2=1.3 * lam, dwell1=60.0, dwell2=30.0)
+            out.append(np.asarray(m.sample_arrivals(n / m.mean_rate, rng)[0]))
+        else:
+            proc = DiurnalProcess(base=lam, amp=0.6 * lam, period=300.0)
+            out.append(np.array([proc.next(rng).time for _ in range(n)]))
+    return out
+
+
+def _fleet_summary(np, out, i, hq):
+    """Seed-averaged (W, P95, power, mean batch) of router lane i."""
+    w = float(np.nanmean(out["w_mean"][:, 0, i]))
+    power = float(np.nanmean(out["power"][:, 0, i]))
+    mb = float(out["n_served"][:, 0, i].sum() / out["n_batches"][:, 0, i].sum())
+    p95 = float(np.mean([hq(out["hist"][s, 0, i], out["hist_edges"], [0.95])[0]
+                         for s in range(out["hist"].shape[0])]))
+    return w, p95, power, mb
+
+
+def fleet_phase(torch, np, kernels, rows):
+    """The routed fleet and degraded mode (fleet_frontier.py, serve_fleet.py,
+    degraded_frontier.py), counters zeroed just before and read just after."""
+    from repro_torch.core import (GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY,
+                                  ServiceModel, SMDPSpec, solve)
+    from repro_torch.core.policies import q_policy
+    from repro_torch.serving import (FaultModel, FaultSchedule, FleetStream,
+                                     PhaseBeliefFilter, belief_forward,
+                                     histogram_quantiles, pad_arrivals_batch,
+                                     run_fleet_grid, simulate_compiled, simulate_fleet,
+                                     verify_faults, verify_fleet)
+    from repro_torch.serving import fleet
+    from repro_torch.serving.arrivals import MMPP2
+
+    M, bm = FLEET_M, B_MAX
+
+    def spec(rho, latency=GOOGLENET_P4_LATENCY, b_max=bm, **kw):  # common.paper_spec
+        svc = ServiceModel(latency=latency, family="det")
+        lam = rho * b_max / float(svc.mean(b_max))
+        kw = dict(dict(s_max=128, c_o=100.0), **kw)
+        return SMDPSpec(lam=lam, service=svc, energy=GOOGLENET_P4_ENERGY, b_min=1,
+                        b_max=b_max, w1=1.0, w2=1.0, **kw)
+
+    def zeta_of(b_max):
+        return np.array([0.0] + [float(GOOGLENET_P4_ENERGY(b)) for b in range(1, b_max + 1)])
+
+    def means_of(svc, b_max):
+        return np.array([0.0] + [float(svc.mean(b)) for b in range(1, b_max + 1)])
+
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    py_wall = 0.0
+    # --- benchmarks/fleet_frontier.py: M small replicas vs one fat server ---
+    spec_small = spec(FLEET_RHO)
+    spec_fat = spec(FLEET_RHO, latency=lambda b: GOOGLENET_P4_LATENCY(b) / M)
+    small = solve(spec_small, backup="pallas", device="cuda")
+    fat = solve(spec_fat, backup="pallas", device="cuda")
+    solve_launches = kernels.launch_counts()["bellman_banded"]
+    tab_small, tab_fat = small.policy, fat.policy
+    zeta = zeta_of(bm)
+    means_small = means_of(spec_small.service, bm)
+    means_fat = means_small / M
+    lam_agg = M * spec_small.lam
+    grids, traces = {}, {}
+    for mode in ("poisson", "mmpp2", "diurnal"):
+        traces[mode] = _fleet_traces(np, mode, lam_agg, FLEET_N, FLEET_SEEDS, 1000)
+        arr = pad_arrivals_batch(traces[mode])
+        t0 = time.perf_counter()
+        out = run_fleet_grid(tab_small[None], arr, routers=FLEET_ROUTERS, n_replicas=M,
+                             means=means_small, zeta=zeta, b_max=bm, device="cuda")
+        grid_s = time.perf_counter() - t0
+        fat_rows = []
+        for tr in traces[mode]:
+            r = simulate_compiled(tab_fat, tr, means=means_fat, zeta=zeta, b_max=bm,
+                                  device="cuda")
+            fat_rows.append((r.lat_sum / r.n_served,
+                             histogram_quantiles(r.hist, r.hist_edges, [0.95])[0],
+                             r.energy / r.t_final, r.n_served / r.n_batches))
+        fw, fp95, fpow, fmb = (float(np.mean(c)) for c in zip(*fat_rows))
+        log(f"fleet_frontier {mode} (M={M}, rho {FLEET_RHO}/replica, {FLEET_SEEDS} seeds x "
+            f"{FLEET_N} arrivals, one launch, {grid_s:.3f} s): fat server W={fw:.6f} ms "
+            f"P95={fp95:.6f} ms power={fpow:.6f} W mean_batch={fmb:.6f}")
+        for i, router in enumerate(FLEET_ROUTERS):
+            w, p95, power, mb = _fleet_summary(np, out, i, histogram_quantiles)
+            log(f"  {router:>11}: W={w:.6f} ms P95={p95:.6f} ms power={power:.6f} W "
+                f"mean_batch={mb:.6f} (latency x{w / fw:.4f}, energy x{power / fpow:.4f} "
+                f"the fat server's)")
+        n_in = np.array([len(t) for t in traces[mode]])
+        check(np.all(out["n_served"] == n_in[:, None, None]), f"{mode}: a grid lane left requests")
+        grids[mode] = (arr, out)
+    # every grid cell equals simulate_fleet of that lane, on the same kernel
+    ru = np.random.default_rng(0).random(grids["poisson"][0].shape + (2,))
+    n_cells = 0
+    for mode, (arr, out) in grids.items():
+        for s, tr in enumerate(traces[mode]):
+            for i, router in enumerate(FLEET_ROUTERS):
+                r = simulate_fleet(np.tile(tab_small[None], (M, 1)), tr, router=router,
+                                   means=means_small, zeta=zeta, b_max=bm,
+                                   router_u=ru[s][: len(tr)], device="cuda")
+                for k in ("t_final", "n_served", "n_batches", "n_epochs", "energy",
+                          "lat_sum", "slo_miss"):
+                    check(out[k][s, 0, i] == getattr(r, k),
+                          f"grid cell {mode}/{s}/{router}: {k} differs from simulate_fleet")
+                check(np.array_equal(out["hist"][s, 0, i], r.hist)
+                      and np.array_equal(out["n_route"][s, 0, i], r.n_routed),
+                      f"grid cell {mode}/{s}/{router}: histogram or routing differs")
+                n_cells += 1
+    log(f"fleet grid: all {n_cells} cells equal simulate_fleet of their lane "
+        "(counts, clocks, sums, histograms, routing)")
+    # one seed per scenario x every router through the certifier
+    hom = np.tile(tab_small[None], (M, 1))
+    for mode in grids:
+        for router in FLEET_ROUTERS:
+            t0 = time.perf_counter()
+            v = verify_fleet(hom, traces[mode][0], router=router,
+                             service=spec_small.service, energy_table=zeta, b_max=bm,
+                             device="cuda")
+            py_wall += time.perf_counter() - t0
+            log(f"verify_fleet {mode}/{router} (seed 1000, {FLEET_N} arrivals): "
+                f"PythonFleet == fleet kernel, {v['n_decisions']} decisions")
+    # MMPP-aware fleet: per-phase tables, the posterior from the belief
+    # kernel, the mix rule in the fleet kernel
+    tr_m = traces["mmpp2"][0]
+    lo = solve(spec(0.3 * FLEET_RHO), backup="pallas", device="cuda").policy
+    hi = solve(spec(1.3 * FLEET_RHO), backup="pallas", device="cuda").policy
+    L = max(len(lo), len(hi))
+    pad = lambda t: np.concatenate([t, np.full(L - len(t), t[-1])])  # noqa: E731
+    stacks = np.tile(np.stack([pad(lo), pad(hi)])[None], (M, 1, 1))
+    filt = PhaseBeliefFilter(rates=[0.3 * lam_agg, 1.3 * lam_agg],
+                             gen=[[-1 / 60.0, 1 / 60.0], [1 / 30.0, -1 / 30.0]])
+    bel = belief_forward(tr_m, filt, device="cuda")[0].cpu().numpy()
+    mix_res = {}
+    for router in ("jsq", "batch_aware"):
+        t0 = time.perf_counter()
+        v = verify_fleet(stacks, tr_m, router=router, service=spec_small.service,
+                         energy_table=zeta, b_max=bm, phase_mode="belief_mix",
+                         beliefs=bel, device="cuda")
+        py_wall += time.perf_counter() - t0
+        mix_res[router] = v["compiled"]
+        c = v["compiled"]
+        log(f"verify_fleet mmpp2/{router} belief_mix (K=2, per-phase tables at rho "
+            f"{0.3 * FLEET_RHO:.2f} / {1.3 * FLEET_RHO:.2f}): PythonFleet == fleet kernel, "
+            f"{v['n_decisions']} decisions, W={c.w_mean:.6f} ms "
+            f"power={c.energy / c.t_final:.6f} W")
+    # FleetStream: >= 10 chunks against the one-shot run
+    n_stream = FLEET_STREAM_CHUNK * FLEET_STREAM_CHUNKS
+    tr_s = np.cumsum(np.random.default_rng(7).exponential(1.0 / lam_agg, n_stream))
+    t0 = time.perf_counter()
+    fs = FleetStream(hom, router="jsq", means=means_small, zeta=zeta, b_max=bm,
+                     device="cuda")
+    for lo_ in range(0, n_stream, FLEET_STREAM_CHUNK):
+        fs.push(tr_s[lo_:lo_ + FLEET_STREAM_CHUNK])
+    st = fs.finish()
+    stream_s = time.perf_counter() - t0
+    one = simulate_fleet(hom, tr_s, router="jsq", means=means_small, zeta=zeta, b_max=bm,
+                         device="cuda")
+    for k in ("n_served", "n_batches", "n_epochs", "n_admitted", "slo_miss", "t_final",
+              "terminated", "n_crashes", "n_dropped", "n_shed"):
+        check(getattr(st, k) == getattr(one, k), f"FleetStream {k} differs from one-shot")
+    for k in ("hist", "qlen", "n_routed", "n_served_m"):
+        check(np.array_equal(getattr(st, k), getattr(one, k)),
+              f"FleetStream {k} differs from one-shot")
+    lat_err = abs(st.lat_sum - one.lat_sum) / one.lat_sum
+    e_err = abs(st.energy - one.energy) / one.energy
+    check(lat_err <= 1e-12 and e_err <= 1e-12, f"FleetStream sums: {lat_err}, {e_err}")
+    rep = fs.report()
+    log(f"FleetStream ({FLEET_STREAM_CHUNKS} chunks of {FLEET_STREAM_CHUNK}, M={M}, jsq, "
+        f"{stream_s:.3f} s, {n_stream / stream_s:.0f} arrivals/s): == one-shot on every "
+        f"aggregate, n_epochs {st.n_epochs}; lat_sum rel err {lat_err:.3e}, energy "
+        f"{e_err:.3e}; P95={rep['P95']:.6f} ms")
+    # --- examples/serve_fleet.py: M = 8, 3 seeds x 4 routers, one launch ----
+    spec8 = SMDPSpec(lam=FLEET_RHO * bm / float(means_small[bm]), service=spec_small.service,
+                     energy=GOOGLENET_P4_ENERGY, b_min=1, b_max=bm, w1=1.0, w2=1.0, s_max=128)
+    tab8 = solve(spec8, backup="pallas", device="cuda").policy
+    lam8 = EXAMPLE_M * spec8.lam
+    tr8 = [np.cumsum(np.random.default_rng(s).exponential(1.0 / lam8, FLEET_N))
+           for s in range(EXAMPLE_SEEDS)]
+    ex_routers = ("rr", "jsq", "pow2", "batch_aware")
+    out8 = run_fleet_grid(tab8[None], pad_arrivals_batch(tr8), routers=ex_routers,
+                          n_replicas=EXAMPLE_M, means=means_small, zeta=zeta, b_max=bm,
+                          device="cuda")
+    for i, router in enumerate(ex_routers):
+        w, p95, power, mb = _fleet_summary(np, out8, i, histogram_quantiles)
+        log(f"serve_fleet M={EXAMPLE_M} {router:>11}: W={w:.6f} ms P95={p95:.6f} ms "
+            f"power={power:.6f} W mean_batch={mb:.6f}")
+    check(np.all(out8["n_served"] == FLEET_N), "serve_fleet: a lane left requests")
+
+    # --- benchmarks/degraded_frontier.py ---------------------------------
+    dsvc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
+    dbm = DEGRADED_BMAX
+    dmeans, dzeta = means_of(dsvc, dbm), zeta_of(dbm)
+    dtabs = np.stack([q_policy(q, 96, dbm) for q in (4, 6, 8)])
+
+    def dtrace(mode, lam, n, seed):
+        rng = np.random.default_rng(seed)
+        if mode == "poisson":
+            return np.cumsum(rng.exponential(1.0 / lam, n))
+        m = MMPP2(lam1=0.25 * lam, lam2=1.75 * lam, dwell1=40.0, dwell2=40.0)
+        return np.asarray(m.sample_arrivals(n / m.mean_rate, rng)[0])
+
+    # §1 certification
+    lam_c = 3 * 0.7 * dbm / float(dsvc.mean(dbm))
+    crashes = 0
+    for mode in ("poisson", "mmpp2"):
+        tr = dtrace(mode, lam_c, DEGRADED_CERT_N, 0)
+        sch = FaultModel(**SEVERITIES["moderate"]).materialize(3, float(tr[-1]) + 50.0, seed=1)
+        for router in FLEET_ROUTERS:
+            t0 = time.perf_counter()
+            v = verify_faults(dtabs, tr, faults=sch, service=dsvc, b_max=dbm, router=router,
+                              buffer=DEGRADED_BUFFER, energy_table=dzeta, slo=2.0,
+                              device="cuda")
+            py_wall += time.perf_counter() - t0
+            crashes += v["n_crashes"]
+            log(f"verify_faults {mode}/{router} (moderate, buffer {DEGRADED_BUFFER}, slo 2.0, "
+                f"{DEGRADED_CERT_N} arrivals): PythonFleet == fleet kernel, "
+                f"{v['n_decisions']} decisions, crashes {v['n_crashes']}, dropped "
+                f"{v['n_dropped']}, shed {v['n_shed']}")
+    rail = verify_faults(dtabs, dtrace("poisson", lam_c, DEGRADED_CERT_N, 2),
+                         faults=FaultSchedule.none(3), service=dsvc, b_max=dbm,
+                         energy_table=dzeta, device="cuda")
+    check(rail["n_crashes"] == 0 and rail["n_shed"] == 0, "the no-fault rail faulted")
+    check(crashes > 0, "certification: no batch crashed, the degraded lane is not shown")
+    log(f"verify_faults no-fault rail: {rail['n_decisions']} decisions, no crash, no shed")
+    # §2 fault matrix: M = 3, severity x router x seeds, one launch per run
+    lam_m = 3 * 0.7 * dbm / float(dsvc.mean(dbm))
+    matrix = {}
+    for sev, model in SEVERITIES.items():
+        for router in FLEET_ROUTERS:
+            agg = []
+            for s in range(DEGRADED_SEEDS):
+                tr = dtrace("mmpp2", lam_m, DEGRADED_N, 200 + s)
+                sch = (FaultSchedule.none(3) if model is None else
+                       FaultModel(**model).materialize(3, float(tr[-1]) + 50.0, seed=300 + s))
+                r = simulate_fleet(dtabs, tr, router=router, means=dmeans, zeta=dzeta,
+                                   b_max=dbm, slo=2.0, faults=sch, buffer=DEGRADED_BUFFER,
+                                   device="cuda")
+                offered = r.n_served + r.n_dropped + r.n_shed
+                agg.append(dict(
+                    goodput=r.n_served / r.t_final,
+                    drop_rate=(r.n_dropped + r.n_shed) / offered,
+                    W_mean=r.lat_sum / r.n_served,
+                    P95=float(histogram_quantiles(r.hist, r.hist_edges, [0.95])[0]),
+                    power=r.energy / r.t_final, crashes=r.n_crashes))
+            m = {k: float(np.mean([a[k] for a in agg])) for k in agg[0]}
+            matrix[(sev, router)] = m
+            log(f"fault matrix {sev}/{router} (M=3, {DEGRADED_SEEDS} seeds x {DEGRADED_N} "
+                f"MMPP2 arrivals, buffer {DEGRADED_BUFFER}): goodput={m['goodput']:.6f} /ms "
+                f"drop_rate={m['drop_rate']:.6f} W={m['W_mean']:.6f} ms P95={m['P95']:.6f} ms "
+                f"power={m['power']:.6f} W crashes/seed={m['crashes']:.2f}")
+    check(all(matrix[("severe", r)]["crashes"] > 0 for r in FLEET_ROUTERS),
+          "fault matrix: the severe regime crashed nothing")
+    # §3 aware vs blind through the M = 1 fleet
+    aware = solve(SMDPSpec(lam=1.2 * dbm / float(dsvc.mean(dbm)), service=dsvc,
+                           energy=GOOGLENET_P4_ENERGY, b_min=1, b_max=dbm, w1=1.0, w2=1.0,
+                           s_max=DEGRADED_BUFFER, buffer=DEGRADED_BUFFER, c_drop=50.0),
+                  backup="pallas", device="cuda").action_table()
+    blind = solve(SMDPSpec(lam=0.7 * dbm / float(dsvc.mean(dbm)), service=dsvc,
+                           energy=GOOGLENET_P4_ENERGY, b_min=1, b_max=dbm, w1=1.0, w2=1.0,
+                           s_max=128), backup="pallas", device="cuda").action_table()
+    lam_o = 1.2 * dbm / float(dsvc.mean(dbm))
+    shed = {}
+    for mode in ("mmpp2", "poisson"):
+        for s in range(DEGRADED_SEEDS):
+            tr = dtrace(mode, lam_o, DEGRADED_N, 400 + s)
+            for name, tab in (("aware", aware), ("blind", blind)):
+                r = simulate_fleet(tab[None], tr, router="jsq", means=dmeans, zeta=dzeta,
+                                   b_max=dbm, buffer=DEGRADED_BUFFER, device="cuda")
+                shed.setdefault((mode, name), []).append(r.n_served / r.t_final)
+    serve_from = {"aware": int(np.argmax(aware > 0)), "blind": int(np.argmax(blind > 0))}
+    gp = {k: float(np.mean(v)) for k, v in shed.items()}
+    log(f"degraded shedding through the M=1 fleet (rho 1.2, buffer {DEGRADED_BUFFER}): "
+        f"serve-from {serve_from}; goodput /ms " + ", ".join(
+            f"{m}/{n}={v:.6f}" for (m, n), v in sorted(gp.items())))
+    check(serve_from["aware"] < serve_from["blind"], f"serve-from {serve_from}")
+    check(gp[("mmpp2", "aware")] > gp[("mmpp2", "blind")],
+          f"aware MMPP2 goodput {gp[('mmpp2', 'aware')]} <= blind {gp[('mmpp2', 'blind')]}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    counts = kernels.launch_counts()
+    log(f"fleet phase launches: {counts} (wall {wall:.2f} s)")
+    log(f"fleet phase: PythonFleet references (verify_fleet / verify_faults) took "
+        f"{py_wall:.2f} s of the wall, the interpreter's time, not the card's")
+    check(solve_launches == small.rvi.iterations + fat.rvi.iterations + 2,
+          f"frontier solves: {solve_launches} Bellman launches")
+    n_grid = 3 + 1  # the frontier's three scenarios, serve_fleet's grid
+    check(counts.get("fleet_scan:grid_plain", 0) == n_grid,
+          f"{counts.get('fleet_scan:grid_plain', 0)} grid launches, want {n_grid}")
+    check(counts.get("fleet_scan:mix", 0) == 2, "the mix lane did not launch twice")
+    check(counts.get("fleet_scan:plain", 0) > 0, "no one-lane fleet launch")
+    check(counts.get("belief_forward", 0) == 1, "the posterior skipped the belief kernel")
+
+    # --- the kernel rows: the instances on the inputs of the path ----------
+    tr = dtrace("mmpp2", lam_m, DEGRADED_N, 200)
+    sch = FaultModel(**SEVERITIES["moderate"]).materialize(3, float(tr[-1]) + 50.0, seed=300)
+    one_lane = fleet_inputs(np, fleet._norm_tables(dtabs)[None], [tr], [fleet.router_id("jsq")],
+                            means=dmeans, zeta=dzeta, b_max=dbm, slo=2.0, faults=sch,
+                            buffer=DEGRADED_BUFFER)
+    rows["fleet_scan"] = dict(fleet_row(torch, np, "fleet_scan", one_lane),
+                              replaces=FLEET_REPLACES.format(""),
+                              launches=counts.get("fleet_scan:plain", 0),
+                              case="degraded §2 moderate/jsq seed 200, M=3, faults, buffer 24")
+    grid = fleet_inputs(np, np.repeat(tab_small[None, None, None], M, axis=1),
+                        grids["poisson"][0], [fleet.router_id(r) for r in FLEET_ROUTERS],
+                        means=means_small, zeta=zeta, b_max=bm)
+    rows["fleet_scan_grid"] = dict(fleet_row(torch, np, "fleet_scan_grid", grid),
+                                   replaces=FLEET_REPLACES.format(", vmapped: _fleet_grid_core"),
+                                   launches=counts.get("fleet_scan:grid_plain", 0),
+                                   case="fleet_frontier poisson grid, 4 seeds x 4 routers")
+    mix = fleet_inputs(np, stacks[None], [tr_m], [fleet.router_id("batch_aware")],
+                       means=means_small, zeta=zeta, b_max=bm, beliefs=[bel])
+    rows["fleet_scan_mix"] = dict(fleet_row(torch, np, "fleet_scan_mix", mix),
+                                  replaces=FLEET_REPLACES.format(", mix=True"),
+                                  launches=counts.get("fleet_scan:mix", 0),
+                                  case="fleet_frontier mmpp2 seed 1000, batch_aware, K=2")
+
+
 def mix_at_main_shape(torch, np, table, energy):
     """The mix instance on the main path's own inputs (10^5 epochs), both
     phase rows the Table-I table, beliefs of a bursty filter over the
@@ -2114,6 +2597,9 @@ def main():
         ms=main_mix["ms"], plain_ms=main_mix["plain_ms"], bound_ms=main_mix["bound_ms"],
         shape=main_mix["shape"], plain_lane_ms=rows["serve_scan"]["ms"])
 
+    # --- the routed fleet and degraded mode: the fleet kernel ---------------
+    fleet_phase(torch, np, kernels, rows)
+
     # --- the attention kernels, the model checks and the LLM serving path ---
     attention_phase(torch, np, rows)
     model_checks(torch, np)
@@ -2123,6 +2609,7 @@ def main():
              "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",
              "serve_scan_grid_plain", "serve_scan_grid_adaptive",
              "serve_scan_mix", "serve_scan_grid_mix", "belief_forward",
+             "fleet_scan", "fleet_scan_grid", "fleet_scan_mix",
              "flash_attention", "decode_attention")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

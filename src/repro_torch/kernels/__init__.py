@@ -13,6 +13,7 @@ from . import belief_forward as _belief
 from . import bellman as _bellman
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import fleet_scan as _fleet_scan
 from . import serve_scan as _serve_scan
 
 WRAPPERS = {
@@ -20,6 +21,7 @@ WRAPPERS = {
     "bellman_banded_batched": _bellman.bellman_banded_batched,
     "serve_scan": _serve_scan.serve_scan,
     "belief_forward": _belief.belief_forward,
+    "fleet_scan": _fleet_scan.fleet_scan,
     "flash_attention": _flash.flash_attention,
     "decode_attention": _decode.decode_attention,
 }

@@ -36,9 +36,11 @@ BASE_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: numpy does (product first): FMA contraction would move admissions by
 #: one ulp and break decision-for-decision equality with the reference.
 #: belief_forward fuses only where its plain version does (explicit fma).
+#: fleet_scan rounds its clocks and crash energies the same way.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "belief_forward": ["-fmad=false"],
     "bellman": [],
+    "fleet_scan": ["-fmad=false"],
     "serve_scan": ["-fmad=false"],
     "flash_attention": [],
     "decode_attention": [],

@@ -11,7 +11,14 @@ serving.scheduler the policy tables and the
 bank-retuning AdaptiveController and the phase schedulers (oracle,
 belief-filtered, rate-tracked); serving.metrics the latency quantiles
 (P² on the Python path, a fixed-bin histogram sketch on the compiled
-path).
+path).  serving.fleet routes one arrival stream across M replicas
+(rr / jsq / pow2 / batch-aware routers, each replica its own table) in
+one launch of the fleet event kernel, streams long horizons in O(chunk)
+memory (FleetStream) and sweeps traces x policies x routers in one launch
+(run_fleet_grid); serving.faults injects degraded mode into every fleet
+lane (FaultModel -> FaultSchedule: outages, crashes with bounded
+retries, prorated crash energy, finite waiting rooms), certified against
+the Python fleet loop by verify_faults.
 """
 from .arrivals import (  # noqa: F401
     ArrivalEvent,
@@ -59,4 +66,20 @@ from .compiled import (  # noqa: F401
     run_grid,
     run_grid_adaptive,
     simulate_compiled,
+)
+from .fleet import (  # noqa: F401
+    ROUTERS,
+    FleetResult,
+    FleetStream,
+    PythonFleet,
+    run_fleet_grid,
+    simulate_fleet,
+    simulate_fleet_stream,
+    threshold_gaps,
+    verify_fleet,
+)
+from .faults import (  # noqa: F401
+    FaultModel,
+    FaultSchedule,
+    verify_faults,
 )

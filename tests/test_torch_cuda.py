@@ -18,7 +18,10 @@ managed queue, adaptive, both, each with and without the belief mix
 rule -- equals the plain walk exactly in its counts, clocks, sums,
 histograms, queues and records), atol 1e-12 and equal argmax rows for the
 belief kernel against its plain version (the same operations, but CUDA's
-exp / sin / cos are within an ulp of the host's, not bit for bit), equal policies between the kernel and banded
+exp / sin / cos are within an ulp of the host's, not bit for bit), the
+fleet kernel equal to its plain walk in every record, count, clock and
+sum (plain, faults with a finite room, the mix rule, a chunk carry, a grid;
+M = 1, 3, 4, 8 and its maximum of 64, and a refusal above), equal policies between the kernel and banded
 batched solves (lockstep, MPI, Anderson), their g at rtol 1e-6 of each
 other (the float64 finish run to eps 1e-6) and of the same solve through
 the kernel's mirror, and a sweep whose guard ladder
@@ -43,10 +46,14 @@ from repro_torch.core.policies import q_policy
 from repro_torch.kernels import bellman as tb
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fleet_scan as fk
 from repro_torch.kernels import serve_scan as ss
 from repro_torch.launch import serve_llm
 from repro_torch.models import model as M
-from repro_torch.serving import simulate_compiled
+from repro_torch.serving import pad_arrivals_batch, simulate_compiled
+from repro_torch.serving import arrivals as pa
+from repro_torch.serving import faults as pfa
+from repro_torch.serving import fleet as pf
 
 pytestmark = pytest.mark.cuda
 
@@ -810,3 +817,165 @@ def test_reduced_model_card_matches_cpu(cuda):
     counts = kernels.launch_counts()
     assert counts["flash_attention"] == cfg.n_layers
     assert counts["decode_attention"] == cfg.n_layers * 4
+
+
+# --- the fleet event kernel ---------------------------------------------------
+
+FLEET_BMAX = 16
+FLEET_MEANS = np.array([0.0] + [float(pt.GOOGLENET_P4_LATENCY(b))
+                                for b in range(1, FLEET_BMAX + 1)])
+FLEET_ZETA = np.array([0.0] + [float(pt.GOOGLENET_P4_ENERGY(b))
+                               for b in range(1, FLEET_BMAX + 1)])
+FLEET_LAM = 0.7 * FLEET_BMAX / float(FLEET_MEANS[FLEET_BMAX])
+FLEET_ROUTERS = ("rr", "jsq", "pow2", "batch_aware")
+FLEET_FAULTS = dict(mtbf=40.0, mttr=6.0, p_straggle=0.1, straggle_mult=3.0)
+
+
+def _fleet_tables(M):
+    qs = (4, 6, 8, 12)
+    return np.stack([q_policy(qs[m % 4], 96, FLEET_BMAX) for m in range(M)])
+
+
+def _fleet_trace(M, n=1200, seed=0, load=1.0):
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.exponential(1.0 / (load * M * FLEET_LAM), n))
+
+
+def _same_fleet(got, want):
+    """Kernel against plain walk: every field equal, the sums too (both
+    add in step order with every operation rounded on its own)."""
+    for f in ("t_final", "n_served", "n_batches", "n_epochs", "n_admitted", "energy",
+              "lat_sum", "slo_miss", "terminated", "n_crashes", "n_dropped", "n_shed"):
+        assert getattr(got, f) == getattr(want, f), (f, getattr(got, f), getattr(want, f))
+    for f in ("hist", "qlen", "busy", "n_routed", "n_served_m", "actions", "servers",
+              "served", "arr_server", "dropped", "shed"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a is not None or b is not None:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    if got.latencies is not None:
+        np.testing.assert_array_equal(got.latencies, want.latencies)
+
+
+@pytest.mark.parametrize("M", [1, 3, 4, 8, fk.MAX_REPLICAS])
+@pytest.mark.parametrize("router", FLEET_ROUTERS)
+def test_fleet_kernel_matches_plain(cuda, router, M):
+    tabs, tr = _fleet_tables(M), _fleet_trace(M, n=1200 if M <= 8 else 3000)
+    kw = dict(router=router, means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX,
+              slo=3.0, record=True)
+    before = fk.fleet_scan.launches
+    got = pf.simulate_fleet(tabs, tr, device="cuda", **kw)
+    assert fk.fleet_scan.launches == before + 1
+    _same_fleet(got, pf.simulate_fleet(tabs, tr, device="cpu", **kw))
+    assert got.n_served == len(tr)
+
+
+def test_fleet_kernel_stray_phases(cuda):
+    tabs, tr = _fleet_tables(4), _fleet_trace(4, n=600)
+    ph = np.random.default_rng(1).integers(0, 3, len(tr))
+    kw = dict(router="batch_aware", means=FLEET_MEANS, zeta=FLEET_ZETA,
+              b_max=FLEET_BMAX, phases=ph, record=True)
+    _same_fleet(pf.simulate_fleet(tabs, tr, device="cuda", **kw),
+                pf.simulate_fleet(tabs, tr, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("router", FLEET_ROUTERS)
+@pytest.mark.parametrize("buffer", [24, 0])
+def test_fleet_kernel_faults_and_buffer(cuda, router, buffer):
+    tabs, tr = _fleet_tables(3), _fleet_trace(3, load=1.4)
+    sch = pfa.FaultModel(**FLEET_FAULTS).materialize(3, float(tr[-1]) + 50.0, seed=1)
+    kw = dict(router=router, means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX,
+              slo=2.0, faults=sch, buffer=buffer, record=True)
+    got = pf.simulate_fleet(tabs, tr, device="cuda", **kw)
+    _same_fleet(got, pf.simulate_fleet(tabs, tr, device="cpu", **kw))
+    if buffer:
+        assert got.n_crashes > 0
+        pfa.verify_faults(tabs, tr, faults=sch, service=pt.ServiceModel(
+            latency=pt.GOOGLENET_P4_LATENCY, family="det"), b_max=FLEET_BMAX,
+            router=router, buffer=buffer, energy_table=FLEET_ZETA, slo=2.0,
+            device="cuda")
+    else:
+        assert got.n_shed == len(tr)
+
+
+def _fleet_beliefs(tr, device):
+    filt = pa.PhaseBeliefFilter(rates=[0.6 * FLEET_LAM, 2.6 * FLEET_LAM],
+                                gen=[[-1 / 60.0, 1 / 60.0], [1 / 30.0, -1 / 30.0]])
+    return pa.belief_forward(tr, filt, device=device)[0].cpu().numpy()
+
+
+@pytest.mark.parametrize("router", ["jsq", "batch_aware"])
+def test_fleet_kernel_mix(cuda, router):
+    tr = _fleet_trace(2, n=900)
+    bel = _fleet_beliefs(tr, "cpu")
+    lo, hi = q_policy(4, 96, FLEET_BMAX), q_policy(10, 96, FLEET_BMAX)
+    stacks = np.stack([np.stack([lo, hi]), np.stack([hi, lo])])
+    kw = dict(router=router, means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX,
+              record=True, phase_mode="belief_mix", beliefs=bel)
+    before = fk.fleet_scan.instance_launches.get("mix", 0)
+    got = pf.simulate_fleet(stacks, tr, device="cuda", **kw)
+    assert fk.fleet_scan.instance_launches["mix"] == before + 1
+    _same_fleet(got, pf.simulate_fleet(stacks, tr, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("phase_mode", ["oracle", "belief_mix"])
+def test_fleet_kernel_chunk_carry(cuda, phase_mode):
+    tr = _fleet_trace(3, n=2000, load=1.3)
+    sch = pfa.FaultModel(**FLEET_FAULTS).materialize(3, float(tr[-1]) + 50.0, seed=2)
+    tabs = _fleet_tables(3)
+    extra = {}
+    if phase_mode != "oracle":
+        lo, hi = q_policy(4, 96, FLEET_BMAX), q_policy(10, 96, FLEET_BMAX)
+        tabs = np.stack([np.stack([lo, hi])] * 3)
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        if phase_mode != "oracle":
+            extra = dict(phase_mode=phase_mode, belief_filter=pa.PhaseBeliefFilter(
+                rates=[0.6 * FLEET_LAM, 2.6 * FLEET_LAM],
+                gen=[[-1 / 60.0, 1 / 60.0], [1 / 30.0, -1 / 30.0]]))
+        fs = pf.FleetStream(tabs, router="jsq", means=FLEET_MEANS, zeta=FLEET_ZETA,
+                            b_max=FLEET_BMAX, slo=2.0, faults=sch, buffer=24,
+                            device=dev, **extra)
+        for lo_ in range(0, len(tr), 180):
+            fs.push(tr[lo_:lo_ + 180])
+        streams[dev] = fs
+    got, want = streams["cuda"].finish(), streams["cpu"].finish()
+    _same_fleet(got, want)
+    assert streams["cuda"].report() == streams["cpu"].report()
+    if phase_mode == "oracle":
+        one = pf.simulate_fleet(tabs, tr, router="jsq", means=FLEET_MEANS,
+                                zeta=FLEET_ZETA, b_max=FLEET_BMAX, slo=2.0,
+                                faults=sch, buffer=24, device="cuda")
+        for f in ("n_served", "n_batches", "n_epochs", "slo_miss", "n_crashes",
+                  "n_dropped", "n_shed", "t_final"):
+            assert getattr(got, f) == getattr(one, f), f
+        np.testing.assert_array_equal(got.hist, one.hist)
+
+
+@pytest.mark.parametrize("phase_mode", ["oracle", "belief_mix"])
+def test_fleet_kernel_grid(cuda, phase_mode):
+    traces = [_fleet_trace(4, n=1500, seed=s) for s in range(3)]
+    arr = pad_arrivals_batch(traces)
+    kw = dict(routers=FLEET_ROUTERS, means=FLEET_MEANS, zeta=FLEET_ZETA,
+              b_max=FLEET_BMAX, router_seed=3)
+    if phase_mode == "oracle":
+        tabs = np.stack([_fleet_tables(4), np.tile(q_policy(10, 96, FLEET_BMAX), (4, 1))])
+    else:
+        lo, hi = q_policy(4, 96, FLEET_BMAX), q_policy(10, 96, FLEET_BMAX)
+        tabs = np.stack([np.stack([np.stack([lo, hi])] * 4)])
+        kw.update(phase_mode=phase_mode, beliefs=_fleet_beliefs(arr, "cpu"))
+    before = fk.fleet_scan.launches
+    got = pf.run_fleet_grid(tabs, arr, device="cuda", **kw)
+    assert fk.fleet_scan.launches == before + 1
+    want = pf.run_fleet_grid(tabs, arr, device="cpu", **kw)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_fleet_kernel_refuses_above_its_maximum(cuda):
+    tabs = _fleet_tables(fk.MAX_REPLICAS + 1)
+    before = fk.fleet_scan.launches
+    with pytest.raises(ValueError, match=f"at most {fk.MAX_REPLICAS}"):
+        pf.simulate_fleet(tabs, _fleet_trace(4, n=100), means=FLEET_MEANS,
+                          b_max=FLEET_BMAX, device="cuda")
+    assert fk.fleet_scan.launches == before

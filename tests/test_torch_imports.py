@@ -38,6 +38,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.launch.serve_llm, repro_torch.serving.kv_cache\n"
         "import repro_torch.core.sweep, repro_torch.core.tradeoff\n"
         "import repro_torch.launch.tradeoff_sweep\n"
+        "import repro_torch.serving.fleet, repro_torch.serving.faults\n"
+        "import repro_torch.kernels.fleet_scan\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -86,6 +88,10 @@ def _entry_points():
         SMDPSchedulerBank, belief_forward, run_grid, run_grid_adaptive,
         simulate_compiled,
     )
+    from repro_torch.serving import (
+        FaultSchedule, FleetStream, run_fleet_grid, simulate_fleet, verify_faults,
+        verify_fleet,
+    )
     from repro_torch.serving.kv_cache import KVCachePool
 
     svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
@@ -126,6 +132,17 @@ def _entry_points():
             adaptive=AdaptiveController(bank)),
         "run_grid": lambda: run_grid(table[None], padded, means=np.arange(5.0),
                                      b_max=4),
+        "simulate_fleet": lambda: simulate_fleet(
+            np.stack([table, table]), np.arange(5.0), means=np.arange(5.0), b_max=4),
+        "run_fleet_grid": lambda: run_fleet_grid(
+            table[None], padded, n_replicas=2, means=np.arange(5.0), b_max=4),
+        "verify_fleet": lambda: verify_fleet(
+            np.stack([table, table]), np.arange(5.0), service=svc, b_max=4),
+        "verify_faults": lambda: verify_faults(
+            np.stack([table, table]), np.arange(5.0), faults=FaultSchedule.none(2),
+            service=svc, b_max=4),
+        "FleetStream": lambda: FleetStream(
+            np.stack([table, table]), means=np.arange(5.0), b_max=4),
         "run_grid_adaptive": lambda: run_grid_adaptive(
             padded, adaptive=AdaptiveController(bank), means=np.arange(5.0),
             b_max=4),
@@ -181,6 +198,22 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
         )
     assert bellman.bellman_banded.launches == 0
     assert serve_scan.serve_scan.launches == 0
+    from repro_torch.kernels import fleet_scan
+
+    fl = (torch.empty(1, 2, 1, 4, **i), torch.empty(1, 2, 1, 4, **i),
+          torch.empty(1, **i), torch.empty(1, 8, **d), torch.empty(1, 8, **d),
+          torch.empty(1, 8, **i), torch.empty(1, 8, 2, **d), torch.empty(1, 1, **d),
+          torch.empty(5, **d), torch.empty(5, **d), torch.empty(9, **d),
+          torch.empty(2, 1, **d), torch.empty(2, 1, **d), torch.empty(2, 1, **d),
+          torch.empty(2, 1, **d), torch.empty(2, **d), torch.empty(5, 2, **i))
+    fkw = dict(t0=0.0, horizon=float("inf"), max_eps=4, step_cap=16, drain=True,
+               b_max=4, buf_cap=1 << 30, max_retries=0, rr0=0, ph0=0,
+               more_coming=False, t_last=float("inf"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fleet_scan.fleet_scan(*fl, **fkw)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        fleet_scan.fleet_scan_ref(*fl, **fkw)
+    assert fleet_scan.fleet_scan.launches == 0
     from repro_torch.kernels import decode_attention, flash_attention
 
     f = dict(dtype=torch.bfloat16, device="meta")
