@@ -108,6 +108,31 @@
    fleet kernel's one-lane (faults, buffer), grid and mix instances are
    held against their plain walk on the inputs of those launches and
    timed.
+4h. Durable sweeps and streams, the on-device samplers and the independent
+   simulator, counters zeroed just before and read just after:
+   launch/resume_sweep.py --self-preempt with backup="pallas" (SIGTERM
+   after the first commit, SweepPreempted, a resume bitwise equal to the
+   uninterrupted checkpointed card run in policy, g and h; every chunk
+   launched the spec-batched Bellman kernel), a SIGKILL drill in a child
+   process resumed by a second child, a CPU checkpoint refused on the
+   card, and benchmarks/resilience_overhead.py at its full size in a fresh
+   child process (64 specs at rho 0.88, s_max 384, chunk 16, both paths
+   warmed, 10 alternating runs a path in fresh directories; gate: the
+   checkpointed sweep's median within 5% of the same chunking unsaved;
+   FleetStream.save ms a save at 200 000 arrivals, chunk 8000, best of 3).
+   FleetStream saved halfway and resumed on the card in the poisson, mmpp2
+   and belief modes, equal to the uninterrupted stream on every aggregate.
+   mmpp2_times(with_phases=True) over the bursty scenario's 6 lanes (one
+   launch of the MMPP sampler kernel) into run_grid(phases=) and
+   belief_forward (every lane's arrivals served); poisson_times and
+   diurnal_times into simulate_compiled (rates within 5% / 10%).
+   benchmarks/fig6_percentiles.py at its full size through the port's
+   simulate (150 000 epochs; static-8 and the SMDP at w2 1.6 and 2.2,
+   solved on the Bellman kernel; P, W, P50, P90, P95 printed beside the
+   paper's anchors; W and P within 2% of evaluate_policy and Little's law
+   within 2%, asserted) and simulate_events(backend="compiled").  Then the
+   MMPP sampler and simulator kernels are held against their plain walks
+   on the inputs of the launches that time them, exactly.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -135,10 +160,13 @@
 Any failed check raises, so the exit code is not 0.  Without CUDA it exits
 with 2 and prints no result.
 """
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2070,6 +2098,537 @@ def fleet_phase(torch, np, kernels, rows):
                                   case="fleet_frontier mmpp2 seed 1000, batch_aware, K=2")
 
 
+# --- phase 4h: durable sweeps and streams, the samplers, Fig. 6 ------------
+#: resilience_overhead.py's sweep, gated on the median of 10 runs a path (the benchmark
+#: takes the best of 3): the card machine's host spreads one sweep's wall by +-15%, so a
+#: minimum turns on one lucky run (PERF.md, section 6); the runs alternate plain, saved,
+#: saved, plain
+RESIL = dict(n_specs=64, rho=0.88, s_max=384, b_max=16, chunk=16, repeat=10)
+MAX_SWEEP_OVERHEAD = 0.05  # resilience_overhead.py's gate
+STREAM_SAVE = dict(n_arrivals=200_000, chunk=8000, repeat=3)
+FIG6_EPOCHS = 150_000  # fig6_percentiles.py
+FIG6_PAPER = {  # fig6_percentiles.py:19-23: (P, W, P50, P90, P95)
+    "static8": (46.27, 6.85, 6.51, 9.85, 11.34),
+    "smdp_w2_1.6": (44.96, 6.90, 6.83, 9.23, 9.96),
+    "smdp_w2_2.2": (44.41, 7.81, 7.72, 10.45, 11.24),
+}
+MMPP_SOURCE = "src/repro_torch/kernels/csrc/mmpp_sample.cu"
+MMPP_REPLACES = ("src/repro/serving/arrivals.py:580-599 (the lax.scan of mmpp2_times_jax; "
+                 "a scan, not a Pallas kernel)")
+SIM_SOURCE = "src/repro_torch/kernels/csrc/sim_scan.cu"
+SIM_REPLACES = ("src/repro/core/simulate.py:169-232 (the lax.scan of simulate; "
+                "a scan, not a Pallas kernel)")
+#: the SIGKILL drill's child: a checkpointed sweep on the card (backup
+#: pallas), saves throttled so the parent lands the kill after a commit
+CHILD_SWEEP = r"""
+import sys, time
+sys.path.insert(0, sys.argv[3])
+from repro_torch.core import sweep as _sweep_mod
+from repro_torch.launch.resume_sweep import build_grid
+import numpy as np
+ckpt, out = sys.argv[1], sys.argv[2]
+_orig = _sweep_mod._SweepCheckpointer.save
+def _slow(self, tree):
+    _orig(self, tree)
+    time.sleep(0.5)
+_sweep_mod._SweepCheckpointer.save = _slow
+res = _sweep_mod.sweep_solve(build_grid(), checkpoint_dir=ckpt, chunk_size=4,
+                             backup="pallas", device="cuda")
+np.savez(out, policies=np.stack([r.rvi.policy for r in res]),
+         g=np.array([r.rvi.g for r in res]), h=np.stack([r.rvi.h for r in res]))
+print("COMPLETED", flush=True)
+"""
+
+
+#: resilience_overhead.py's measurement, run in a fresh process: argv is
+#: (src dir, work dir, JSON of RESIL with "stream" and "device"); prints one
+#: line "RESIL {json}"
+CHILD_RESIL = r"""
+import dataclasses, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from repro_torch.core import (GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, ServiceModel,
+                              SMDPSpec, sweep_solve)
+from repro_torch.core.policies import q_policy
+from repro_torch.serving import FleetStream
+
+work, p = sys.argv[2], json.loads(sys.argv[3])
+dev = p["device"]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+bm = p["b_max"]
+svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
+base = SMDPSpec(lam=p["rho"] * bm / float(svc.mean(bm)), service=svc,
+                energy=GOOGLENET_P4_ENERGY, b_min=1, b_max=bm, w1=1.0, w2=1.0,
+                s_max=p["s_max"], c_o=100.0)
+specs = [dataclasses.replace(base, w2=float(w)) for w in np.linspace(0.0, 12.0, p["n_specs"])]
+chunk = p["chunk"]
+
+
+def sweep(ck):
+    t0 = time.perf_counter()
+    sweep_solve(specs, chunk_size=chunk, device=dev, checkpoint_dir=ck)
+    sync()
+    return time.perf_counter() - t0
+
+
+sweep(None)  # warm-up, both paths
+sweep(os.path.join(work, "resil_warm"))
+plain, saved = [], []
+for r in range(p["repeat"]):  # plain, saved, saved, plain, ...: drift falls on both
+    first, second = (plain, saved) if r % 2 == 0 else (saved, plain)
+    for runs in (first, second):
+        ck = os.path.join(work, f"resil_rep{r}") if runs is saved else None  # fresh dirs
+        runs.append(sweep(ck))
+t_plain, t_ck = float(np.median(plain)), float(np.median(saved))
+
+sbm, st = 16, p["stream"]
+means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, sbm + 1)])
+lam = 2 * 0.7 * sbm / float(svc.mean(sbm))
+n, ch = st["n_arrivals"], st["chunk"]
+tr = np.cumsum(np.random.default_rng(0).exponential(1.0 / lam, n))
+tabs = np.stack([q_policy(q, 96, sbm) for q in (4, 8)])
+kw = dict(router="jsq", means=means, b_max=sbm, slo=3.0, device=dev)
+
+
+def stream(save_dir):
+    t0 = time.perf_counter()
+    fs = FleetStream(tabs, **kw)
+    for lo in range(0, len(tr), ch):
+        fs.push(tr[lo:lo + ch])
+        if save_dir is not None:
+            fs.save(save_dir)
+    fs.finish()
+    return time.perf_counter() - t0
+
+
+stream(None)
+s_plain = s_saved = float("inf")
+for r in range(st["repeat"]):
+    s_plain = min(s_plain, stream(None))
+    s_saved = min(s_saved, stream(os.path.join(work, f"stream_save_rep{r}")))
+print("RESIL " + json.dumps(dict(
+    sweep_plain_s=t_plain, sweep_checkpointed_s=t_ck, overhead=t_ck / t_plain - 1.0,
+    best_overhead=min(saved) / min(plain) - 1.0,
+    plain_runs=[round(x, 4) for x in plain], checkpointed_runs=[round(x, 4) for x in saved],
+    stream_plain_s=s_plain, stream_saved_s=s_saved,
+    ms_per_save=(s_saved - s_plain) / -(-n // ch) * 1e3)), flush=True)
+"""
+
+
+def _stream_case(np, mode, n=3000, seed=11):
+    """(tables, chunks, kwargs) of tests/test_resilience.py's streams."""
+    from repro_torch.core import GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, ServiceModel
+    from repro_torch.core.policies import q_policy
+    from repro_torch.serving.arrivals import MMPP2, PhaseBeliefFilter
+
+    bm = 16
+    svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, bm + 1)])
+    zeta = np.array([0.0] + [float(GOOGLENET_P4_ENERGY(b)) for b in range(1, bm + 1)])
+    lam = 2 * 0.7 * bm / float(svc.mean(bm))
+    rng = np.random.default_rng(seed)
+    kw = dict(means=means, zeta=zeta, b_max=bm, slo=3.0, device="cuda")
+    if mode == "poisson":
+        tr = np.cumsum(rng.exponential(1.0 / lam, n))
+        tabs = np.stack([q_policy(q, 96, bm) for q in (4, 8)])
+        return tabs, [dict(times=tr[lo:lo + 400]) for lo in range(0, n, 400)], dict(
+            kw, router="pow2")
+    stacks = np.stack([np.stack([q_policy(4, 96, bm), q_policy(10, 96, bm)])] * 2)
+    m = MMPP2(lam1=0.3 * lam, lam2=1.3 * lam, dwell1=60.0, dwell2=30.0)
+    tr, switches = m.sample_arrivals(n / m.mean_rate, rng)
+    sw_t = np.array([s[0] for s in switches])
+    sw_p = np.array([s[1] for s in switches], dtype=np.int64)
+    ph = sw_p[np.searchsorted(sw_t, tr, side="right") - 1]
+    kw["router"] = "jsq"
+    if mode == "mmpp2":
+        return stacks, [dict(times=tr[lo:lo + 400], phases=ph[lo:lo + 400])
+                        for lo in range(0, len(tr), 400)], kw
+    kw["phase_mode"] = "belief_argmax"
+    kw["belief_filter"] = lambda: PhaseBeliefFilter(
+        [0.3 * lam, 1.3 * lam], [[-1 / 60.0, 1 / 60.0], [1 / 30.0, -1 / 30.0]])
+    return stacks, [dict(times=tr[lo:lo + 400]) for lo in range(0, len(tr), 400)], kw
+
+
+def durable_streams(np, workdir):
+    """FleetStream saved halfway and resumed on the card, per arrival mode:
+    every aggregate equal to the uninterrupted stream."""
+    from repro_torch.serving import FleetStream
+
+    for mode in ("poisson", "mmpp2", "belief"):
+        tabs, chunks, kw = _stream_case(np, mode)
+
+        def fresh():
+            k = dict(kw)
+            if "belief_filter" in k:
+                k["belief_filter"] = k["belief_filter"]()
+            return FleetStream(tabs, **k)
+
+        one = fresh()
+        for c in chunks:
+            one.push(**c)
+        one.finish()
+        fs = fresh()
+        cut = len(chunks) // 2
+        for c in chunks[:cut]:
+            fs.push(**c)
+        d = os.path.join(workdir, f"stream_{mode}")
+        fs.save(d)
+        back = FleetStream.resume(d, device="cuda")
+        for c in chunks[cut:]:
+            back.push(**c)
+        back.finish()
+        a, b = back.result(), one.result()
+        for f in ("t_final", "n_served", "n_batches", "n_epochs", "n_admitted", "energy",
+                  "lat_sum", "slo_miss", "n_crashes", "n_dropped", "n_shed"):
+            check(getattr(a, f) == getattr(b, f), f"FleetStream {mode} resume: {f} differs")
+        for f in ("hist", "qlen", "busy", "n_routed", "n_served_m"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"FleetStream {mode} resume: {f} differs")
+        ra, rb = back.report(), one.report()
+        check(all(ra[k] == rb[k] or (np.isnan(ra[k]) and np.isnan(rb[k])) for k in ra),
+              f"FleetStream {mode} resume: report differs")
+        log(f"FleetStream {mode} saved at chunk {cut}/{len(chunks)}, resumed on the card: "
+            f"every aggregate equal to the uninterrupted stream (n_epochs {a.n_epochs}, "
+            f"P95 {ra['P95']:.4f})")
+
+
+def sigkill_drill(np, workdir):
+    """A child sweeping on the card is SIGKILLed after its first commit; a
+    second child resumes; the result equals an uninterrupted card run."""
+    from repro_torch.core import sweep_solve
+    from repro_torch.launch.resume_sweep import build_grid
+
+    ck, out = os.path.join(workdir, "kill_ck"), os.path.join(workdir, "kill_out.npz")
+    cmd = [sys.executable, "-c", CHILD_SWEEP, ck, out, os.path.join(ROOT, "src")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while not (os.path.isdir(ck) and [p for p in os.listdir(ck)
+                                          if p.startswith("step_") and not p.endswith(".tmp")]):
+            if proc.poll() is not None:
+                raise AssertionError("the drill's child exited before its first commit: "
+                                     + proc.communicate()[1][-2000:])
+            check(time.perf_counter() - t0 < 240, "no commit from the drill's child")
+            time.sleep(0.01)
+    finally:
+        proc.kill()
+        proc.wait()
+    steps = sorted(p for p in os.listdir(ck) if p.startswith("step_"))
+    check(not os.path.exists(out), "the SIGKILL landed after the child finished")
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0 and "COMPLETED" in r.stdout, f"resumed child failed: {r.stderr[-2000:]}")
+    got = np.load(out)
+    ref = sweep_solve(build_grid(), checkpoint_dir=os.path.join(workdir, "kill_ref"),
+                      chunk_size=4, backup="pallas", device="cuda")
+    check(np.array_equal(got["policies"], np.stack([x.rvi.policy for x in ref]))
+          and np.array_equal(got["g"], np.array([x.rvi.g for x in ref]))
+          and np.array_equal(got["h"], np.stack([x.rvi.h for x in ref])),
+          "SIGKILL drill: the resumed sweep differs from the uninterrupted card run")
+    log(f"SIGKILL drill: child killed with {len(steps)} committed step(s), resumed in a "
+        f"second child, policy / g / h bitwise equal to an uninterrupted card run "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def resilience_overhead(np, workdir):
+    """benchmarks/resilience_overhead.py at its full size on the card, in a
+    fresh child process as the benchmark is its own: the checkpointed sweep
+    within 5% of the same chunking unsaved (the median of 10 alternating
+    runs a path, fresh directories); FleetStream.save ms a save."""
+    params = dict(RESIL, stream=STREAM_SAVE, device="cuda")
+    r = subprocess.run([sys.executable, "-c", CHILD_RESIL, os.path.join(ROOT, "src"), workdir,
+                        json.dumps(params)], capture_output=True, text=True, timeout=600)
+    out = [ln for ln in r.stdout.splitlines() if ln.startswith("RESIL ")]
+    check(r.returncode == 0 and len(out) == 1,
+          f"the resilience child failed (rc {r.returncode}): {r.stderr[-3000:]}")
+    res = json.loads(out[0][len("RESIL "):])
+    t_plain, t_ck, overhead = res["sweep_plain_s"], res["sweep_checkpointed_s"], res["overhead"]
+    log(f"resilience_overhead sweep in a fresh process ({RESIL['n_specs']} specs, rho "
+        f"{RESIL['rho']}, s_max {RESIL['s_max']}, chunk {RESIL['chunk']}, median of "
+        f"{RESIL['repeat']} a path, both paths warmed): plain {t_plain:.4f} s, checkpointed "
+        f"{t_ck:.4f} s ({-(-RESIL['n_specs'] // RESIL['chunk'])} saves), overhead "
+        f"{overhead:+.2%} (gate {MAX_SWEEP_OVERHEAD:.0%}; best of {RESIL['repeat']}: "
+        f"{res['best_overhead']:+.2%}); runs plain {res['plain_runs']}, checkpointed "
+        f"{res['checkpointed_runs']}")
+    check(overhead <= MAX_SWEEP_OVERHEAD,
+          f"checkpointed sweep overhead {overhead:+.2%} exceeds the {MAX_SWEEP_OVERHEAD:.0%} gate")
+    n, ch = STREAM_SAVE["n_arrivals"], STREAM_SAVE["chunk"]
+    log(f"resilience_overhead stream ({n} arrivals, chunk {ch}, best of "
+        f"{STREAM_SAVE['repeat']}): plain {res['stream_plain_s']:.4f} s, save every chunk "
+        f"{res['stream_saved_s']:.4f} s ({-(-n // ch)} saves): FleetStream.save "
+        f"{res['ms_per_save']:.3f} ms a save")
+    return {k: res[k] for k in ("sweep_plain_s", "sweep_checkpointed_s", "overhead",
+                                "best_overhead", "stream_plain_s", "stream_saved_s",
+                                "ms_per_save")}
+
+
+def mmpp_row(torch, np, m, n_steps, lanes, launches):
+    """The MMPP sampler kernel on the bursty batch's draws, held against its
+    plain walk exactly and timed (CUDA events around one launch, best of 3)."""
+    from repro_torch.kernels import mmpp_sample as mk
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    draws = torch.empty((lanes, 1 + 2 * n_steps), dtype=torch.float64,
+                        device="cuda").exponential_(generator=g)
+    lam, dwell = (m.lam1, m.lam2), (m.dwell1, m.dwell2)
+    got = mk.mmpp_sample(draws, lam, dwell)
+    torch.cuda.synchronize()
+    host = draws.cpu()
+    t0 = time.perf_counter()
+    want = mk.mmpp_sample_ref(host, lam, dwell)
+    plain = (time.perf_counter() - t0) * 1e3
+    for a, b, name in zip(got, want, ("times", "emitted", "phases")):
+        check(torch.equal(a.cpu(), b), f"mmpp_sample: {name} differ from the plain walk")
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mk.mmpp_sample(draws, lam, dwell)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    n_bytes = lanes * (1 + 2 * n_steps) * 8 + lanes * n_steps * (8 + 1 + 4)
+    b_ms, b_by = bound(n_bytes, lanes * n_steps * 4, F64_FLOPS)
+    log(f"mmpp_sample ({lanes} lanes x {n_steps} steps, the bursty batch): kernel_ms="
+        f"{best:.6f} ({1e6 * best / n_steps:.2f} ns a step of a lane: the serial walk) "
+        f"plain_ms={plain:.3f} (the plain walk, torch ops on the host) bound_ms={b_ms:.6f} "
+        f"({b_by}; the serial chain is the real bound); equal to the plain walk in every "
+        f"output")
+    return dict(route="cuda", source=MMPP_SOURCE, replaces=MMPP_REPLACES, launches=launches,
+                max_abs_err=0.0, ms=best, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=[lanes, n_steps])
+
+
+def sim_row(torch, np, args, kw, launches, name):
+    """The simulator kernel on one Fig. 6 run's draws, held against its plain
+    walk (host) exactly in every output and timed."""
+    from repro_torch.kernels import sim_scan as sk
+
+    got = sk.sim_scan(*args, **kw)
+    torch.cuda.synchronize()
+    host = [x.cpu() for x in args]
+    t0 = time.perf_counter()
+    want = sk.sim_scan_ref(*host, **kw)
+    plain = (time.perf_counter() - t0) * 1e3
+    n = int(want.n_served[0])
+    for f in got._fields:
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        same = torch.equal(a[:, :n], b[:, :n]) if f == "resp" else torch.equal(a, b)
+        check(same, f"sim_scan ({name}): {f} differs from the plain walk")
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sk.sim_scan(*args, **kw)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    E, W = args[5].shape[1], args[5].shape[2]
+    consumed = int(want.consumed[0])
+    serves = int((want.acts[0] > 0).sum())
+    # bytes: the draws this run reads, the actions and responses written
+    n_bytes = 8 * consumed + 8 * W * serves + 4 * E + 8 * n + 8 * (len(args[0]) + 4 * len(args[1]))
+    b_ms, b_by = bound(n_bytes, 4 * consumed + 6 * E + n, F64_FLOPS)
+    log(f"sim_scan ({name}, {E} epochs, {n} requests, {consumed} arrival draws): "
+        f"kernel_ms={best:.6f} ({1e3 * best / E:.4f} us an epoch: the serial walk) "
+        f"plain_ms={plain:.3f} (the plain walk, Python floats on the host) "
+        f"bound_ms={b_ms:.6f} ({b_by}; the serial chain is the real bound); equal to the "
+        f"plain walk in every output")
+    return dict(route="cuda", source=SIM_SOURCE, replaces=SIM_REPLACES, launches=launches,
+                max_abs_err=0.0, ms=best, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=[E, n], policy=name)
+
+
+def durable_phase(torch, np, kernels, rows):
+    """Phase 4h: durable sweeps and streams, the on-device samplers and the
+    independent simulator (Fig. 6 / Table I), counters zeroed just before
+    and read just after."""
+    from repro_torch.configs.googlenet_p4 import B_MAX as BM, energy_table, paper_spec, service
+    from repro_torch.core import build_smdp, evaluate_policy, relative_value_iteration
+    from repro_torch.core import static_policy, sweep as sweep_mod, sweep_solve
+    from repro_torch.core.simulate import (sim_result, simulate, simulate_events,
+                                           simulate_inputs)
+    from repro_torch.kernels import bellman as tb
+    from repro_torch.kernels import sim_scan as sk
+    from repro_torch.launch import resume_sweep
+    from repro_torch.serving import (DiurnalProcess, PhaseBeliefFilter, belief_forward,
+                                     diurnal_times, mmpp2_times, pad_arrivals,
+                                     poisson_times, run_grid, simulate_compiled)
+    from repro_torch.serving.arrivals import MMPP2
+    from repro_torch.core.policies import q_policy
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase4h-", dir=os.path.join(ROOT, "build"))
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+
+    # --- durable sweeps: self-preempt, resume, every chunk on the kernel ----
+    per_call = []
+    orig_rvi = sweep_mod.relative_value_iteration_batched
+
+    def counted(*a, **k):
+        before = tb.bellman_banded_batched.launches
+        out = orig_rvi(*a, **k)
+        per_call.append(tb.bellman_banded_batched.launches - before)
+        return out
+
+    sweep_mod.relative_value_iteration_batched = counted
+    try:
+        t0 = time.perf_counter()
+        demo = resume_sweep.self_preempt_demo(4, device="cuda", backup="pallas", workdir=work)
+        demo_s = time.perf_counter() - t0
+    finally:
+        sweep_mod.relative_value_iteration_batched = orig_rvi
+    check(demo["same"], "resumed card sweep differs from the uninterrupted one")
+    check(demo["stream_same"], "resume_sweep's stream resume differs from one-shot")
+    check(demo["committed"] >= 1, "no committed chunk at the preemption")
+    n_grid = len(resume_sweep.build_grid())
+    check(per_call and min(per_call) > 0,
+          f"a chunk skipped the spec-batched kernel: launches per chunk {per_call}")
+    log(f"resume_sweep --self-preempt (backup pallas, {n_grid} specs, chunk 4): SIGTERM "
+        f"after the first commit, SweepPreempted with {demo['committed']} step(s) on disk, "
+        f"resumed: policy / g / h bitwise equal to the uninterrupted checkpointed card run; "
+        f"{len(per_call)} chunk solves, spec-batched Bellman launches per chunk "
+        f"{min(per_call)}..{max(per_call)}; the stream resume equal ({demo_s:.2f} s)")
+    sigkill_drill(np, work)
+    cpu_dir = os.path.join(work, "cpu_ck")
+    grid = resume_sweep.build_grid(n=4)
+    sweep_solve(grid, checkpoint_dir=cpu_dir, chunk_size=2, device="cpu")
+    try:
+        sweep_solve(grid, checkpoint_dir=cpu_dir, chunk_size=2, device="cuda")
+        refused = False
+    except ValueError as e:
+        refused = "different sweep" in str(e)
+    check(refused, "a CPU checkpoint resumed on the card was not refused")
+    log("a checkpoint written by a CPU sweep is refused on the card (different sweep: "
+        "the device type is fingerprinted)")
+    resil = resilience_overhead(np, work)
+
+    # --- durable streams --------------------------------------------------
+    durable_streams(np, work)
+
+    # --- the samplers -----------------------------------------------------
+    svc, en = service(), energy_table()
+    mu_max = BM / float(svc.mean(BM))
+    m = MMPP2(lam1=BURSTY["r1"] * mu_max, lam2=BURSTY["r2"] * mu_max,
+              dwell1=BURSTY["dwell1"], dwell2=BURSTY["dwell2"])
+    n_steps = int(m.mean_rate * BURSTY_HORIZON)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(300)
+    times, mask, phases = mmpp2_times(g, m, n_steps, with_phases=True, lanes=BURSTY_SEEDS,
+                                      device="cuda")
+    counts = mask.sum(-1).tolist()
+    size = max(counts) + 64
+    padded = [pad_arrivals(times[s, :counts[s]], phases=phases[s, :counts[s]],
+                           size=1 << (size - 1).bit_length()) for s in range(BURSTY_SEEDS)]
+    arrs = np.stack([p[0] for p in padded])
+    phs = np.stack([p[2] for p in padded])
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, BM + 1)])
+    stack = np.stack([q_policy(4, 160, BM), q_policy(12, 160, BM)])
+    gr = run_grid(stack[None], arrs, phases=phs, means=means, zeta=en, b_max=BM,
+                  device="cuda")
+    check([int(x) for x in gr["n_served"][:, 0]] == counts,
+          f"run_grid(phases=) served {gr['n_served'][:, 0]} of {counts} sampled arrivals")
+    filt = PhaseBeliefFilter([m.lam1, m.lam2], [[-1 / m.dwell1, 1 / m.dwell1],
+                                                 [1 / m.dwell2, -1 / m.dwell2]])
+    brows, (b_f, t_f) = belief_forward(times, filt, device="cuda")
+    last = [float(times[s, counts[s] - 1]) for s in range(BURSTY_SEEDS)]
+    check(bool(torch.isfinite(brows).all()) and t_f.tolist() == last,
+          "belief_forward over the sampled traces")
+    rates = [c / t for c, t in zip(counts, last)]
+    ph_share = float((phases.float() * mask).sum() / mask.sum())
+    log(f"mmpp2_times (bursty, {BURSTY_SEEDS} lanes x {n_steps} steps, one launch): "
+        f"{counts} arrivals, rates {[round(r, 5) for r in rates]} (mean rate "
+        f"{m.mean_rate:.5f}; ~10 burst cycles a lane, so a lane's rate is not held), "
+        f"burst share {ph_share:.4f}; run_grid(phases=) served every lane's arrivals; "
+        f"belief_forward rows finite, final times the last arrivals")
+    # the reference's own bar (tests/test_compiled.py): sorted, +inf tail,
+    # the rate within 10% at 30 000 steps of a fast-switching MMPP2
+    mb = MMPP2(lam1=1.0, lam2=5.0, dwell1=50.0, dwell2=50.0)
+    tb_, mb_ = mmpp2_times(g, mb, 30_000, device="cuda")
+    nb = int(mb_.sum())
+    rate_b = nb / float(tb_[nb - 1])
+    check(bool(torch.isinf(tb_[nb:]).all()) and bool((tb_[:nb].diff() >= 0).all())
+          and abs(rate_b - mb.mean_rate) / mb.mean_rate < 0.10,
+          f"mmpp2_times: rate {rate_b} vs {mb.mean_rate}, or not sorted")
+    log(f"mmpp2_times (rates 1 / 5, dwell 50 / 50, 30000 steps): {nb} arrivals, rate "
+        f"{rate_b:.5f} vs {mb.mean_rate:.5f} (10% bar), sorted with an +inf tail")
+    lam = RHO * BM / float(svc.mean(BM))
+    tab = q_policy(6, 160, BM)
+    pt_ = poisson_times(g, lam, 100_000, device="cuda")
+    r_p = simulate_compiled(tab, pt_, means=means, zeta=en, b_max=BM, device="cuda")
+    rate_p = 100_000 / float(pt_[-1])
+    check(r_p.n_served == 100_000 and abs(rate_p - lam) / lam < 0.05,
+          f"poisson_times: served {r_p.n_served}, rate {rate_p} vs {lam}")
+    proc = DiurnalProcess(base=lam, amp=0.6 * lam, period=5000.0)
+    dt_, dm = diurnal_times(g, proc, 120_000, device="cuda")
+    nd = int(dm.sum())
+    r_d = simulate_compiled(tab, dt_, means=means, zeta=en, b_max=BM, device="cuda")
+    rate_d = nd / float(dt_[nd - 1])
+    check(r_d.n_served == nd and abs(rate_d - lam) / lam < 0.10,
+          f"diurnal_times: served {r_d.n_served} of {nd}, rate {rate_d} vs {lam}")
+    log(f"poisson_times (100000 arrivals, rate {rate_p:.5f} vs {lam:.5f}) and diurnal_times "
+        f"({nd} arrivals of 120000 candidates, rate {rate_d:.5f}) served through "
+        f"simulate_compiled on the card: every arrival served (W {r_p.lat_sum / r_p.n_served:.4f}"
+        f" / {r_d.lat_sum / r_d.n_served:.4f} ms)")
+
+    # --- Fig. 6 / Table I through simulate -------------------------------
+    spec = paper_spec(rho=RHO)
+    pols = {"static8": static_policy(8, spec.s_max)}
+    for w2 in (1.6, 2.2):
+        sp = dataclasses.replace(spec, w2=w2)
+        pols[f"smdp_w2_{w2}"] = relative_value_iteration(build_smdp(sp), backup="pallas",
+                                                         device="cuda").policy
+    fig6 = {}
+    for name, pol in pols.items():
+        ev = evaluate_policy(build_smdp(spec), pol)
+        t0 = time.perf_counter()
+        sim = simulate(pol[:-1], svc, en, spec.lam, BM, n_epochs=FIG6_EPOCHS, seed=0,
+                       device="cuda")
+        wall = time.perf_counter() - t0
+        p50, p90, p95 = sim.percentile([50, 90, 95])
+        got = (sim.p_bar, sim.w_bar, p50, p90, p95)
+        max_rel = max(abs(a - b) / b for a, b in zip(got, FIG6_PAPER[name]))
+        ev_w = ev.w_bar
+        ev_p = ev.p_bar
+        log(f"fig6 {name} ({FIG6_EPOCHS} epochs, simulate on the card, {wall:.3f} s): "
+            f"P={sim.p_bar:.4f} W={sim.w_bar:.4f} P50={p50:.4f} P90={p90:.4f} P95={p95:.4f} "
+            f"(paper {FIG6_PAPER[name]}, max rel err {max_rel:.2%}); analytic W={ev_w:.4f} "
+            f"P={ev_p:.4f}; Little l/lam={sim.l_bar / spec.lam:.4f}; clipped "
+            f"{sim.n_clipped_arrivals}")
+        check(abs(sim.w_bar - ev_w) <= 0.02 * ev_w, f"fig6 {name}: W off the analytic by 2%")
+        check(abs(sim.p_bar - ev_p) <= 0.02 * ev_p, f"fig6 {name}: P off the analytic by 2%")
+        check(abs(sim.l_bar / spec.lam - sim.w_bar) <= 0.02 * sim.w_bar,
+              f"fig6 {name}: Little's law off by 2%")
+        fig6[name] = dict(P=sim.p_bar, W=sim.w_bar, P50=p50, P90=p90, P95=p95,
+                          max_rel_err_vs_paper=max_rel)
+    ev_s = simulate_events(pols["smdp_w2_1.6"], svc, en, spec.lam, BM, n_epochs=FIG6_EPOCHS,
+                           seed=0, backend="compiled", device="cuda")
+    log(f"simulate_events(backend='compiled') smdp_w2_1.6 ({FIG6_EPOCHS} epochs, the event "
+        f"kernel): W={ev_s.w_bar:.4f} P={ev_s.p_bar:.4f} Little l/lam="
+        f"{ev_s.l_bar / spec.lam:.4f}")
+    counts = kernels.launch_counts()
+    log(f"phase 4h launches: {counts} ({time.perf_counter() - t_phase:.2f} s)")
+    check(counts["mmpp_sample"] == 2, "mmpp2_times did not launch the MMPP sampler once a call")
+    check(counts["sim_scan"] == len(pols), "simulate did not launch the simulator kernel "
+          "once a policy")
+    check(counts["bellman_banded_batched"] > 0 and counts["bellman_banded"] > 0,
+          "phase 4h skipped the Bellman kernels")
+    check(counts["serve_scan"] > 0 and counts["fleet_scan"] > 0 and counts["belief_forward"] > 0,
+          "phase 4h skipped the event, fleet or belief kernel")
+    rows["mmpp_sample"] = mmpp_row(torch, np, m, n_steps, BURSTY_SEEDS, counts["mmpp_sample"])
+    args, kw = simulate_inputs(pols["smdp_w2_1.6"][:-1], svc, en, spec.lam, BM,
+                               n_epochs=FIG6_EPOCHS, seed=0, device="cuda")
+    check(sim_result(sk.sim_scan(*args, **kw)).w_bar == fig6["smdp_w2_1.6"]["W"],
+          "simulate_inputs does not reproduce simulate's run")
+    rows["sim_scan"] = dict(sim_row(torch, np, args, kw, counts["sim_scan"], "smdp_w2_1.6"),
+                            fig6=fig6, resilience=resil)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def mix_at_main_shape(torch, np, table, energy):
     """The mix instance on the main path's own inputs (10^5 epochs), both
     phase rows the Table-I table, beliefs of a bursty filter over the
@@ -2600,6 +3159,9 @@ def main():
     # --- the routed fleet and degraded mode: the fleet kernel ---------------
     fleet_phase(torch, np, kernels, rows)
 
+    # --- durable sweeps and streams, the samplers, the simulator (4h) --------
+    durable_phase(torch, np, kernels, rows)
+
     # --- the attention kernels, the model checks and the LLM serving path ---
     attention_phase(torch, np, rows)
     model_checks(torch, np)
@@ -2610,7 +3172,7 @@ def main():
              "serve_scan_grid_plain", "serve_scan_grid_adaptive",
              "serve_scan_mix", "serve_scan_grid_mix", "belief_forward",
              "fleet_scan", "fleet_scan_grid", "fleet_scan_mix",
-             "flash_attention", "decode_attention")
+             "mmpp_sample", "sim_scan", "flash_attention", "decode_attention")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_list = []

@@ -53,6 +53,7 @@ from .evaluate import (  # noqa: F401
 )
 from .solve import ModulatedSolveResult, SolveResult, solve  # noqa: F401
 from .sweep import (  # noqa: F401
+    SweepPreempted,
     pad_specs,
     solve_modulated,
     sweep_bank,

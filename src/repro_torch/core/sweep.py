@@ -27,14 +27,22 @@ adaptive-truncation machinery runs on the (phase, queue) product chain
 (smdp.build_smdp_modulated_batched) in float64 on the device, producing
 (K, S) phase-indexed policies the serving layer consumes as table stacks.
 
-guard=True (default) routes every batched solve through the rvi
-guardrail ladder, and report_sink=[...] collects the merged SolveReport.
-The durable, checkpointed sweep (checkpoint_dir=) is not ported yet
-(ROADMAP.md, queue 1) and raises NotImplementedError.
+Long-horizon robustness (both sweep entry points):
+
+  * guard=True (default) routes every batched solve through the rvi
+    guardrail ladder, and report_sink=[...] collects the merged
+    SolveReport;
+  * checkpoint_dir=... makes the sweep durable and SIGTERM-preemptible:
+    solved chunks persist through checkpoint.CheckpointManager (the
+    reference's on-disk format) and an identical re-run on the same
+    device type resumes bitwise-identically (see "Durable, resumable
+    sweeps" below for the invariant).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import signal
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +60,7 @@ from .evaluate import (
 from .policies import greedy_policy
 from .rvi import (
     ACCEL_RHO_THRESHOLD as _ACCEL_RHO_THRESHOLD,
+    RVIResult,
     SolveReport,
     relative_value_iteration_batched,
     relative_value_iteration_modulated,
@@ -212,6 +221,323 @@ def resolve_abstract_cost_batched(
     ]
 
 
+# ---------------------------------------------------------------------------
+# Durable, resumable sweeps
+#
+# Invariant: a checkpointed sweep that is killed and re-run with the same
+# arguments, checkpoint_dir and device type produces exactly the arrays a
+# never-killed checkpointed run produces, because
+#   * chunks are consecutive slices of a stably-sorted group, so the
+#     unprocessed remainder of a round is a suffix of the processing plan
+#     and re-chunking a suffix reproduces the original chunk boundaries;
+#   * the current round's remaining queue and the next round's regrow queue
+#     are persisted separately (merging them would reorder level groups);
+#   * calibrated c_o values are persisted, and the c_o probe batch is never
+#     reused as a solve batch under checkpointing, so every chunk batch is
+#     rebuilt from its specs alone on both paths;
+#   * the device type is fingerprinted: the Bellman kernel's f32 coarse
+#     phase and the CPU plain version sum in different orders, so a chunk
+#     solved on the card and its neighbour resumed on the CPU would not be
+#     the uninterrupted run's; such a resume is refused as a different
+#     sweep.
+# ---------------------------------------------------------------------------
+
+#: default specs per checkpointed chunk (checkpoint_dir set, chunk_size not)
+_DEFAULT_CHUNK = 16
+
+
+class SweepPreempted(RuntimeError):
+    """A preemption signal (SIGTERM) arrived; progress is durable on disk.
+
+    Raised only after the in-flight chunk's checkpoint finished its atomic
+    rename, so the step named here holds every result solved so far.
+    Re-running the same sweep call with the same checkpoint_dir resumes
+    from it."""
+
+    def __init__(self, checkpoint_dir, step: int):
+        super().__init__(
+            f"sweep preempted; progress saved to {checkpoint_dir} "
+            f"(step {step})"
+        )
+        self.checkpoint_dir = str(checkpoint_dir)
+        self.step = step
+
+
+class _PreemptGuard:
+    """SIGTERM -> save-and-exit flag.
+
+    The handler only sets a flag; the sweep loop checks it after each
+    chunk's checkpoint commits and raises SweepPreempted.  Installed only
+    from the main thread (signal.signal raises ValueError elsewhere -- a
+    sweep running on a worker thread simply cannot be signal-preempted)."""
+
+    def __init__(self, enabled: bool):
+        self.hit = False
+        self._old = None
+        self._installed = False
+        if enabled:
+            try:
+                self._old = signal.signal(signal.SIGTERM, self._handler)
+                self._installed = True
+            except ValueError:
+                pass
+
+    def _handler(self, signum, frame):
+        self.hit = True
+
+    def restore(self) -> None:
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._old)
+
+
+def _canon(obj, h) -> None:
+    """Feed a canonical byte stream of obj into hash h.
+
+    repr() is avoided for arrays (truncation) and bare objects (id()); spec
+    trees bottom out at dataclasses / ndarrays / primitives, with qualified
+    names as the last resort for callables."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        h.update(type(obj).__name__.encode())
+        for f in dataclasses.fields(obj):
+            h.update(f.name.encode())
+            _canon(getattr(obj, f.name), h)
+    elif isinstance(obj, np.ndarray):
+        h.update(str(obj.dtype).encode())
+        h.update(str(obj.shape).encode())
+        h.update(np.ascontiguousarray(obj).tobytes())
+    elif isinstance(obj, (list, tuple)):
+        h.update(b"[")
+        for it in obj:
+            _canon(it, h)
+        h.update(b"]")
+    elif isinstance(obj, dict):
+        h.update(b"{")
+        for k in sorted(obj):
+            h.update(str(k).encode())
+            _canon(obj[k], h)
+        h.update(b"}")
+    elif isinstance(obj, (bool, int, float, str, bytes)) or obj is None:
+        h.update(repr(obj).encode())
+    else:
+        h.update(
+            getattr(obj, "__qualname__", type(obj).__qualname__).encode()
+        )
+
+
+def _fingerprint(*parts) -> bytes:
+    h = hashlib.sha256()
+    for p in parts:
+        _canon(p, h)
+    return h.digest()
+
+
+class _SweepCheckpointer:
+    """Sweep state through CheckpointManager, keyed by an argument hash.
+
+    Flat payload schema (``//``-joined keys, via restore_flat):
+      meta//fingerprint      sha256 of (specs, solver params) as uint8
+      meta//c_o              (N,) calibrated abstract costs, batch order
+      meta//pending_idx/_smax  current round's unprocessed queue
+      meta//next_idx/_smax     next round's regrow queue
+      done//idx              (n,) the solved specs' indices
+      done//{g,iterations,span,converged,smax,c_o}  (n,) one entry a spec
+      done//ev               (n, 6) the PolicyEval scalars
+      done//{policy,h,mu}    every spec's array raveled and concatenated,
+                             with done//<name>_shape (n, 2) its (rows,
+                             cols) and done//<name>_ndim (n,)
+
+    The solved records are stacked (a fixed number of arrays a step),
+    where the reference writes ten arrays a spec: the writer thread's
+    Python work a save then stays a few milliseconds, and it shares the
+    interpreter with the sweep's host-bound launch loop.
+    """
+
+    def __init__(self, directory, fingerprint: bytes, keep_last_k: int):
+        from ..checkpoint import CheckpointManager
+
+        self.dir = directory
+        self.mgr = CheckpointManager(directory, keep_last_k=keep_last_k)
+        self.fp = fingerprint
+        self.step = 0
+
+    def load(self) -> Optional[dict]:
+        step = self.mgr.latest_step()
+        if step is None:
+            return None
+        flat = self.mgr.restore_flat()
+        if bytes(bytearray(flat["meta//fingerprint"])) != self.fp:
+            raise ValueError(
+                f"checkpoint in {self.dir} was written by a different sweep "
+                "(the specs, solver parameters or device type changed); pass "
+                "a fresh checkpoint_dir or re-run with the original arguments"
+            )
+        self.step = step + 1
+        return flat
+
+    def save(self, tree: dict) -> None:
+        # async: the fsync+rename overlaps the next chunk's solve (the host
+        # copy is taken synchronously, so later mutation is safe); wait()
+        # is the commit barrier before SweepPreempted / return
+        tree["meta"]["fingerprint"] = np.frombuffer(self.fp, dtype=np.uint8)
+        self.mgr.save(self.step, tree, async_=True)
+        self.step += 1
+
+    def wait(self) -> None:
+        self.mgr.wait()
+
+
+_ARRAYS = ("policy", "h", "mu")
+_SCALARS = ("g", "iterations", "span", "converged", "smax", "c_o")
+
+
+def _pack_result(res) -> dict:
+    """SolveResult / ModulatedSolveResult -> flat-array checkpoint record."""
+    rvi, ev = res.rvi, res.eval
+    return {
+        "policy": np.asarray(rvi.policy),
+        "g": np.asarray(rvi.g, dtype=np.float64),
+        "h": np.asarray(rvi.h, dtype=np.float64),
+        "iterations": np.asarray(rvi.iterations, dtype=np.int64),
+        "span": np.asarray(rvi.span, dtype=np.float64),
+        "converged": np.asarray(rvi.converged),
+        "smax": np.asarray(res.spec.s_max, dtype=np.int64),
+        "c_o": np.asarray(res.spec.c_o, dtype=np.float64),
+        "ev": np.asarray(
+            [ev.g, ev.delta, ev.w_bar, ev.p_bar, ev.mean_batch, ev.throughput],
+            dtype=np.float64,
+        ),
+        "mu": np.asarray(ev.mu, dtype=np.float64),
+    }
+
+
+def _pack_done(results: list) -> dict:
+    """The solved results as the stacked ``done//`` arrays."""
+    idx = [i for i, r in enumerate(results) if r is not None]
+    recs = [_pack_result(results[i]) for i in idx]
+    done = {"idx": np.asarray(idx, dtype=np.int64)}
+    for f in _SCALARS:
+        done[f] = np.asarray([r[f] for r in recs])
+    done["ev"] = np.asarray([r["ev"] for r in recs], dtype=np.float64).reshape(-1, 6)
+    for f in _ARRAYS:
+        arrs = [r[f] for r in recs]
+        done[f] = (np.concatenate([a.ravel() for a in arrs]) if arrs
+                   else np.zeros(0, dtype=np.float64))
+        done[f + "_shape"] = np.asarray(
+            [a.reshape(-1, a.shape[-1]).shape if a.ndim else (1, 1) for a in arrs],
+            dtype=np.int64).reshape(-1, 2)
+        done[f + "_ndim"] = np.asarray([a.ndim for a in arrs], dtype=np.int64)
+    return done
+
+
+def _unpack_done(flat: dict, base_by_idx: dict) -> dict:
+    """Checkpoint arrays -> {idx: (spec, RVIResult, PolicyEval)}.
+
+    float64/int64 arrays round-trip npz losslessly, so restored results are
+    bitwise-identical to the in-memory ones the checkpointed run held
+    (wall_time_s excepted -- it is not persisted and restores as 0)."""
+    idx = [int(i) for i in flat["done//idx"]]
+    arrays = {f: [] for f in _ARRAYS}
+    for f in _ARRAYS:
+        data, off = flat[f"done//{f}"], 0
+        for (r, c), nd in zip(flat[f"done//{f}_shape"], flat[f"done//{f}_ndim"]):
+            a = data[off:off + r * c]
+            off += r * c
+            arrays[f].append(a.reshape(r, c) if nd == 2 else a)
+    out = {}
+    for k, i in enumerate(idx):
+        g = lambda f: flat[f"done//{f}"][k]  # noqa: E731
+        spec = dataclasses.replace(
+            base_by_idx[i], s_max=int(g("smax")), c_o=float(g("c_o"))
+        )
+        rvi = RVIResult(
+            policy=arrays["policy"][k],
+            g=float(g("g")),
+            h=arrays["h"][k],
+            iterations=int(g("iterations")),
+            span=float(g("span")),
+            converged=bool(g("converged")),
+            wall_time_s=0.0,
+        )
+        e = flat["done//ev"][k]
+        ev = PolicyEval(
+            g=float(e[0]),
+            delta=float(e[1]),
+            w_bar=float(e[2]),
+            p_bar=float(e[3]),
+            mu=arrays["mu"][k],
+            mean_batch=float(e[4]),
+            throughput=float(e[5]),
+        )
+        out[i] = (spec, rvi, ev)
+    return out
+
+
+def _sweep_state(
+    results: list, remaining: list, next_round: list, c_os
+) -> dict:
+    """Checkpoint tree for the sweep loop's full solver state."""
+    meta = {
+        "pending_idx": np.asarray([it[0] for it in remaining], dtype=np.int64),
+        "pending_smax": np.asarray(
+            [it[1].s_max for it in remaining], dtype=np.int64
+        ),
+        "next_idx": np.asarray([it[0] for it in next_round], dtype=np.int64),
+        "next_smax": np.asarray(
+            [it[1].s_max for it in next_round], dtype=np.int64
+        ),
+    }
+    if c_os is not None:
+        meta["c_o"] = np.asarray(c_os, dtype=np.float64)
+    return {"meta": meta, "done": _pack_done(results)}
+
+
+def _restored_report(
+    results: list, idxs: List[int], eps: float
+) -> Tuple[SolveReport, List[int]]:
+    """Certificates recomputed from solved (or checkpoint-restored) results.
+
+    Health comes from the arrays; a previous process's rung history is not
+    persisted (and an unguarded sweep has none), so these specs contribute
+    certificates but no rung attribution to the merged report."""
+    span = np.array([results[i].rvi.span for i in idxs])
+    conv = np.array([results[i].rvi.converged for i in idxs], dtype=bool)
+    healthy = np.array(
+        [
+            bool(c)
+            and np.isfinite(results[i].rvi.g)
+            and bool(np.isfinite(results[i].rvi.h).all())
+            for i, c in zip(idxs, conv)
+        ],
+        dtype=bool,
+    )
+    rep = SolveReport(
+        eps=eps,
+        span=span,
+        converged=conv,
+        healthy=healthy,
+        failed=[k for k in range(len(idxs)) if not healthy[k]],
+    )
+    return rep, idxs
+
+
+def _restore_queues(state, pending, phases=None):
+    """(results by idx, pending, next_round) from a restored sweep state.
+
+    ``pending`` is the fresh run's first-round queue of (idx, spec[,
+    phases]) items, its specs carrying the calibrated c_o."""
+    base_by_idx = {it[0]: it[1] for it in pending}
+    restored = _unpack_done(state, base_by_idx)
+
+    def queue(name):
+        out = []
+        for i, s in zip(state[f"meta//{name}_idx"], state[f"meta//{name}_smax"]):
+            it = (int(i), dataclasses.replace(base_by_idx[int(i)], s_max=int(s)))
+            out.append(it if phases is None else it + (phases[int(i)],))
+        return out
+
+    return restored, queue("pending"), queue("next")
+
+
 def _round_plan(
     pending: List[tuple], chunk_size: Optional[int]
 ) -> List[List[tuple]]:
@@ -345,6 +671,55 @@ def _anchor_warm_start_modulated(mbatch, eps: float, max_iter: int, **rvi_kw):
     )
 
 
+def _checkpointer(checkpoint_dir, chunk_size, keep_last_k, *parts):
+    """(_SweepCheckpointer, chunk_size, restored state) for a durable sweep,
+    (None, chunk_size, None) without a checkpoint_dir."""
+    if checkpoint_dir is None:
+        return None, chunk_size, None
+    if chunk_size is None:
+        chunk_size = _DEFAULT_CHUNK
+    params = dict(parts[-1], chunk_size=chunk_size)
+    ckpt = _SweepCheckpointer(
+        checkpoint_dir, _fingerprint(*parts[:-1], params), keep_last_k
+    )
+    return ckpt, chunk_size, ckpt.load()
+
+
+def _run_rounds(pending, next_round, chunk_size, ckpt, checkpoint_dir,
+                results, c_os, solve_chunk):
+    """The sweep loop: rounds of chunked solves, a save per chunk.
+
+    ``solve_chunk(chunk)`` solves one chunk and returns the items to regrow
+    (it writes the accepted results into ``results``).  With a checkpointer
+    every chunk's state is saved (async; the commit barrier is ``wait()``)
+    and a SIGTERM raises SweepPreempted once that chunk's step is durable."""
+    preempt = _PreemptGuard(ckpt is not None)
+    try:
+        while pending or next_round:
+            if not pending:
+                pending, next_round = next_round, []
+            plan = _round_plan(pending, chunk_size)
+            for ci, chunk in enumerate(plan):
+                next_round += solve_chunk(chunk)
+                if ckpt is not None:
+                    remaining = [it for ch in plan[ci + 1:] for it in ch]
+                    ckpt.save(_sweep_state(results, remaining, next_round, c_os))
+                    if preempt.hit and (remaining or next_round):
+                        ckpt.wait()  # the named step must be durable
+                        raise SweepPreempted(checkpoint_dir, ckpt.step - 1)
+            pending, next_round = next_round, []
+    finally:
+        preempt.restore()
+        if ckpt is not None:
+            ckpt.wait()
+
+
+def _regrown(sp, grow_factor, max_s_max):
+    return dataclasses.replace(
+        sp, s_max=min(int(np.ceil(sp.s_max * grow_factor)), max_s_max)
+    )
+
+
 def sweep_solve(
     specs: Sequence[SMDPSpec],
     eps: float = 1e-2,
@@ -359,6 +734,7 @@ def sweep_solve(
     report_sink: Optional[list] = None,
     checkpoint_dir: Optional[str] = None,
     chunk_size: Optional[int] = None,
+    keep_last_k: int = 3,
     *,
     device: DeviceLike = None,
 ) -> List[SolveResult]:
@@ -382,12 +758,17 @@ def sweep_solve(
     kernel disagreed with its plain version there (rvi._ladder).  Pass a
     list as ``report_sink`` to receive one merged rvi.SolveReport for the
     sweep.
+
+    ``checkpoint_dir`` makes the sweep durable: progress is persisted after
+    every ``chunk_size`` specs (default 16) via checkpoint.CheckpointManager
+    (the last ``keep_last_k`` steps kept), a SIGTERM saves-and-raises
+    SweepPreempted, and re-running the identical call with the same
+    directory resumes — producing bitwise-identical results to a
+    never-interrupted checkpointed run (wall_time_s excepted).  A
+    checkpoint written by different specs or parameters, or on another
+    device type (the card's f32 Bellman core and the CPU's plain version
+    round differently), is rejected by fingerprint.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed sweeps (checkpoint_dir=) are not ported yet "
-            "(see ROADMAP.md, queue 1)"
-        )
     dev = resolve_device(device)
     specs = list(specs)
     flags = {sp.buffer is not None for sp in specs}
@@ -416,101 +797,96 @@ def sweep_solve(
     order = sorted(
         range(len(specs)), key=lambda i: (specs[i].rho, specs[i].w2)
     )
-    prebuilt = None
+    ckpt, chunk_size, state = _checkpointer(
+        checkpoint_dir, chunk_size, keep_last_k, specs,
+        dict(kind="sweep_solve", eps=eps, max_iter=max_iter, delta=delta,
+             grow_factor=grow_factor, max_s_max=max_s_max, auto_c_o=auto_c_o,
+             accel=accel, backup=backup, guard=guard, device=dev.type),
+    )
+    prebuilt = c_os = None
     if auto_c_o:
-        probe_batch = build_smdp_batched(
-            [dataclasses.replace(specs[i], c_o=0.0) for i in order]
-        )
-        prebuilt = probe_batch.with_c_o(_greedy_c_o(probe_batch))
-        base = list(prebuilt.specs)
+        if state is not None:
+            c_os = state["meta//c_o"]
+            base = [
+                dataclasses.replace(specs[i], c_o=float(c))
+                for i, c in zip(order, c_os)
+            ]
+        else:
+            probe_batch = build_smdp_batched(
+                [dataclasses.replace(specs[i], c_o=0.0) for i in order]
+            )
+            c_os = _greedy_c_o(probe_batch)
+            patched = probe_batch.with_c_o(c_os)
+            base = list(patched.specs)
+            if ckpt is None:
+                # resumable runs always rebuild chunk batches from specs,
+                # so a resumed first round matches the one-shot bit-for-bit
+                prebuilt = patched
     else:
         base = [specs[i] for i in order]
     pending = list(zip(order, base))
     results: List[SolveResult] = [None] * len(specs)  # type: ignore[list-item]
     report_parts: List[Tuple[SolveReport, List[int]]] = []
     next_round: List[tuple] = []
+    if state is not None:
+        restored, pending, next_round = _restore_queues(state, pending)
+        for idx, (sp, rvi, ev) in restored.items():
+            results[idx] = SolveResult(spec=sp, rvi=rvi, eval=ev)
+        if guard and restored:
+            report_parts.append(_restored_report(results, sorted(restored), eps))
     rvi_kw = dict(accel=accel, backup=backup, device=dev)
-    while pending:
-        for chunk in _round_plan(pending, chunk_size):
+
+    def solve_chunk(chunk):
+        nonlocal prebuilt
+        if (
+            prebuilt is not None
+            and len(chunk) == prebuilt.n_specs
+            and all(a is b for (_, a), b in zip(chunk, prebuilt.specs))
+        ):
+            batch = prebuilt
+        else:
+            batch = build_smdp_batched([sp for _, sp in chunk])
+        prebuilt = None  # the probe batch serves the first round only
+        rvi = relative_value_iteration_batched(
+            batch,
+            eps=eps,
+            max_iter=max_iter,
+            h0=_anchor_warm_start(batch, eps, max_iter, **rvi_kw),
+            guard=guard,
+            **rvi_kw,
+        )
+        if rvi.report is not None:
+            healthy = rvi.report.healthy
+            report_parts.append((rvi.report, [idx for idx, _ in chunk]))
+        else:
+            healthy = np.ones(len(chunk), dtype=bool)
+        evs = _eval_healthy(batch, rvi.policies, healthy,
+                            evaluate_policy_batched, lambda sp: sp.s_max + 1)
+        regrow = []
+        for row, (idx, sp) in enumerate(chunk):
+            ev = evs[row]
             if (
-                prebuilt is not None
-                and len(chunk) == prebuilt.n_specs
-                and all(a is b for (_, a), b in zip(chunk, prebuilt.specs))
+                not healthy[row]
+                # ladder-exhausted row: keep the NaN-flagged result
+                # (growing the truncation cannot heal divergence)
+                or delta is None
+                or ev.delta < delta
+                or sp.s_max >= max_s_max
             ):
-                batch = prebuilt
+                results[idx] = SolveResult(spec=sp, rvi=rvi.unstack(row), eval=ev)
             else:
-                batch = build_smdp_batched([sp for _, sp in chunk])
-            rvi = relative_value_iteration_batched(
-                batch,
-                eps=eps,
-                max_iter=max_iter,
-                h0=_anchor_warm_start(batch, eps, max_iter, **rvi_kw),
-                guard=guard,
-                **rvi_kw,
-            )
-            if rvi.report is not None:
-                healthy = rvi.report.healthy
-                report_parts.append((rvi.report, [idx for idx, _ in chunk]))
-            else:
-                healthy = np.ones(len(chunk), dtype=bool)
-            evs = _eval_healthy(batch, rvi.policies, healthy,
-                                evaluate_policy_batched, lambda sp: sp.s_max + 1)
-            for row, (idx, sp) in enumerate(chunk):
-                ev = evs[row]
-                if (
-                    not healthy[row]
-                    # ladder-exhausted row: keep the NaN-flagged result
-                    # (growing the truncation cannot heal divergence)
-                    or delta is None
-                    or ev.delta < delta
-                    or sp.s_max >= max_s_max
-                ):
-                    results[idx] = SolveResult(
-                        spec=sp, rvi=rvi.unstack(row), eval=ev
-                    )
-                else:
-                    next_round.append(
-                        (
-                            idx,
-                            dataclasses.replace(
-                                sp,
-                                s_max=min(
-                                    int(np.ceil(sp.s_max * grow_factor)),
-                                    max_s_max,
-                                ),
-                            ),
-                        )
-                    )
-        prebuilt = None
-        pending, next_round = next_round, []
+                regrow.append((idx, _regrown(sp, grow_factor, max_s_max)))
+        return regrow
+
+    _run_rounds(pending, next_round, chunk_size, ckpt, checkpoint_dir,
+                results, c_os, solve_chunk)
     if report_sink is not None:
         report_sink.append(
             SolveReport.merged(report_parts, len(specs), eps)
             if report_parts
-            else _report_of(results, eps)
+            else _restored_report(results, list(range(len(specs))), eps)[0]
         )
     return results
-
-
-def _report_of(results: List[SolveResult], eps: float) -> SolveReport:
-    """Certificates recomputed from solved results (an unguarded sweep has
-    no ladder record): health from the arrays, no rung attribution."""
-    span = np.array([r.rvi.span for r in results])
-    conv = np.array([r.rvi.converged for r in results], dtype=bool)
-    healthy = np.array(
-        [
-            bool(c) and np.isfinite(r.rvi.g) and bool(np.isfinite(r.rvi.h).all())
-            for r, c in zip(results, conv)
-        ],
-        dtype=bool,
-    )
-    return SolveReport(
-        eps=eps,
-        span=span,
-        converged=conv,
-        healthy=healthy,
-        failed=[k for k in range(len(results)) if not healthy[k]],
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +936,7 @@ def sweep_solve_modulated(
     report_sink: Optional[list] = None,
     checkpoint_dir: Optional[str] = None,
     chunk_size: Optional[int] = None,
+    keep_last_k: int = 3,
     *,
     device: DeviceLike = None,
 ) -> List[ModulatedSolveResult]:
@@ -577,14 +954,12 @@ def sweep_solve_modulated(
 
     ``phases`` may be one shared PhaseConfig or a sequence aligned with
     ``specs``.  ``max_s_max`` defaults lower than the scalar sweep: the
-    product chain is K x larger per state.  ``guard`` / ``report_sink``
-    behave as in sweep_solve; ``checkpoint_dir`` is not ported yet.
+    product chain is K x larger per state.  ``guard`` / ``report_sink`` /
+    ``checkpoint_dir`` / ``chunk_size`` / ``keep_last_k`` behave exactly as
+    in sweep_solve: with a checkpoint_dir the sweep is durable,
+    SIGTERM-preemptible, and resumes bitwise-identically on the same
+    device type.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed sweeps (checkpoint_dir=) are not ported yet "
-            "(see ROADMAP.md, queue 1)"
-        )
     dev = resolve_device(device)
     specs = list(specs)
     if not specs:
@@ -600,77 +975,99 @@ def sweep_solve_modulated(
         rho_z = max(phase_rho(sp, ph) for sp, ph in zip(specs, phases))
         accel = "mpi" if rho_z >= _ACCEL_RHO_THRESHOLD else "none"
     order = sorted(range(len(specs)), key=lambda i: (specs[i].rho, specs[i].w2))
-    prebuilt = None
+    ckpt, chunk_size, state = _checkpointer(
+        checkpoint_dir, chunk_size, keep_last_k, specs, phases,
+        dict(kind="sweep_solve_modulated", eps=eps, max_iter=max_iter,
+             delta=delta, grow_factor=grow_factor, max_s_max=max_s_max,
+             auto_c_o=auto_c_o, accel=accel, guard=guard, device=dev.type),
+    )
+    prebuilt = c_os = None
     if auto_c_o:
-        probe = build_smdp_modulated_batched(
-            [dataclasses.replace(specs[i], c_o=0.0) for i in order],
-            [phases[i] for i in order],
-        )
-        prebuilt = probe.with_c_o(_greedy_c_o_modulated(probe))
-        base = list(prebuilt.specs)
+        if state is not None:
+            c_os = state["meta//c_o"]
+            base = [
+                dataclasses.replace(specs[i], c_o=float(c))
+                for i, c in zip(order, c_os)
+            ]
+        else:
+            probe = build_smdp_modulated_batched(
+                [dataclasses.replace(specs[i], c_o=0.0) for i in order],
+                [phases[i] for i in order],
+            )
+            c_os = _greedy_c_o_modulated(probe)
+            patched = probe.with_c_o(c_os)
+            base = list(patched.specs)
+            if ckpt is None:
+                prebuilt = patched
     else:
         base = [specs[i] for i in order]
     pending = [(i, sp, phases[i]) for i, sp in zip(order, base)]
     results: List[ModulatedSolveResult] = [None] * len(specs)  # type: ignore[list-item]
     report_parts: List[Tuple[SolveReport, List[int]]] = []
     next_round: List[tuple] = []
+    if state is not None:
+        restored, pending, next_round = _restore_queues(state, pending, phases)
+        for idx, (sp, rvi, ev) in restored.items():
+            results[idx] = ModulatedSolveResult(
+                spec=sp, phases=phases[idx], rvi=rvi, eval=ev
+            )
+        if guard and restored:
+            report_parts.append(_restored_report(results, sorted(restored), eps))
     rvi_kw = dict(accel=accel, device=dev)
-    while pending:
-        for chunk in _round_plan(pending, chunk_size):
+
+    def solve_chunk(chunk):
+        nonlocal prebuilt
+        if (
+            prebuilt is not None
+            and len(chunk) == prebuilt.n_specs
+            and all(a is b for (_, a, _), b in zip(chunk, prebuilt.specs))
+        ):
+            mbatch = prebuilt
+        else:
+            mbatch = build_smdp_modulated_batched(
+                [sp for _, sp, _ in chunk], [ph for _, _, ph in chunk]
+            )
+        prebuilt = None  # the probe batch serves the first round only
+        rvi = relative_value_iteration_modulated(
+            mbatch,
+            eps=eps,
+            max_iter=max_iter,
+            h0=_anchor_warm_start_modulated(mbatch, eps, max_iter, **rvi_kw),
+            guard=guard,
+            **rvi_kw,
+        )
+        if rvi.report is not None:
+            healthy = rvi.report.healthy
+            report_parts.append((rvi.report, [idx for idx, _, _ in chunk]))
+        else:
+            healthy = np.ones(len(chunk), dtype=bool)
+        evs = _eval_healthy(
+            mbatch, rvi.policies, healthy, evaluate_policy_modulated_batched,
+            lambda sp: mbatch.n_phases * (sp.s_max + 1),
+        )
+        regrow = []
+        for row, (idx, sp, ph) in enumerate(chunk):
+            ev = evs[row]
             if (
-                prebuilt is not None
-                and len(chunk) == prebuilt.n_specs
-                and all(a is b for (_, a, _), b in zip(chunk, prebuilt.specs))
+                not healthy[row]
+                or delta is None
+                or ev.delta < delta
+                or sp.s_max >= max_s_max
             ):
-                mbatch = prebuilt
-            else:
-                mbatch = build_smdp_modulated_batched(
-                    [sp for _, sp, _ in chunk], [ph for _, _, ph in chunk]
+                results[idx] = ModulatedSolveResult(
+                    spec=sp, phases=ph, rvi=rvi.unstack(row), eval=ev
                 )
-            rvi = relative_value_iteration_modulated(
-                mbatch,
-                eps=eps,
-                max_iter=max_iter,
-                h0=_anchor_warm_start_modulated(mbatch, eps, max_iter, **rvi_kw),
-                guard=guard,
-                **rvi_kw,
-            )
-            if rvi.report is not None:
-                healthy = rvi.report.healthy
-                report_parts.append((rvi.report, [idx for idx, _, _ in chunk]))
             else:
-                healthy = np.ones(len(chunk), dtype=bool)
-            evs = _eval_healthy(
-                mbatch, rvi.policies, healthy, evaluate_policy_modulated_batched,
-                lambda sp: mbatch.n_phases * (sp.s_max + 1),
-            )
-            for row, (idx, sp, ph) in enumerate(chunk):
-                ev = evs[row]
-                if (
-                    not healthy[row]
-                    or delta is None
-                    or ev.delta < delta
-                    or sp.s_max >= max_s_max
-                ):
-                    results[idx] = ModulatedSolveResult(
-                        spec=sp, phases=ph, rvi=rvi.unstack(row), eval=ev
-                    )
-                else:
-                    next_round.append((
-                        idx,
-                        dataclasses.replace(
-                            sp,
-                            s_max=min(int(np.ceil(sp.s_max * grow_factor)), max_s_max),
-                        ),
-                        ph,
-                    ))
-        prebuilt = None
-        pending, next_round = next_round, []
+                regrow.append((idx, _regrown(sp, grow_factor, max_s_max), ph))
+        return regrow
+
+    _run_rounds(pending, next_round, chunk_size, ckpt, checkpoint_dir,
+                results, c_os, solve_chunk)
     if report_sink is not None:
         report_sink.append(
             SolveReport.merged(report_parts, len(specs), eps)
             if report_parts
-            else _report_of(results, eps)
+            else _restored_report(results, list(range(len(specs))), eps)[0]
         )
     return results
 

@@ -14,7 +14,9 @@ from . import bellman as _bellman
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fleet_scan as _fleet_scan
+from . import mmpp_sample as _mmpp_sample
 from . import serve_scan as _serve_scan
+from . import sim_scan as _sim_scan
 
 WRAPPERS = {
     "bellman_banded": _bellman.bellman_banded,
@@ -22,6 +24,8 @@ WRAPPERS = {
     "serve_scan": _serve_scan.serve_scan,
     "belief_forward": _belief.belief_forward,
     "fleet_scan": _fleet_scan.fleet_scan,
+    "mmpp_sample": _mmpp_sample.mmpp_sample,
+    "sim_scan": _sim_scan.sim_scan,
     "flash_attention": _flash.flash_attention,
     "decode_attention": _decode.decode_attention,
 }

@@ -5,8 +5,10 @@ executor, trace replay) through a single Python event loop, and exposes
 the same semantics compiled (run(backend="compiled")) -- one launch of the
 CUDA event kernel, serving.compiled, whose run_grid / run_grid_adaptive
 run whole seeds x tables sweeps in one launch; serving.arrivals supplies
-the numpy arrival processes and the MMPP phase filter (belief_forward: a
-whole trace's posterior in one launch of the belief kernel);
+the numpy arrival processes, the on-device samplers (poisson_times,
+mmpp2_times -- one launch of the MMPP sampler kernel -- and diurnal_times)
+and the MMPP phase filter (belief_forward: a whole trace's posterior in
+one launch of the belief kernel);
 serving.scheduler the policy tables and the
 bank-retuning AdaptiveController and the phase schedulers (oracle,
 belief-filtered, rate-tracked); serving.metrics the latency quantiles
@@ -31,6 +33,9 @@ from .arrivals import (  # noqa: F401
     TraceProcess,
     as_process,
     belief_forward,
+    diurnal_times,
+    mmpp2_times,
+    poisson_times,
 )
 from .scheduler import (  # noqa: F401
     AdaptiveController,

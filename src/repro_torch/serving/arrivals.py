@@ -29,8 +29,15 @@ The compiled backend (serving.compiled) replays every mode as a padded
 sorted arrival array, pre-generated eagerly: `take(process, rng, ...)`
 drains the stateful numpy process up to a horizon/count, consuming exactly
 the draws the lazy engine path would (draw-for-draw parity with
-backend="python", and with the reference package at equal seeds).  The
-on-device samplers come with a later slice.
+backend="python", and with the reference package at equal seeds).
+
+The on-device samplers -- `poisson_times`, `mmpp2_times` and
+`diurnal_times`, the reference's ``*_times_jax`` -- draw whole traces on
+the device from a ``torch.Generator`` (or a seed), a leading lane axis
+standing in for the reference's vmap over keys; `mmpp2_times` walks its
+phase chain in one launch of the MMPP sampler kernel
+(kernels/mmpp_sample.py).  They agree with the numpy processes in
+distribution, not draw for draw (another generator).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import belief_forward as _bf
+from ..kernels import mmpp_sample as _mmpp
 
 
 @dataclasses.dataclass
@@ -457,7 +465,8 @@ def belief_forward(times, filt: PhaseBeliefFilter, *, device: DeviceLike = None)
     "belief_argmax"`` / ``"belief_mix"``).
     """
     dev = resolve_device(device)
-    t = torch.as_tensor(np.asarray(times, dtype=np.float64), device=dev)
+    t = (times.to(device=dev, dtype=torch.float64) if isinstance(times, torch.Tensor)
+         else torch.as_tensor(np.asarray(times, dtype=np.float64), device=dev))
     if t.dim() not in (1, 2):
         raise ValueError(f"times must be 1-D or 2-D, got shape {tuple(t.shape)}")
     one = t.dim() == 1
@@ -499,6 +508,124 @@ def take(
         if n is not None and len(events) >= n:
             break
     return events, overshoot
+
+
+# ---------------------------------------------------------------------------
+# On-device samplers (compiled-backend seed sweeps)
+# ---------------------------------------------------------------------------
+
+
+def _generator(gen, dev: torch.device) -> torch.Generator:
+    """A torch.Generator on ``dev``: ``gen`` itself, or one seeded by it."""
+    if isinstance(gen, torch.Generator):
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, sampling on {dev}")
+        return gen
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(gen))
+    return g
+
+
+def _lead(lanes: Optional[int]) -> Tuple[int, ...]:
+    return () if lanes is None else (int(lanes),)
+
+
+def _exponentials(g, shape, dev) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float64, device=dev).exponential_(
+        generator=g)
+
+
+def poisson_times(gen, lam: float, n: int, *, lanes: Optional[int] = None,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """(n,) sorted Poisson arrival times: the cumulative sum of Exp(lam) gaps.
+
+    The reference's ``poisson_times_jax`` with a ``torch.Generator`` (or a
+    seed) in place of the key; ``lanes=S`` gives (S, n), one independent
+    trace a lane (the reference's vmap over keys).  Draws are on
+    ``device`` (CUDA unless ``device="cpu"``); statistically equivalent to
+    PoissonProcess, not bit-equal -- use `take` for draw-for-draw parity
+    with the Python loop.
+    """
+    dev = resolve_device(device)
+    g = _generator(gen, dev)
+    gaps = _exponentials(g, _lead(lanes) + (int(n),), dev) / float(lam)
+    return torch.cumsum(gaps, dim=-1)
+
+
+def mmpp2_times(gen, mmpp: "MMPP2", n_steps: int, with_phases: bool = False, *,
+                lanes: Optional[int] = None, device: DeviceLike = None):
+    """MMPP(2) arrival times from one launch of the MMPP sampler kernel.
+
+    Each step draws one candidate exponential gap at the current phase's
+    rate; if it crosses the pending phase switch the step emits no arrival
+    and draws the dwell of the new phase (the competing-clocks
+    construction of MMPP2Process.next), as the reference's
+    ``mmpp2_times_jax`` steps.  Every lane takes ``1 + 2 * n_steps`` unit
+    exponentials from ``gen`` (a ``torch.Generator`` on ``device``, or a
+    seed) and the kernel walks them (kernels/mmpp_sample.py).
+
+    Returns (times, mask): ``times`` sorted ascending with non-arrivals
+    pushed to +inf (a ``torch.sort`` on the device, as the reference sorts
+    outside its scan), ``mask`` marking the real arrivals (expected count
+    about n_steps * P(no switch per step)).  ``with_phases=True`` also
+    returns the sampler-carry phase at each arrival (same order, int32) --
+    what the compiled phase-indexed lanes (``phases=``) consume.
+    ``lanes=S`` gives a leading (S,) axis, one independent trace a lane.
+    """
+    dev = resolve_device(device)
+    g = _generator(gen, dev)
+    L = 1 if lanes is None else int(lanes)
+    draws = _exponentials(g, (L, 1 + 2 * int(n_steps)), dev)
+    times, emitted, phases = _mmpp.mmpp_sample(
+        draws, (mmpp.lam1, mmpp.lam2), (mmpp.dwell1, mmpp.dwell2))
+    key = torch.where(emitted, times, torch.full_like(times, float("inf")))
+    key, order = torch.sort(key, dim=-1, stable=True)
+    out = (key, torch.gather(emitted, -1, order))
+    if with_phases:
+        out = out + (torch.gather(phases, -1, order),)
+    return out if lanes is not None else tuple(x[0] for x in out)
+
+
+def diurnal_rate(proc: "DiurnalProcess", t: torch.Tensor) -> torch.Tensor:
+    """``proc.rate`` in torch ops on ``t``'s device: the sinusoid, or the
+    cyclic piecewise-linear ramp through ``torch.searchsorted`` (linear
+    between breakpoints, clamped outside them, as ``np.interp``)."""
+    tau = torch.remainder(t + proc.phase0, proc.period)
+    if proc._taus is None:
+        return proc.base + proc.amp * torch.sin(2.0 * np.pi * tau / proc.period)
+    xp = torch.as_tensor(np.concatenate([proc._taus, [proc._taus[0] + proc.period]]),
+                         dtype=torch.float64, device=t.device)
+    fp = torch.as_tensor(np.concatenate([proc._vals, [proc._vals[0]]]),
+                         dtype=torch.float64, device=t.device)
+    x = torch.where(tau < xp[0], tau + proc.period, tau)
+    i = (torch.searchsorted(xp, x, right=True) - 1).clamp(0, len(xp) - 2)
+    x0, x1, f0, f1 = xp[i], xp[i + 1], fp[i], fp[i + 1]
+    w = ((x - x0) / (x1 - x0)).clamp(0.0, 1.0)
+    return f0 + w * (f1 - f0)
+
+
+def diurnal_times(gen, proc: "DiurnalProcess", n_steps: int, *,
+                  lanes: Optional[int] = None, device: DeviceLike = None):
+    """Diurnal arrival times by thinning (the reference's
+    ``diurnal_times_jax``), in plain torch ops on the device.
+
+    Candidate times are the cumulative sum of Exp(rate_max) gaps (no
+    serial carry beyond it), each accepted with probability
+    rate(t) / rate_max; a tabulated ramp interpolates through
+    ``torch.searchsorted``.  Returns (times, mask) like `mmpp2_times`
+    (expected count about n_steps * mean_rate / rate_max).
+    """
+    dev = resolve_device(device)
+    g = _generator(gen, dev)
+    shape = _lead(lanes) + (int(n_steps),)
+    rmax = float(proc.rate_max)
+    t = torch.cumsum(_exponentials(g, shape, dev) / rmax, dim=-1)
+    u = torch.rand(shape, dtype=torch.float64, device=dev, generator=g)
+    rate = diurnal_rate(proc, t)
+    emitted = u * rmax < rate
+    key = torch.where(emitted, t, torch.full_like(t, float("inf")))
+    key, order = torch.sort(key, dim=-1, stable=True)
+    return key, torch.gather(emitted, -1, order)
 
 
 def as_process(x) -> ArrivalProcess:

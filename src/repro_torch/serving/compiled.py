@@ -76,6 +76,14 @@ def _bucket(n: int, floor: int = 256) -> int:
     return b
 
 
+def _host(x, dtype) -> np.ndarray:
+    """An input array on the host: numpy as it is, a tensor (the
+    on-device samplers' and the belief kernel's outputs) copied over."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
 def pad_arrivals(
     times, deadlines=None, size: Optional[int] = None, *, phases=None
 ):
@@ -87,16 +95,16 @@ def pad_arrivals(
     ints for the phase-indexed table lane) a co-sorted, zero-padded int
     array is returned as a third element.
     """
-    t = np.asarray(times, dtype=np.float64)
+    t = _host(times, dtype=np.float64)
     finite = np.isfinite(t)  # idempotent: +inf padding is re-derived
     d = p = None
     if deadlines is not None:
-        d = np.asarray(deadlines, dtype=np.float64)
+        d = _host(deadlines, dtype=np.float64)
         if len(d) != len(t):
             raise ValueError("deadlines must align with times")
         d = d[finite]
     if phases is not None:
-        p = np.asarray(phases, dtype=np.int64)
+        p = _host(phases, dtype=np.int64)
         if len(p) != len(t):
             raise ValueError("phases must align with times")
         p = p[finite]
@@ -124,7 +132,7 @@ def pad_arrivals(
 def pad_arrivals_batch(traces, size: Optional[int] = None):
     """Pad several traces to one shared bucketed size: the (S, N) array
     `run_grid` wants for its seeds/scenarios axis."""
-    traces = [np.asarray(t, dtype=np.float64) for t in traces]
+    traces = [_host(t, dtype=np.float64) for t in traces]
     if not traces:
         raise ValueError("pad_arrivals_batch needs at least one trace")
     if size is None:
@@ -277,9 +285,7 @@ def _check_phase_mode(phase_mode: str, beliefs, n_phases: int):
         return None
     if beliefs is None:
         raise ValueError(f'phase_mode="{phase_mode}" needs beliefs=')
-    if isinstance(beliefs, torch.Tensor):
-        beliefs = beliefs.cpu().numpy()
-    bel = np.asarray(beliefs, dtype=np.float64)
+    bel = _host(beliefs, dtype=np.float64)
     if bel.shape[-1] != n_phases:
         raise ValueError(
             f"beliefs K={bel.shape[-1]} != table phase axis K={n_phases}"
@@ -425,7 +431,7 @@ def simulate_compiled(
             raise ValueError(f"beliefs must be (N, K); got {bel.shape}")
     elif n_phases > 1 and phases is None and lane is None:
         raise ValueError("phase-indexed table needs phases= per arrival")
-    arr = np.asarray(arrivals, dtype=np.float64)
+    arr = _host(arrivals, dtype=np.float64)
     if bel is not None and len(bel) != len(arr):
         raise ValueError("beliefs must align with arrivals")
     if phase_mode == "belief_argmax":
@@ -450,12 +456,12 @@ def simulate_compiled(
             bel[: len(kept)] = kept[order]
     else:
         dl = (
-            np.asarray(deadlines, dtype=np.float64)
+            _host(deadlines, dtype=np.float64)
             if deadlines is not None
             else np.full(len(arr), np.inf)
         )
         ph = (
-            np.asarray(phases, dtype=np.int64)
+            _host(phases, dtype=np.int64)
             if phases is not None
             else np.zeros(len(arr), dtype=np.int64)
         )
@@ -477,7 +483,7 @@ def simulate_compiled(
                 )
     max_eps = 2 * n_arr + 2 if max_epochs is None else int(max_epochs)
     means = np.asarray(means, dtype=np.float64)
-    draws = np.ones(1) if draws is None else np.asarray(draws, dtype=np.float64)
+    draws = np.ones(1) if draws is None else _host(draws, dtype=np.float64)
     edges = (
         default_hist_edges(means)
         if hist_edges is None
@@ -533,7 +539,7 @@ def simulate_compiled(
 
 def _grid_inputs(arr, phases, deadlines, draws, n_phases: int,
                  need_phases: bool):
-    arr = np.asarray(arr, dtype=np.float64)
+    arr = _host(arr, dtype=np.float64)
     if arr.ndim != 2:
         raise ValueError("run_grid wants (S, N) arrivals")
     if arr.shape[1] < _PAD_MARGIN or not np.isinf(arr[:, -_PAD_MARGIN:]).all():
@@ -541,12 +547,12 @@ def _grid_inputs(arr, phases, deadlines, draws, n_phases: int,
     if need_phases and n_phases > 1 and phases is None:
         raise ValueError("phase-indexed tables need phases= (S, N) ints")
     dl = (
-        np.asarray(deadlines, dtype=np.float64)
+        _host(deadlines, dtype=np.float64)
         if deadlines is not None
         else np.full_like(arr, np.inf)
     )
     if phases is not None:
-        ph = np.asarray(phases, dtype=np.int64)
+        ph = _host(phases, dtype=np.int64)
         if ph.shape != arr.shape:
             raise ValueError(f"phases shape {ph.shape} != arrivals {arr.shape}")
         if ph.min() < 0 or ph.max() >= n_phases:
@@ -555,7 +561,7 @@ def _grid_inputs(arr, phases, deadlines, draws, n_phases: int,
         ph = np.zeros(arr.shape, dtype=np.int64)
     draws = (
         np.ones((arr.shape[0], 1)) if draws is None
-        else np.asarray(draws, dtype=np.float64)
+        else _host(draws, dtype=np.float64)
     )
     return arr, dl, ph, draws
 

@@ -43,13 +43,16 @@ in-flight batch's completion crashes it -- the requests requeue to the
 FRONT with bounded retries, then drop -- crashed attempts burn prorated
 energy, and ``buffer=B`` bounds each replica's waiting room.
 
-Not ported: `FleetStream.save` / `resume` (the checkpoint manager is not
-ported) and `run_fleet_grid(mesh=)` (the distributed layer is not ported);
-both raise NotImplementedError.
+`FleetStream.save` / `FleetStream.resume` persist the whole chunk seam
+through `checkpoint.CheckpointManager` under the reference's keys, so a
+stream saved by either package resumes in the other.  Not ported:
+`run_fleet_grid(mesh=)` (the distributed layer is not ported); it raises
+NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -58,7 +61,7 @@ import torch
 from ..core.service_models import ServiceModel
 from ..device import DeviceLike, resolve_device
 from ..kernels import fleet_scan as fk
-from .arrivals import belief_forward
+from .arrivals import PhaseBeliefFilter, belief_forward
 from .compiled import (
     _PAD_MARGIN,
     _bucket,
@@ -82,12 +85,6 @@ _GAP_SHIFT = fk.GAP_SHIFT
 _DOWN_PENALTY = fk.DOWN_PENALTY
 #: buf_cap sentinel for "no finite waiting room" (queues never reach it)
 _NO_BUFFER = 1 << 30
-
-_NOT_PORTED_SAVE = (
-    "FleetStream.save / resume need the checkpoint manager, which the "
-    "port does not have yet (ROADMAP.md, queue 1 item 3)"
-)
-
 
 def router_id(router) -> int:
     """Resolve a router name (or already-an-id) to its kernel id."""
@@ -1080,7 +1077,7 @@ class FleetStream:
 
     ``device=None`` means CUDA; ``device="cpu"`` runs the plain versions
     (of the fleet kernel, and of the belief kernel for the belief modes).
-    `save` / `resume` are not ported and raise NotImplementedError.
+    `save` / `resume` persist and restore the complete seam state.
     """
 
     def __init__(
@@ -1279,14 +1276,202 @@ class FleetStream:
             out[f"P{round(q * 100)}"] = est.value
         return out
 
+    #: phase_mode <-> checkpoint integer code
+    _PHASE_MODES = ("oracle", "belief_argmax", "belief_mix")
+
     def save(self, path) -> None:
-        """Not ported: the checkpoint manager is not in the port yet."""
-        raise NotImplementedError(_NOT_PORTED_SAVE)
+        """Persist the stream durably: config, chunk-seam carry, aggregates.
+
+        Written through checkpoint.CheckpointManager (atomic rename +
+        per-array CRC) with an incrementing step per save, so a crash
+        mid-save can never shadow the previous good snapshot.  The payload
+        is the *complete* seam state -- per-replica queues, busy clocks,
+        pending-decision flags, fault cursors, P² marker sketches, the
+        histogram, the belief posterior and the router RNG state -- under
+        the reference's keys, so a killed-and-resumed stream matches the
+        uninterrupted one on every aggregate, n_epochs included, in either
+        package (see resume()).
+        """
+        from ..checkpoint import CheckpointManager
+
+        cfg = {
+            "version": np.int64(1),
+            "tables": self.tables,
+            "means": self.means,
+            "zeta": self.zeta,
+            "draws": self.draws,
+            "edges": self.edges,
+            "b_max": np.int64(self.b_max),
+            "drain": np.bool_(self.drain),
+            "slo": np.float64(np.nan if self.slo is None else self.slo),
+            "rid": np.int64(self.rid),
+            "fb": self.fb,
+            "fmult": self.fmult,
+            "max_retries": np.int64(self.max_retries),
+            "buf_cap": np.int64(self.buf_cap),
+            "t0": np.float64(self.t0),
+            "phase_mode": np.int64(self._PHASE_MODES.index(self.phase_mode)),
+            "qprobs": np.asarray(list(self.quantiles), dtype=np.float64),
+            # PCG64 state holds 128-bit ints -- json round-trips them exactly
+            "rng": np.frombuffer(
+                json.dumps(self._rng.bit_generator.state).encode(), np.uint8
+            ),
+        }
+        carry = {
+            "t": np.float64(self.t),
+            "rr": np.int64(self.rr),
+            "ph": np.int64(self.ph),
+            "busy": self.busy,
+            "nbat": self.nbat,
+            "needs": self.needs,
+            "fcur": self.fcur,
+            "rty": self.rty,
+            "infl": self.infl,
+            "t_hwm": np.float64(self._t_hwm),
+            "finished": np.bool_(self._finished),
+            "q_lens": np.asarray(
+                [len(q[0]) for q in self.queues], dtype=np.int64
+            ),
+            "q_times": np.concatenate([q[0] for q in self.queues]),
+            "q_deads": np.concatenate([q[1] for q in self.queues]),
+        }
+        agg = {
+            "hist": self.hist,
+            "n_admitted": np.int64(self.n_admitted),
+            "n_served": np.int64(self.n_served),
+            "n_batches": np.int64(self.n_batches),
+            "n_epochs": np.int64(self.n_epochs),
+            "energy": np.float64(self.energy),
+            "lat_sum": np.float64(self.lat_sum),
+            "slo_miss": np.int64(self.slo_miss),
+            "n_crashes": np.int64(self.n_crashes),
+            "n_dropped": np.int64(self.n_dropped),
+            "n_shed": np.int64(self.n_shed),
+            "n_routed": self.n_routed,
+            "n_served_m": self.n_served_m,
+        }
+        tree = {
+            "cfg": cfg,
+            "carry": carry,
+            "agg": agg,
+            "p2": {
+                str(k): est.snapshot()
+                for k, est in enumerate(self.quantiles.values())
+            },
+        }
+        if self.phase_mode != "oracle":
+            tree["bel"] = {
+                "rates": self._filt.rates,
+                "gen": self._filt.gen,
+                "b0": self._filt._b0,
+                "belief": self._filt.belief,
+                "last": np.float64(self._filt._last),
+                "n_observed": np.int64(self._filt.n_observed),
+                "bel0": self._bel0,
+            }
+        mgr = CheckpointManager(path, keep_last_k=2)
+        last = mgr.latest_step()
+        mgr.save(0 if last is None else last + 1, tree)
 
     @classmethod
-    def resume(cls, path) -> "FleetStream":
-        """Not ported: the checkpoint manager is not in the port yet."""
-        raise NotImplementedError(_NOT_PORTED_SAVE)
+    def resume(cls, path, *, device: DeviceLike = None) -> "FleetStream":
+        """Reconstruct a saved stream; the seam contract survives the trip.
+
+        Every aggregate of resume(path) -> push...(rest) -> finish() equals
+        the uninterrupted stream's: queues, clocks, decision flags, fault
+        cursors, sketches, posterior and RNG all restore exactly, so the
+        continuation replays decision-for-decision.  A step saved by the
+        reference package resumes here too.  ``device`` is where the
+        resumed stream runs (CUDA unless ``device="cpu"``).
+        """
+        from ..checkpoint import CheckpointManager
+
+        device = resolve_device(device)
+        flat = CheckpointManager(path).restore_flat()
+        pm = cls._PHASE_MODES[int(flat["cfg//phase_mode"])]
+        filt = None
+        if pm != "oracle":
+            filt = PhaseBeliefFilter(
+                flat["bel//rates"], flat["bel//gen"], b0=flat["bel//b0"]
+            )
+            filt.restore(
+                {
+                    "belief": flat["bel//belief"],
+                    "last": float(flat["bel//last"]),
+                    "n_observed": int(flat["bel//n_observed"]),
+                }
+            )
+        slo = float(flat["cfg//slo"])
+        self = cls(
+            flat["cfg//tables"],
+            means=flat["cfg//means"],
+            zeta=flat["cfg//zeta"],
+            draws=flat["cfg//draws"],
+            b_max=int(flat["cfg//b_max"]),
+            drain=bool(flat["cfg//drain"]),
+            slo=None if np.isnan(slo) else slo,
+            hist_edges=flat["cfg//edges"],
+            quantiles=tuple(float(q) for q in flat["cfg//qprobs"]),
+            t0=float(flat["cfg//t0"]),
+            phase_mode=pm,
+            belief_filter=filt,
+            device=device,
+        )
+        # fields the constructor derives from args we did not persist in
+        # their original form (router name, faults spec, buffer flag)
+        self.rid = int(flat["cfg//rid"])
+        self.fb = flat["cfg//fb"]
+        self.fmult = flat["cfg//fmult"]
+        self.max_retries = int(flat["cfg//max_retries"])
+        self.buf_cap = int(flat["cfg//buf_cap"])
+        self._rng = np.random.default_rng(0)
+        self._rng.bit_generator.state = json.loads(
+            bytes(bytearray(flat["cfg//rng"])).decode()
+        )
+        if pm != "oracle":
+            self._bel0 = np.asarray(flat["bel//bel0"], dtype=np.float64)
+        # --- carried seam state ---------------------------------------
+        self.t = float(flat["carry//t"])
+        self.rr = int(flat["carry//rr"])
+        self.ph = int(flat["carry//ph"])
+        self.busy = np.asarray(flat["carry//busy"], dtype=np.float64)
+        self.nbat = np.asarray(flat["carry//nbat"], dtype=np.int64)
+        self.needs = np.asarray(flat["carry//needs"], dtype=bool)
+        self.fcur = np.asarray(flat["carry//fcur"], dtype=np.int64)
+        self.rty = np.asarray(flat["carry//rty"], dtype=np.int64)
+        self.infl = np.asarray(flat["carry//infl"], dtype=np.int64)
+        self._t_hwm = float(flat["carry//t_hwm"])
+        self._finished = bool(flat["carry//finished"])
+        lens = flat["carry//q_lens"]
+        qt, qd = flat["carry//q_times"], flat["carry//q_deads"]
+        queues, off = [], 0
+        for m in range(self.M):
+            ln = int(lens[m])
+            queues.append((qt[off : off + ln].copy(), qd[off : off + ln].copy()))
+            off += ln
+        self.queues = queues
+        # --- streaming aggregates -------------------------------------
+        self.hist = np.asarray(flat["agg//hist"], dtype=np.int64)
+        self.n_admitted = int(flat["agg//n_admitted"])
+        self.n_served = int(flat["agg//n_served"])
+        self.n_batches = int(flat["agg//n_batches"])
+        self.n_epochs = int(flat["agg//n_epochs"])
+        self.energy = float(flat["agg//energy"])
+        self.lat_sum = float(flat["agg//lat_sum"])
+        self.slo_miss = int(flat["agg//slo_miss"])
+        self.n_crashes = int(flat["agg//n_crashes"])
+        self.n_dropped = int(flat["agg//n_dropped"])
+        self.n_shed = int(flat["agg//n_shed"])
+        self.n_routed = np.asarray(flat["agg//n_routed"], dtype=np.int64)
+        self.n_served_m = np.asarray(flat["agg//n_served_m"], dtype=np.int64)
+        for k, est in enumerate(self.quantiles.values()):
+            est.restore(
+                {
+                    f: flat[f"p2//{k}//{f}"]
+                    for f in ("q", "init", "n", "ns", "heights")
+                }
+            )
+        return self
 
     def _run_chunk(self, times, deadlines, phases, router_u, *,
                    more_coming, t_last):

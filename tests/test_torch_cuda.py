@@ -30,7 +30,12 @@ on the plain restart, a NaN spec completes as failed), 2e-5 (f32) and
 2e-2 (bf16) for the attention kernels against their plain versions
 (tests/test_kernels.py's), 2e-6 for the f32 decode kernel against the
 plain mirror of its split-K arithmetic (the same sums in another order),
-and atol 3e-4 on model logits (tests/test_models.py's).
+atol 3e-4 on model logits (tests/test_models.py's), the MMPP sampler
+and simulator kernels equal to their plain walks in every output (lanes
+1, 7, 133; n_steps 1 and a long run; a run that clips at k_max, a > s,
+every service family, the ring wrapping), and a durable sweep resumed on
+the card bitwise equal to the uninterrupted one, a CPU checkpoint
+refused there.
 """
 import copy
 import dataclasses
@@ -47,6 +52,8 @@ from repro_torch.kernels import bellman as tb
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fleet_scan as fk
+from repro_torch.kernels import mmpp_sample as mk
+from repro_torch.kernels import sim_scan as sk
 from repro_torch.kernels import serve_scan as ss
 from repro_torch.launch import serve_llm
 from repro_torch.models import model as M
@@ -979,3 +986,151 @@ def test_fleet_kernel_refuses_above_its_maximum(cuda):
         pf.simulate_fleet(tabs, _fleet_trace(4, n=100), means=FLEET_MEANS,
                           b_max=FLEET_BMAX, device="cuda")
     assert fk.fleet_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The MMPP sampler kernel, the simulator kernel, durable sweeps on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L,n", [(1, 1), (1, 60_000), (7, 5_000), (133, 300)])
+def test_mmpp_sample_kernel_matches_plain(cuda, L, n):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(L * 7 + n)
+    draws = torch.empty((L, 1 + 2 * n), dtype=torch.float64, device="cuda").exponential_(
+        generator=g)
+    lam, dwell = (0.4, 3.0), (30.0, 6.0)
+    before = mk.mmpp_sample.launches
+    got = mk.mmpp_sample(draws, lam, dwell)
+    torch.cuda.synchronize()
+    assert mk.mmpp_sample.launches == before + 1
+    want = mk.mmpp_sample_ref(draws.cpu(), lam, dwell)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_mmpp2_times_on_the_card(cuda):
+    m = pa.MMPP2(lam1=1.0, lam2=5.0, dwell1=50.0, dwell2=50.0)
+    times, mask, ph = pa.mmpp2_times(1, m, 30_000, with_phases=True, lanes=3)
+    assert times.device.type == "cuda"
+    for s_ in range(3):
+        n = int(mask[s_].sum())
+        assert torch.isinf(times[s_, n:]).all() and (times[s_, :n].diff() >= 0).all()
+        assert abs(n / float(times[s_, n - 1]) - m.mean_rate) / m.mean_rate < 0.1
+    res = simulate_compiled(q_policy(6, 96, 16), times[0], means=np.arange(17.0) * 0.3 + 1,
+                            b_max=16, device="cuda")
+    assert res.n_served == int(mask[0].sum())
+
+
+def _sim_inputs(fam_name, L, E, seed, k_max_arr=12, **extra):
+    from repro_torch.core.simulate import service_params
+
+    svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY, family=fam_name, **extra)
+    fam, k, W, means, cum, scales = service_params(svc, 32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    svc_d = torch.empty((L, E, W), **f64).exponential_(generator=g)
+    if fam_name in ("hyperexpo", "atoms"):
+        svc_d[..., 0] = torch.rand((L, E), generator=g, **f64)
+    arr = torch.empty((L, E * k_max_arr), **f64).exponential_(generator=g)
+    en = torch.as_tensor([0.0] + [float(pt.GOOGLENET_P4_ENERGY(b)) for b in range(1, 33)],
+                         **f64)
+    lam = 0.7 * 32 / float(svc.mean(32))
+    return (torch.as_tensor(means, **f64), en, torch.as_tensor(cum, **f64),
+            torch.as_tensor(scales, **f64), svc_d, arr), dict(fam=fam, erlang_k=k, lam=lam)
+
+
+def _same_sim(got, want):
+    for name in got._fields:
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        if name == "resp":
+            for ln in range(a.shape[0]):
+                n = int(want.n_served[ln])
+                assert torch.equal(a[ln, :n], b[ln, :n]), ln
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("family,extra", [
+    ("det", {}), ("expo", {}), ("erlang", dict(erlang_k=3)), ("hyperexpo", {}),
+    ("atoms", dict(atom_weights=(0.5, 0.3, 0.2), atom_scales=(0.5, 1.0, 2.0)))])
+@pytest.mark.parametrize("k_max", [64, 4])
+def test_sim_scan_kernel_matches_plain(cuda, family, extra, k_max):
+    """Every family, a run that clips at k_max, and (det, static-8, 8 000
+    epochs) more than 2^15 requests, so the ring wraps."""
+    E, L = 8_000, 2
+    (means, en, cum, scales, svc_d, arr), kw = _sim_inputs(family, L, E, 3, **extra)
+    pol = torch.as_tensor(pt.static_policy(8, 128)[:-1], device="cuda")
+    before = sk.sim_scan.launches
+    got = sk.sim_scan(pol, means, en, cum, scales, svc_d, arr, k_max=k_max, R=E * 8, **kw)
+    torch.cuda.synchronize()
+    assert sk.sim_scan.launches == before + 1
+    want = sk.sim_scan_ref(pol.cpu(), means.cpu(), en.cpu(), cum.cpu(), scales.cpu(),
+                           svc_d.cpu(), arr.cpu(), k_max=k_max, R=E * 8, **kw)
+    _same_sim(got, want)
+    assert (want.exhausted == -1).all()
+    if k_max == 4:
+        assert int(want.clipped.sum()) > 0
+    if family == "det" and k_max == 64:
+        assert int(want.n_served.min()) > sk.BUF
+
+
+def test_sim_scan_kernel_cuts_actions_above_the_queue(cuda):
+    """A table whose action exceeds s serves nothing there (a > s -> 0),
+    and a lane that runs out of draws stops and reports the epoch."""
+    E = 3_000
+    (means, en, cum, scales, svc_d, arr), kw = _sim_inputs("expo", 1, E, 4)
+    pol = torch.full((40,), 12, dtype=torch.int64, device="cuda")
+    got = sk.sim_scan(pol, means, en, cum, scales, svc_d, arr, k_max=64, R=E * 12, **kw)
+    want = sk.sim_scan_ref(pol.cpu(), means.cpu(), en.cpu(), cum.cpu(), scales.cpu(),
+                           svc_d.cpu(), arr.cpu(), k_max=64, R=E * 12, **kw)
+    _same_sim(got, want)
+    assert set(want.acts[0].tolist()) == {0, 12}
+    short = arr[:, :200].contiguous()
+    got = sk.sim_scan(pol, means, en, cum, scales, svc_d, short, k_max=64, R=E * 12, **kw)
+    want = sk.sim_scan_ref(pol.cpu(), means.cpu(), en.cpu(), cum.cpu(), scales.cpu(),
+                           svc_d.cpu(), short.cpu(), k_max=64, R=E * 12, **kw)
+    assert int(want.exhausted[0]) >= 0
+    _same_sim(got, want)
+
+
+def test_simulate_on_the_card_meets_the_analytic_values(cuda):
+    from repro_torch.core.simulate import simulate
+
+    svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY)
+    spec = pt.SMDPSpec(lam=0.7 * 32 / float(svc.mean(32)), service=svc,
+                       energy=pt.GOOGLENET_P4_ENERGY, b_max=32, s_max=128, w2=1.6)
+    en = np.array([0.0] + [float(pt.GOOGLENET_P4_ENERGY(b)) for b in range(1, 33)])
+    pol = pt.static_policy(8, 128)
+    ev = pt.evaluate_policy(pt.build_smdp(spec), pol)
+    sim = simulate(pol[:-1], svc, en, spec.lam, 32, n_epochs=150_000, seed=0)
+    np.testing.assert_allclose(sim.w_bar, ev.w_bar, rtol=0.02)
+    np.testing.assert_allclose(sim.p_bar, ev.p_bar, rtol=0.02)
+    np.testing.assert_allclose(sim.l_bar / spec.lam, sim.w_bar, rtol=0.02)
+
+
+def test_durable_sweep_on_the_card(cuda, tmp_path):
+    """backup="pallas": a resume from the first committed step equals the
+    uninterrupted checkpointed run bitwise; a CPU checkpoint is refused."""
+    import shutil
+
+    svc = pt.ServiceModel(latency=pt.GOOGLENET_P4_LATENCY)
+    base = pt.SMDPSpec(lam=0.5 * 16 / float(svc.mean(16)), service=svc,
+                       energy=pt.GOOGLENET_P4_ENERGY, b_max=16, s_max=48)
+    specs = [dataclasses.replace(base, w2=w) for w in (0.0, 1.0, 3.0, 6.0)]
+    kw = dict(chunk_size=1, keep_last_k=99, backup="pallas")
+    ref = pt.sweep_solve(specs, checkpoint_dir=str(tmp_path / "ref"), device="cuda", **kw)
+    crash = tmp_path / "crash"
+    shutil.copytree(tmp_path / "ref", crash)
+    for p in sorted(crash.glob("step_*"))[1:]:
+        shutil.rmtree(p)
+    before = tb.bellman_banded_batched.launches
+    got = pt.sweep_solve(specs, checkpoint_dir=str(crash), device="cuda", **kw)
+    assert tb.bellman_banded_batched.launches > before
+    for a, b in zip(got, ref):
+        assert np.array_equal(a.rvi.policy, b.rvi.policy) and a.rvi.g == b.rvi.g
+        assert np.array_equal(a.rvi.h, b.rvi.h)
+    pt.sweep_solve(specs, checkpoint_dir=str(tmp_path / "cpu"), device="cpu", **kw)
+    with pytest.raises(ValueError, match="different sweep"):
+        pt.sweep_solve(specs, checkpoint_dir=str(tmp_path / "cpu"), device="cuda", **kw)

@@ -16,8 +16,9 @@ reference runs its jitted scan on the same numpy inputs.  Held:
 * FleetStream: chunked equal to one-shot and to the reference's stream;
 * run_fleet_grid: a cell equal to simulate_fleet, every key equal to the
   reference's unsharded grid;
-* the refusals: save / resume / mesh=, M above the kernel's maximum and
-  router ids outside the four.
+* FleetStream.save / resume (a step either package resumes);
+* the refusals: mesh=, M above the kernel's maximum and router ids
+  outside the four.
 
 Sizes are the reference tests' (tests/test_fleet.py): b_max 16, q_policy
 tables, ~1200 arrivals, heterogeneous limits (4, 6, 8, 12).
@@ -323,15 +324,31 @@ def test_stream_shares_router_uniforms_and_reports_like_the_reference():
         np.testing.assert_allclose(got[k], want[k], rtol=1e-12, err_msg=k)
 
 
-def test_stream_refuses_save_resume_and_unsorted_chunks():
-    fs = pf.FleetStream(HET_TABLES, means=MEANS, b_max=BMAX, **CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        fs.save("somewhere")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        pf.FleetStream.resume("somewhere")
-    fs.push(np.array([1.0, 2.0]))
+def test_stream_save_resume_and_refuses_unsorted_chunks(tmp_path):
+    """save / resume round-trip the seam (the reference's keys: the step
+    restores in the reference's stream too, every aggregate equal after
+    the rest of the trace); unsorted chunks are refused."""
+    tr = _trace("poisson", n=1200)
+    kw = dict(router="pow2", means=MEANS, zeta=ENERGY, b_max=BMAX, slo=3.0)
+    one = pf.FleetStream(HET_TABLES, **kw, **CPU)
+    fs = pf.FleetStream(HET_TABLES, **kw, **CPU)
+    for lo in range(0, len(tr), 300):
+        one.push(tr[lo:lo + 300])
+        if lo < 600:
+            fs.push(tr[lo:lo + 300])
+    fs.save(tmp_path)
+    back = pf.FleetStream.resume(tmp_path, **CPU)
+    theirs = rf.FleetStream.resume(tmp_path)
+    for lo in range(600, len(tr), 300):
+        back.push(tr[lo:lo + 300])
+        theirs.push(tr[lo:lo + 300])
+    want = one.finish()
+    same_aggregates(back.finish(), want)
+    same_aggregates(theirs.finish(), want)
+    back = pf.FleetStream(HET_TABLES, means=MEANS, b_max=BMAX, **CPU)
+    back.push(np.array([1.0, 2.0]))
     with pytest.raises(ValueError, match="time-sorted"):
-        fs.push(np.array([0.5]))
+        back.push(np.array([0.5]))
 
 
 # ---------------------------------------------------------------------------

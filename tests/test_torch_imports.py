@@ -40,6 +40,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.launch.tradeoff_sweep\n"
         "import repro_torch.serving.fleet, repro_torch.serving.faults\n"
         "import repro_torch.kernels.fleet_scan\n"
+        "import repro_torch.checkpoint, repro_torch.core.simulate\n"
+        "import repro_torch.launch.resume_sweep, repro_torch.kernels.sim_scan\n"
+        "import repro_torch.kernels.mmpp_sample\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -93,6 +96,11 @@ def _entry_points():
         verify_fleet,
     )
     from repro_torch.serving.kv_cache import KVCachePool
+    from repro_torch.core.simulate import simulate, simulate_events
+    from repro_torch.launch import resume_sweep
+    from repro_torch.serving import (
+        MMPP2, DiurnalProcess, diurnal_times, mmpp2_times, poisson_times,
+    )
 
     svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
     spec = SMDPSpec(lam=0.5, service=svc, energy=GOOGLENET_P4_ENERGY,
@@ -154,6 +162,14 @@ def _entry_points():
         "init_params": lambda: M.init_params(cfg, torch.Generator()),
         "init_cache": lambda: M.init_cache(cfg, 1, 8),
         "KVCachePool": lambda: KVCachePool(cfg, 2, 8),
+        "poisson_times": lambda: poisson_times(0, 1.0, 4),
+        "mmpp2_times": lambda: mmpp2_times(0, MMPP2(1.0, 2.0, 5.0, 5.0), 4),
+        "diurnal_times": lambda: diurnal_times(0, DiurnalProcess(1.0, 0.5, 10.0), 4),
+        "simulate": lambda: simulate(table, svc, np.zeros(5), 0.5, 4, n_epochs=4),
+        "simulate_events(compiled)": lambda: simulate_events(
+            table, svc, np.zeros(5), 0.5, 4, n_epochs=4, backend="compiled"),
+        "resume_sweep.main": lambda: resume_sweep.main(["--n", "2"]),
+        "FleetStream.resume": lambda: FleetStream.resume("no-such-checkpoint"),
         "params_from_reference": lambda: params_from_reference(cfg, {}),
     }
 
@@ -214,6 +230,20 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
     with pytest.raises(ValueError, match="CPU tensors"):
         fleet_scan.fleet_scan_ref(*fl, **fkw)
     assert fleet_scan.fleet_scan.launches == 0
+    from repro_torch.kernels import mmpp_sample, sim_scan
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        mmpp_sample.mmpp_sample(torch.empty(2, 7, **d), (1.0, 2.0), (3.0, 4.0))
+    one = torch.ones(1, **d)
+    sim_args = (torch.zeros(3, dtype=torch.int64, device="meta"), torch.empty(5, **d),
+                torch.empty(5, **d), one, one, torch.empty(1, 8, 0, **d),
+                torch.empty(1, 64, **d))
+    sim_kw = dict(fam=0, erlang_k=1, lam=1.0, k_max=4, R=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sim_scan.sim_scan(*sim_args, **sim_kw)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        sim_scan.sim_scan_ref(*sim_args, **sim_kw)
+    assert mmpp_sample.mmpp_sample.launches == 0 and sim_scan.sim_scan.launches == 0
     from repro_torch.kernels import decode_attention, flash_attention
 
     f = dict(dtype=torch.bfloat16, device="meta")

@@ -249,11 +249,27 @@ def test_appendix_f_baselines_equal_the_reference(algo):
     assert got.iterations == want.iterations
 
 
-def test_checkpointed_modulated_sweep_is_not_ported():
-    ph = pt.PhaseConfig.poisson(1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.sweep_solve_modulated([port_spec(spec_at(1.0))], ph, checkpoint_dir="ckpt",
-                                 device=CPU)
+def test_checkpointed_modulated_sweep_equals_the_reference(tmp_path):
+    """checkpoint_dir= on the modulated sweep: the port's checkpointed run
+    equals the reference's checkpointed run (policies, s_max; g / W / P at
+    rtol 1e-9), and a completed checkpoint restores bit for bit."""
+    ph = fast_mixing_mmpp()
+    ref_specs = [ref_modulated_spec(spec_at(1.0, w2=w, s_max=32), ph) for w in (0.5, 2.0)]
+    specs = [port_spec(sp) for sp in ref_specs]
+    d = str(tmp_path / "ck")
+    kw = dict(chunk_size=1, delta=None)
+    got = pt.sweep_solve_modulated(specs, port_phases(ph), checkpoint_dir=d, device=CPU,
+                                   **kw)
+    want = ref_sweep_modulated(ref_specs, ph, checkpoint_dir=str(tmp_path / "ref"), **kw)
+    for a, b in zip(got, want):
+        assert a.spec.s_max == b.spec.s_max
+        np.testing.assert_array_equal(a.rvi.policy, b.rvi.policy)
+        _same_eval(a.eval, b.eval, rtol=1e-9)
+    again = pt.sweep_solve_modulated(specs, port_phases(ph), checkpoint_dir=d,
+                                     device=CPU, **kw)
+    for a, b in zip(again, got):
+        np.testing.assert_array_equal(a.rvi.h, b.rvi.h)
+        assert a.rvi.g == b.rvi.g
 
 
 def test_dataclass_of_a_modulated_result():

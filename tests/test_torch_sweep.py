@@ -189,14 +189,25 @@ class TestSchedulerBank:
         assert len(bank) == 2
 
 
-def test_not_ported_options_raise():
-    """checkpoint_dir= is still not ported (ROADMAP queue 1) and raises;
-    phases= is, and its bank equals the reference's table for table."""
+def test_checkpointed_sweep_and_phases_bank(tmp_path):
+    """checkpoint_dir= is ported: a checkpointed sweep equals the
+    reference's checkpointed sweep (assert_same_solution) and a
+    re-run of the completed call restores it bit for bit; phases= too, its
+    bank equal to the reference's table for table."""
     from repro.core import PhaseConfig as RefPhaseConfig
+    from repro.core import sweep_solve as ref_sweep
 
-    base = interop.spec_from_reference(spec_for())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.sweep_solve([base], checkpoint_dir="ckpt", device=CPU)
+    ref_specs = [spec_for(w2=w) for w in (0.0, 1.0, 4.0)]
+    specs = [interop.spec_from_reference(sp) for sp in ref_specs]
+    d = str(tmp_path / "ck")
+    got = pt.sweep_solve(specs, checkpoint_dir=d, chunk_size=2, device=CPU)
+    want = ref_sweep(ref_specs, checkpoint_dir=str(tmp_path / "ref"), chunk_size=2)
+    for a, b in zip(got, want):
+        assert_same_solution(a, b)
+    again = pt.sweep_solve(specs, checkpoint_dir=d, chunk_size=2, device=CPU)
+    for a, b in zip(again, got):
+        np.testing.assert_array_equal(a.rvi.h, b.rvi.h)
+        assert a.rvi.g == b.rvi.g and a.eval.w_bar == b.eval.w_bar
     ref_base = spec_for(w2=0.5, s_max=32)
     ph = RefPhaseConfig.mmpp2(0.5 * ref_base.lam, 2.0 * ref_base.lam, 400.0, 200.0)
     pph = pt.PhaseConfig(rates=ph.rates, gen=ph.gen)
