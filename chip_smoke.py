@@ -155,7 +155,20 @@
    decode launch per layer per decode step, one Bellman launch per backup.
    Profiles of a prefill and of decode steps say where their device time
    goes, by kernel.
-8. Prints a `kernels` JSON line, then the one-line verdict.
+8. Phase 4i, the Mamba2 hybrid: the SSD scan kernel against its plain
+   version (S 1 / 7 / 128 / 129 / 300 x chunk 8 / 128 x b 1 / 8, zero and
+   random incoming state, f32 at 2e-5 and bf16 at 2e-2, at Zamba2's 64
+   heads of 64 x state 64 and a reduced shape; in place) and timed at the
+   serving path's prefill (8 x 128) and decode (8 x 1); flash and decode
+   attention at Zamba2's 32 / 32 heads of 64, held and timed beside SDPA;
+   the reduced Zamba2 in f32 on the card against the CPU (launch counts
+   exact), full width at depth 7 (decode path against fresh prefills);
+   then Zamba2-1.2B at its published config (38 layers, bf16) through
+   serve_llm.run_pipeline with the Qwen path's constants, launch counts
+   exact (flash 6 x segments, decode 6 x 15 x segments, SSD 38 x 16 x
+   segments, Bellman the solve's backups), peak memory, and a profiled
+   b = 8 decode step with the SSD kernel's share.
+9. Prints a `kernels` JSON line, then the one-line verdict.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA it exits
 with 2 and prints no result.
@@ -2694,13 +2707,71 @@ def _path_lengths(B):
     return [LLM_PROMPT + 1 + (i * (LLM_GEN - 2)) // max(B - 1, 1) for i in range(B)]
 
 
+def attn_flash_row(torch, rng, B, dtype, H, KV, D, reps=50):
+    """Flash kernel, plain version and SDPA timed at the serving path's
+    prefill (B x LLM_PROMPT, causal) for heads (H, KV, D)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    S = LLM_PROMPT
+    q, k, v = _flash_inputs(torch, rng, B, S, S, H, KV, D, dtype)
+    ms = device_ms(torch, lambda: fa.flash_attention(q, k, v), reps)
+    plain = device_ms(torch, lambda: fa.attention_ref(q, k, v), reps)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs per head
+    item = q.element_size()
+    b_ms, b_by = bound(item * (2 * B * S * H * D + 2 * B * S * KV * D),
+                       4 * B * H * D * pairs,
+                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    dt = str(dtype).replace("torch.", "")
+    variant = VARIANTS["flash_attention"][dt]
+    log(f"flash_attention b={B} {(S, H, KV, D)} {dt} ({variant}): kernel_ms={ms:.6f} "
+        f"plain_ms={plain:.6f} library_ms={lib:.6f} (SDPA, enable_gqa) "
+        f"bound_ms={b_ms:.6f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, shape=[B, S, S, H, KV, D], dtype=dt, variant=variant)
+
+
+def attn_decode_row(torch, rng, B, dtype, n_sm, H, KV, D, reps=200):
+    """Decode kernel, plain version and SDPA timed at the serving path's
+    decode (a (LLM_PROMPT + LLM_GEN)-deep cache, lengths 129 .. 143) for
+    heads (H, KV, D)."""
+    from repro_torch.kernels import decode_attention as da
+
+    F = torch.nn.functional
+    S = LLM_PROMPT + LLM_GEN
+    lens = _path_lengths(B)
+    q, kc, vc, ln = _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lens)
+    ms = device_ms(torch, lambda: da.decode_attention(q, kc, vc, ln), reps)
+    plain = device_ms(torch, lambda: da.decode_attention_ref(q, kc, vc, ln), reps)
+    mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
+    keys = int(sum(lens))  # the valid prefixes this run's data needs
+    item = q.element_size()
+    b_ms, b_by = bound(item * (2 * B * H * D + 2 * keys * KV * D) + 4 * B,
+                       4 * H * D * keys,
+                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    n_split = da._split_plan(B, S, KV, n_sm)
+    dt = str(dtype).replace("torch.", "")
+    log(f"decode_attention b={B} S={S} {(H, KV, D)} lengths {lens[0]}..{lens[-1]} {dt} "
+        f"({VARIANTS['decode_attention'][dt]}, {n_split} splits): "
+        f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms={lib:.6f} "
+        f"(SDPA, enable_gqa, boolean mask) bound_ms={b_ms:.6f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, shape=[B, S, H, KV, D], dtype=dt,
+                variant=VARIANTS["decode_attention"][dt], n_split=n_split)
+
+
 def attention_phase(torch, np, rows):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(3)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    F = torch.nn.functional
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     full = dict(H=40, KV=8, D=128)  # Qwen2.5-32B's attention
     err = {n: dict.fromkeys(dts, 0.0) for n in ("flash_attention", "decode_attention")}
@@ -2735,51 +2806,11 @@ def attention_phase(torch, np, rows):
                  f"{(B, S, H, KV, D)} lengths={list(map(int, lens))}")
 
     # --- times at the serving path's shapes ---------------------------------
-    def flash_row(B, dt, reps=50):
-        dtype = dts[dt]
-        H, KV, D, S = full["H"], full["KV"], full["D"], LLM_PROMPT
-        q, k, v = _flash_inputs(torch, rng, B, S, S, H, KV, D, dtype)
-        ms = device_ms(torch, lambda: fa.flash_attention(q, k, v), reps)
-        plain = device_ms(torch, lambda: fa.attention_ref(q, k, v), reps)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
-        pairs = S * (S + 1) // 2  # causal (q, k) pairs per head
-        item = q.element_size()
-        b_ms, b_by = bound(item * (2 * B * S * H * D + 2 * B * S * KV * D),
-                           4 * B * H * D * pairs,
-                           BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-        variant = VARIANTS["flash_attention"][dt]
-        log(f"flash_attention b={B} {(S, H, KV, D)} {dt} ({variant}): kernel_ms={ms:.6f} "
-            f"plain_ms={plain:.6f} library_ms={lib:.6f} (SDPA, enable_gqa) "
-            f"bound_ms={b_ms:.6f} ({b_by})")
-        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by, shape=[B, S, S, H, KV, D], dtype=dt, variant=variant)
+    def flash_row(B, dt):
+        return attn_flash_row(torch, rng, B, dts[dt], **full)
 
-    def decode_row(B, dt, reps=200):
-        dtype = dts[dt]
-        H, KV, D, S = full["H"], full["KV"], full["D"], LLM_PROMPT + LLM_GEN
-        lens = _path_lengths(B)
-        q, kc, vc, ln = _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lens)
-        ms = device_ms(torch, lambda: da.decode_attention(q, kc, vc, ln), reps)
-        plain = device_ms(torch, lambda: da.decode_attention_ref(q, kc, vc, ln), reps)
-        mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
-        qt, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
-        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
-        keys = int(sum(lens))  # the valid prefixes this run's data needs
-        item = q.element_size()
-        b_ms, b_by = bound(item * (2 * B * H * D + 2 * keys * KV * D) + 4 * B,
-                           4 * H * D * keys,
-                           BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-        n_split = da._split_plan(B, S, KV, n_sm)
-        log(f"decode_attention b={B} S={S} lengths {lens[0]}..{lens[-1]} {dt} "
-            f"({VARIANTS['decode_attention'][dt]}, {n_split} splits): "
-            f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms={lib:.6f} "
-            f"(SDPA, enable_gqa, boolean mask) bound_ms={b_ms:.6f} ({b_by})")
-        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by, shape=[B, S, H, KV, D], dtype=dt,
-                    variant=VARIANTS["decode_attention"][dt], n_split=n_split)
+    def decode_row(B, dt):
+        return attn_decode_row(torch, rng, B, dts[dt], n_sm, **full)
 
     for name, row_fn, source, replaces in (
         ("flash_attention", flash_row, "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2968,10 +2999,14 @@ def profile_decode(torch, M, cfg, params, B):
         return
     total = dev_ms / n
     groups = {"decode_attention kernel": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    if cfg.family == "hybrid":
+        groups = {"ssd_scan kernel": 0.0, **groups}
     for key, (ms, _) in by_name.items():
         low = key.lower()
         if "decode_attn" in low:  # the split and the combine kernel
             g = "decode_attention kernel"
+        elif "ssd_scan" in low:
+            g = "ssd_scan kernel"
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
             g = "matmul (cuBLAS)"
         else:
@@ -2984,9 +3019,11 @@ def profile_decode(torch, M, cfg, params, B):
         f"{launches / n:.0f} kernels per step; weight-read "
         f"bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
         f"({weight_bytes / 2**30:.2f} GiB at 3.35 TB/s); "
-        + "; ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+        + "; ".join(f"{k} {v:.3f} ms (share {v / total:.4f})" for k, v in groups.items()))
     for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {ms / n:9.4f} ms/step {cnt // n:5d} calls/step  {key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=total, kernels=launches / n,
+                groups_ms=groups)
 
 
 def llm_path(torch, np, kernels, rows):
@@ -3051,6 +3088,315 @@ def llm_path(torch, np, kernels, rows):
     profile_decode(torch, M, cfg, params, 1)
     del params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 4i: the Mamba2 hybrid (Zamba2-1.2B) on the card
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-1.2b"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = ("src/repro/models/layers.py:523 (the lax.scan of mamba2_block's chunked "
+                "SSD, :496-523; a scan, not a Pallas kernel)")
+#: f32: tests/test_models.py's kernel-against-naive bar; bf16 inputs: the
+#: attention kernels' (both versions compute in f32 from the same inputs)
+SSD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the kernel's edges: one step (decode), a chunk shorter than 8, exactly one
+#: 128-chunk (a prompt), one step past it (a padded second chunk), several
+SSD_EDGE_S, SSD_EDGE_CHUNKS, SSD_EDGE_B = (1, 7, 128, 129, 300), (8, 128), (1, 8)
+SSD_HEADS = [(64, 64, 64), (8, 16, 16)]  # Zamba2's (H, P, N) and the reduced config's
+HYBRID_DEPTH = 7  # six Mamba2 layers, the shared block, one more layer
+
+
+def _ssd_inputs(torch, np, rng, B, S, H, P, N, dtype, zero_state):
+    """Inputs in a Mamba2 block's regime (tests/test_torch_cuda.py's): xs, B
+    and C views of one fused (B, S, H P + 2 N) tensor, B and C at the
+    1/sqrt(N) scale of a normalised dot product, dt log-uniform on Mamba2's
+    initialisation range [1e-3, 1e-1], A = -exp(log-uniform on [0, log
+    16]).  Unit-scale B / C with dt ~ 0.3 give outputs of ~100 from
+    cancelling sums, where even the plain version in f32 misses 2e-5
+    against float64."""
+    xbc = rng.normal(size=(B, S, H * P + 2 * N))
+    xbc[..., H * P:] /= np.sqrt(N)
+    xbc = torch.as_tensor(xbc, dtype=torch.float32, device="cuda").to(dtype)
+    xs = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    f = dict(dtype=torch.float32, device="cuda")
+    dt = torch.as_tensor(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, H))), **f)
+    a = torch.as_tensor(-np.exp(rng.uniform(0.0, np.log(16.0), H)), **f)
+    state = None if zero_state else torch.as_tensor(rng.normal(size=(B, H, P, N)), **f)
+    return xs, Bm, Cm, dt, dt * a, state
+
+
+def ssd_work(B, S, H, P, N, L, item):
+    """(operations, bytes) the chunked SSD needs on these inputs: per chunk
+    of Lc steps, C_i . B_j for the Lc (Lc + 1) / 2 causal pairs once per
+    sequence (it has no head index), and per head the decay weights, the
+    intra-chunk product, the carried state's term and the state update, a
+    multiply-add two operations; bytes: each input read once, y (f32) and
+    the state written once."""
+    ops = 0
+    for c0 in range(0, S, L):
+        lc = min(L, S - c0)
+        pairs = lc * (lc + 1) // 2
+        ops += B * 2 * pairs * N
+        ops += B * H * (3 * pairs + 2 * pairs * P + 4 * lc * P * N + 2 * P * N)
+    nbytes = (item * (B * S * H * P + 2 * B * S * N)
+              + 4 * (2 * B * S * H + 2 * B * H * P * N + B * S * H * P))
+    return ops, nbytes
+
+
+def ssd_row(torch, np, rng, B, S, dtype, reps):
+    """The SSD kernel and its plain version timed at Zamba2's heads (CUDA
+    graphs of back-to-back calls), beside the bound."""
+    from repro_torch.kernels import ssd_scan as sd
+
+    H, P, N = SSD_HEADS[0]
+    args = _ssd_inputs(torch, np, rng, B, S, H, P, N, dtype, False)
+    ms = device_ms(torch, lambda: sd.ssd_scan(*args, chunk=128), reps)
+    plain = device_ms(torch, lambda: sd.ssd_scan_ref(*args, chunk=128), reps)
+    ops, nbytes = ssd_work(B, S, H, P, N, sd.chunk_len(S, 128), args[0].element_size())
+    b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+    dt = str(dtype).replace("torch.", "")
+    log(f"ssd_scan b={B} S={S} (H, P, N)={(H, P, N)} {dt}: kernel_ms={ms:.6f} "
+        f"plain_ms={plain:.6f} library_ms=null (no PyTorch call computes it) "
+        f"bound_ms={b_ms:.6f} ({b_by}; {ops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=[B, S, H, P, N], dtype=dt)
+
+
+def ssd_checks(torch, np, rows):
+    """The SSD kernel against ssd_scan_ref at the edges of its design, in
+    place, and timed at the serving path's prefill and decode shapes."""
+    from repro_torch.kernels import ssd_scan as sd
+
+    rng = np.random.default_rng(21)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst, n = dict.fromkeys(dts, 0.0), 0
+    for H, P, N in SSD_HEADS:
+        for S in SSD_EDGE_S:
+            for chunk in SSD_EDGE_CHUNKS:
+                for B in SSD_EDGE_B:
+                    for zero in (True, False):
+                        for dt, dtype in dts.items():
+                            args = _ssd_inputs(torch, np, rng, B, S, H, P, N, dtype, zero)
+                            y, st = sd.ssd_scan(*args, chunk=chunk)
+                            y_ref, st_ref = sd.ssd_scan_ref(*args, chunk=chunk)
+                            torch.cuda.synchronize()
+                            t = SSD_TOL[dt]
+                            e = max((y - y_ref).abs().max().item(),
+                                    (st - st_ref).abs().max().item())
+                            check(torch.allclose(y, y_ref, atol=t, rtol=t)
+                                  and torch.allclose(st, st_ref, atol=t, rtol=t),
+                                  f"ssd_scan {(B, S, H, P, N)} chunk={chunk} zero_state="
+                                  f"{zero} {dt}: max abs err {e}")
+                            worst[dt] = max(worst[dt], e)
+                            n += 1
+    log(f"ssd_scan against ssd_scan_ref on the card: {n} cases (S {SSD_EDGE_S} x chunk "
+        f"{SSD_EDGE_CHUNKS} x B {SSD_EDGE_B} x zero / random state x f32 / bf16 at (H, P, "
+        f"N) {SSD_HEADS}): max_abs_err f32 {worst['float32']:.3e} (atol = rtol = "
+        f"{SSD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} ({SSD_TOL['bfloat16']}) ok")
+    xs, Bm, Cm, dt_, dA, st = _ssd_inputs(torch, np, rng, 8, 129, 64, 64, 64,
+                                          torch.bfloat16, False)
+    y_ref, st_ref = sd.ssd_scan_ref(xs, Bm, Cm, dt_, dA, st, chunk=128)
+    y, out = sd.ssd_scan(xs, Bm, Cm, dt_, dA, st, chunk=128, state_out=st)
+    torch.cuda.synchronize()
+    t = SSD_TOL["bfloat16"]
+    check(out.data_ptr() == st.data_ptr() and torch.allclose(y, y_ref, atol=t, rtol=t)
+          and torch.allclose(out, st_ref, atol=t, rtol=t), "ssd_scan in place")
+    log("ssd_scan with state_out = the incoming state (the cache updated in place) ok")
+    main = ssd_row(torch, np, rng, LLM_B_MAX, LLM_PROMPT, torch.bfloat16, 50)
+    others = [ssd_row(torch, np, rng, LLM_B_MAX, 1, torch.bfloat16, 200),
+              ssd_row(torch, np, rng, LLM_B_MAX, LLM_PROMPT, torch.float32, 50),
+              ssd_row(torch, np, rng, LLM_B_MAX, 1, torch.float32, 200)]
+    rows["ssd_scan"] = dict(route="cuda", source=SSD_SOURCE, replaces=SSD_REPLACES,
+                            max_abs_err=max(worst.values()), **main,
+                            max_abs_err_by_dtype=worst, other_shapes=others)
+
+
+def hybrid_attention(torch, np, rows):
+    """Flash and decode at Zamba2's shared block (32 / 32 heads of 64, G =
+    1) against their plain versions, and timed beside SDPA."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = ARCHS[HYBRID_ARCH]
+    heads = dict(H=cfg.n_heads, KV=cfg.n_kv_heads, D=cfg.head_dim)
+    rng = np.random.default_rng(22)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        t = ATTN_TOL[dt]
+        for B in (1, LLM_B_MAX):
+            q, k, v = _flash_inputs(torch, rng, B, LLM_PROMPT, LLM_PROMPT, *heads.values(),
+                                    dtype)
+            got, want = fa.flash_attention(q, k, v), fa.attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), atol=t, rtol=t),
+                  f"flash_attention {HYBRID_ARCH} heads b={B} {dt}: {e}")
+            rows["flash_attention"]["max_abs_err_by_dtype"][dt] = max(
+                rows["flash_attention"]["max_abs_err_by_dtype"][dt], e)
+            S = LLM_PROMPT + LLM_GEN
+            q, kc, vc, ln = _decode_inputs(torch, rng, B, S, *heads.values(), dtype,
+                                           _path_lengths(B))
+            got, want = da.decode_attention(q, kc, vc, ln), da.decode_attention_ref(q, kc, vc, ln)
+            torch.cuda.synchronize()
+            e2 = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), atol=t, rtol=t),
+                  f"decode_attention {HYBRID_ARCH} heads b={B} {dt}: {e2}")
+            rows["decode_attention"]["max_abs_err_by_dtype"][dt] = max(
+                rows["decode_attention"]["max_abs_err_by_dtype"][dt], e2)
+            log(f"{HYBRID_ARCH} heads {tuple(heads.values())} b={B} {dt}: flash (prefill "
+                f"{LLM_PROMPT}) max_abs_err={e:.3e}, decode (lengths "
+                f"{_path_lengths(B)[0]}..{_path_lengths(B)[-1]}) max_abs_err={e2:.3e} "
+                f"(atol = rtol = {t}) ok")
+    for name, row_fn in (("flash_attention", lambda B, d: attn_flash_row(
+            torch, rng, B, d, **heads)), ("decode_attention", lambda B, d: attn_decode_row(
+            torch, rng, B, d, n_sm, **heads))):
+        new = [row_fn(LLM_B_MAX, torch.bfloat16), row_fn(LLM_B_MAX, torch.float32)]
+        rows[name]["other_shapes"] += [dict(r, arch=HYBRID_ARCH) for r in new]
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err_by_dtype"].values())
+
+
+def hybrid_model_checks(torch, np):
+    """The reduced Zamba2 on the card against the CPU (launch counts exact),
+    and full width at depth 7: decode path against fresh prefills."""
+    import copy
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+
+    full = ARCHS[HYBRID_ARCH]
+    rng = np.random.default_rng(23)
+    cfg = full.reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 32)))
+    kernels.reset_launch_counts()
+    got, _ = _greedy_logits(torch, M, cfg, card, toks.cuda(), 4, 40)
+    counts = kernels.launch_counts()
+    want, _ = _greedy_logits(torch, M, cfg, cpu, toks, 4, 40)
+    e = (got.cpu() - want).abs().max().item()
+    check(e <= LOGIT_ATOL, f"reduced {HYBRID_ARCH} card vs CPU: max abs err {e}")
+    n_occ = M.n_shared_occurrences(cfg)
+    check(counts["ssd_scan"] == 5 * cfg.n_layers and counts["flash_attention"] == n_occ
+          and counts["decode_attention"] == 4 * n_occ,
+          f"reduced {HYBRID_ARCH} launches {counts}: not one SSD scan per Mamba2 layer and "
+          f"step, one flash / decode per occurrence of the shared block and step")
+    log(f"reduced {HYBRID_ARCH} f32 (d={cfg.d_model}, L={cfg.n_layers}, {n_occ} shared-block "
+        f"occurrences): card (kernels) vs CPU (plain): prefill + 4 decode logits "
+        f"max_abs_err={e:.3e} (atol {LOGIT_ATOL}); launches ssd_scan {counts['ssd_scan']}, "
+        f"flash {counts['flash_attention']}, decode {counts['decode_attention']} ok")
+    del cpu, card
+
+    cfg7 = dataclasses.replace(full, n_layers=HYBRID_DEPTH)
+    params = M.init_params(cfg7, torch.Generator(device="cuda").manual_seed(0),
+                           torch.float32, "cuda")
+    P, steps = 16, 4
+    toks = torch.as_tensor(rng.integers(0, cfg7.vocab_size, (2, P)), device="cuda")
+    dec, gen_toks = _greedy_logits(torch, M, cfg7, params, toks, steps, P + steps + 1)
+    worst = 0.0
+    for i in range(steps + 1):
+        seq = torch.cat([toks] + gen_toks[:i], dim=1)
+        fresh, _ = M.prefill(cfg7, params, {"tokens": seq}, seq.shape[1], torch.float32)
+        e = (dec[:, i] - fresh[:, 0]).abs().max().item()
+        worst = max(worst, e)
+        check(e <= LOGIT_ATOL, f"{HYBRID_ARCH} depth {HYBRID_DEPTH} decode vs prefill at "
+                               f"step {i}: {e}")
+    torch.cuda.synchronize()
+    log(f"{HYBRID_ARCH} full width (d={cfg7.d_model}, {cfg7.n_ssm_heads} SSM heads of "
+        f"{cfg7.ssm_head_dim}, state {cfg7.ssm_state}, attention {cfg7.n_heads}/"
+        f"{cfg7.n_kv_heads} x {cfg7.head_dim}), depth {HYBRID_DEPTH} (6 Mamba2 layers, the "
+        f"shared block, 1 more) f32: decode-path logits vs a fresh prefill of prompt + "
+        f"generated, {steps} steps: max_abs_err={worst:.3e} (atol {LOGIT_ATOL}); logit "
+        f"scale {dec.abs().max().item():.3f}; ok")
+    del params, dec
+    torch.cuda.empty_cache()
+
+
+def hybrid_path(torch, np, kernels, rows):
+    """Zamba2-1.2B at its published config (38 layers, bf16) through
+    serve_llm.run_pipeline, launch counts exact."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import model as M
+
+    cfg = ARCHS[HYBRID_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_occ = M.n_shared_occurrences(cfg)
+    log(f"{HYBRID_ARCH} (published config: d={cfg.d_model} L={cfg.n_layers} Mamba2 "
+        f"(d_inner {cfg.d_inner_ssm} = {cfg.n_ssm_heads} heads x {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, conv {cfg.ssm_conv}), shared attention + MLP every "
+        f"{cfg.shared_attn_every} layers ({n_occ} occurrences, H={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.head_dim}, GELU ff={cfg.d_ff}), V={cfg.vocab_size}, tied) "
+        f"bf16 random weights: {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def note(msg):
+        log(f"  {msg}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_llm.run_pipeline(
+        cfg, params, n_requests=LLM_REQUESTS, rho=LLM_RHO, gen_tokens=LLM_GEN,
+        prompt_len=LLM_PROMPT, b_max=LLM_B_MAX, cache_dtype=torch.bfloat16, seed=0,
+        log=note)
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    log(f"hybrid path launches: {counts} ({res.segments} segments, wall {wall:.2f} s)")
+    seg = res.segments
+    want = {"flash_attention": n_occ * seg, "decode_attention": n_occ * (LLM_GEN - 1) * seg,
+            "ssd_scan": cfg.n_layers * LLM_GEN * seg,
+            "bellman_banded": _backups_of(res.solution, "cuda")}
+    for name, n in want.items():
+        check(counts[name] == n, f"{name} launched {counts[name]} times, not {n}")
+    log(f"hybrid path launches exact: flash {n_occ} x {seg} segments, decode {n_occ} x "
+        f"{LLM_GEN - 1} x {seg}, ssd_scan {cfg.n_layers} x {LLM_GEN} x {seg}, Bellman "
+        f"{want['bellman_banded']} backups")
+    log("hybrid l(b) ms, b = 1..8 (non-decreasing): "
+        + " ".join(f"{x:.3f}" for x in res.lat_ms))
+    sol = res.solution
+    log(f"hybrid policy head (s = 0..16): {sol.action_table(16).tolist()} "
+        f"s_max={sol.spec.s_max} backups={want['bellman_banded']} "
+        f"W_model={sol.eval.w_bar:.3f} ms")
+    for name, rep in res.reports.items():
+        lat = rep.latencies
+        check(rep.n_served == LLM_REQUESTS and np.isfinite(lat).all(), f"hybrid {name} served")
+        log(f"hybrid serve {name}: W={lat.mean() * 1e3:.3f} ms "
+            f"P95={rep.percentile(95) * 1e3:.3f} ms mean_batch={rep.mean_batch:.3f} "
+            f"P_proxy={rep.power:.3f} W (60 W x service time, not measured) "
+            f"span={rep.span:.3f} s")
+    check(all(np.isfinite(res.lat_ms)) and res.lat_ms[0] > 0, "hybrid l(b) profile")
+    log(f"hybrid peak memory (torch.cuda.max_memory_allocated): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    rows["ssd_scan"]["launches"] = counts["ssd_scan"]
+    for name in ("flash_attention", "decode_attention"):
+        rows[name]["launches_hybrid_path"] = counts[name]
+    rows["bellman_banded"]["launches_hybrid_path"] = counts["bellman_banded"]
+    prof = profile_decode(torch, M, cfg, params, LLM_B_MAX)
+    if prof is not None:
+        rows["ssd_scan"]["decode_step_share"] = (
+            prof["groups_ms"]["ssd_scan kernel"] / prof["device_ms"])
+    del params
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(torch, np, kernels, rows):
+    t0 = time.perf_counter()
+    ssd_checks(torch, np, rows)
+    hybrid_attention(torch, np, rows)
+    hybrid_model_checks(torch, np)
+    hybrid_path(torch, np, kernels, rows)
+    log(f"phase 4i ({HYBRID_ARCH}): {time.perf_counter() - t0:.2f} s")
 
 
 def main():
@@ -3167,12 +3513,16 @@ def main():
     model_checks(torch, np)
     llm_path(torch, np, kernels, rows)
 
+    # --- the Mamba2 hybrid (Zamba2-1.2B): SSD kernel, attention at D = 64 (4i)
+    hybrid_phase(torch, np, kernels, rows)
+
     order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
              "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",
              "serve_scan_grid_plain", "serve_scan_grid_adaptive",
              "serve_scan_mix", "serve_scan_grid_mix", "belief_forward",
              "fleet_scan", "fleet_scan_grid", "fleet_scan_mix",
-             "mmpp_sample", "sim_scan", "flash_attention", "decode_attention")
+             "mmpp_sample", "sim_scan", "flash_attention", "decode_attention",
+             "ssd_scan")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_list = []

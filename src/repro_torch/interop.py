@@ -13,7 +13,7 @@ it.
     policy into the port's ``SMDPScheduler``;
   * ``params_from_reference(cfg, params)`` turns the reference's
     ``init_params`` tree (layers stacked on a leading axis) into the
-    port's ``DenseLM``.
+    port's ``DenseLM`` or, for the hybrid family, ``HybridLM``.
 """
 from __future__ import annotations
 
@@ -25,7 +25,14 @@ from .core import profiles, service_models
 from .core.smdp import SMDPSpec
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
-from .models.model import DenseLM, block_norms, check_supported
+from .models.model import (
+    LM,
+    DenseLM,
+    HybridLM,
+    block_norms,
+    check_supported,
+    mamba_shapes,
+)
 from .serving.scheduler import SMDPScheduler
 
 #: port classes a reference dataclass maps to, by class name
@@ -76,18 +83,21 @@ def table_from_reference(result) -> SMDPScheduler:
 
 
 def params_from_reference(cfg: ModelConfig, params, *,
-                          device: DeviceLike = None) -> DenseLM:
-    """The port's DenseLM holding a reference ``init_params`` tree.
+                          device: DeviceLike = None) -> LM:
+    """The port's DenseLM (HybridLM for the hybrid family) holding a
+    reference ``init_params`` tree.
 
     ``params`` is the reference's nested dict with numpy (or array-like)
     leaves.  The stacked leading L axis is split into per-layer tensors;
     wq / wk / wv (d, H|KV, hd) become the columns of ``wqkv`` (and their
     biases of ``bqkv``), wo (H, hd, d) becomes (H hd, d), w1 / w3 the two
-    halves of ``w13``; norms and the output matrix carry over, all in the
-    arrays' own dtype.
+    halves of ``w13``; the hybrid's Mamba2 weights keep their names and its
+    ``shared_attn`` block gets the same attention / MLP layout; norms and
+    the output matrix carry over, all in the arrays' own dtype.
     """
     check_supported(cfg)
     dev = resolve_device(device)
+    d = cfg.d_model
 
     def t(x):
         return torch.from_numpy(np.array(x)).to(dev)  # a writable copy
@@ -98,28 +108,45 @@ def params_from_reference(cfg: ModelConfig, params, *,
             out[name + "_b"] = t(tree["b"])
         return out
 
+    def attn_mlp(get):
+        """An attention + MLP block in the port's layout; get(name) -> array."""
+        b = {
+            "wqkv": t(np.concatenate(
+                [np.asarray(get(n)).reshape(d, -1) for n in ("wq", "wk", "wv")], axis=1)),
+            "wo": t(np.asarray(get("wo")).reshape(-1, d)),
+        }
+        if cfg.qkv_bias:
+            b["bqkv"] = t(np.concatenate(
+                [np.asarray(get(n)).reshape(-1) for n in ("bq", "bk", "bv")]))
+        if cfg.act in ("swiglu", "geglu"):
+            b["w13"] = t(np.concatenate([get("w1"), get("w3")], axis=1))
+        else:
+            b["w1"] = t(get("w1"))
+        b["w2"] = t(get("w2"))
+        return b
+
+    def layer_norm_of(tree, i, name):
+        return norm({k: np.asarray(v)[i] for k, v in tree.items()}, name)
+
     top = {"embed": t(params["embed"]), **norm(params["final_norm"], "final_norm")}
     if not cfg.tie_embeddings:
         top["out"] = t(params["out"])
     blk = params["blocks"]
-    d = cfg.d_model
     blocks = []
     for i in range(cfg.n_layers):
         layer = lambda name: np.asarray(blk[name])[i]  # noqa: E731
-        b = {
-            "wqkv": t(np.concatenate(
-                [layer(n).reshape(d, -1) for n in ("wq", "wk", "wv")], axis=1)),
-            "wo": t(layer("wo").reshape(-1, d)),
-        }
-        if cfg.qkv_bias:
-            b["bqkv"] = t(np.concatenate(
-                [layer(n).reshape(-1) for n in ("bq", "bk", "bv")]))
-        if cfg.act in ("swiglu", "geglu"):
-            b["w13"] = t(np.concatenate([layer("w1"), layer("w3")], axis=1))
+        if cfg.family == "hybrid":
+            b = {n: t(layer(n)) for n in mamba_shapes(cfg) if not n.startswith("ln")}
+            b.update(layer_norm_of(blk["ln1"], i, "ln1"))
         else:
-            b["w1"] = t(layer("w1"))
-        b["w2"] = t(layer("w2"))
-        for n in block_norms(cfg):
-            b.update(norm({k: np.asarray(v)[i] for k, v in blk[n].items()}, n))
+            b = attn_mlp(layer)
+            for n in block_norms(cfg):
+                b.update(layer_norm_of(blk[n], i, n))
         blocks.append(b)
-    return DenseLM(cfg, top, blocks)
+    if cfg.family != "hybrid":
+        return DenseLM(cfg, top, blocks)
+    sa = params["shared_attn"]
+    shared = attn_mlp(lambda name: sa[name])
+    for n in ("ln_a", "ln_m"):
+        shared.update(norm(sa[n], n))
+    return HybridLM(cfg, top, blocks, shared)

@@ -17,6 +17,7 @@ from . import fleet_scan as _fleet_scan
 from . import mmpp_sample as _mmpp_sample
 from . import serve_scan as _serve_scan
 from . import sim_scan as _sim_scan
+from . import ssd_scan as _ssd_scan
 
 WRAPPERS = {
     "bellman_banded": _bellman.bellman_banded,
@@ -28,6 +29,7 @@ WRAPPERS = {
     "sim_scan": _sim_scan.sim_scan,
     "flash_attention": _flash.flash_attention,
     "decode_attention": _decode.decode_attention,
+    "ssd_scan": _ssd_scan.ssd_scan,
 }
 
 

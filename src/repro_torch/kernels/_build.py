@@ -38,7 +38,8 @@ BASE_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: belief_forward fuses only where its plain version does (explicit fma).
 #: fleet_scan rounds its clocks and crash energies the same way, and
 #: mmpp_sample / sim_scan round t + gap, nsw + e * dwell, s * T + sum as
-#: their plain walks do.
+#: their plain walks do.  ssd_scan is held to tolerances, not bit for bit,
+#: and keeps nvcc's default contraction.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "belief_forward": ["-fmad=false"],
     "bellman": [],
@@ -48,6 +49,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "sim_scan": ["-fmad=false"],
     "flash_attention": [],
     "decode_attention": [],
+    "ssd_scan": [],
 }
 
 _lock = threading.Lock()

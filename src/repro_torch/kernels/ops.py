@@ -3,7 +3,8 @@
 The Bellman entry points cast to the kernel's f32 and move the inputs to
 ``device`` exactly as the reference wrappers cast: ``h_overflow`` becomes a
 float32 scalar, the arrays float32.  The attention entry points keep the
-inputs' dtype (float32 or bfloat16) and move them to ``device``.  On a CPU
+inputs' dtype (float32 or bfloat16) and move them to ``device``; so does
+the SSD scan, whose dt / dA / state are float32.  On a CPU
 device they run the plain PyTorch version; on a CUDA device they launch the
 hand-written kernel or raise -- there is no fallback from one to the other.
 """
@@ -17,6 +18,7 @@ from ..device import DeviceLike, resolve_device
 from . import bellman as _bellman
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import ssd_scan as _ssd
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -73,4 +75,20 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
         _on(q, dev), _on(k_cache, dev), _on(v_cache, dev),
         torch.as_tensor(lengths, dtype=torch.int32, device=dev),
         softcap=softcap, block_k=block_k,
+    )
+
+
+def ssd_scan(xs, Bm, Cm, dt, dA, state=None, *, chunk: int = 128,
+             state_out: Optional[torch.Tensor] = None, device: DeviceLike = None):
+    """Chunked SSD scan of a Mamba2 block (see kernels/ssd_scan.py).
+
+    xs (B, S, H, P), Bm / Cm (B, S, N) in the activation dtype, dt / dA
+    (B, S, H) float32, state (B, H, P, N) float32 or None; returns (y (B, S,
+    H, P) float32 before the skip term, final state), the state written
+    into ``state_out`` when one is given.
+    """
+    dev = resolve_device(device)
+    return _ssd.ssd_scan(
+        _on(xs, dev), _on(Bm, dev), _on(Cm, dev), _on(dt, dev), _on(dA, dev),
+        None if state is None else _on(state, dev), chunk=chunk, state_out=state_out,
     )

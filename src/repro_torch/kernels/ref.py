@@ -8,3 +8,4 @@ from .bellman import bellman_banded_batched_ref, bellman_banded_ref  # noqa: F40
 from .decode_attention import decode_attention_ref  # noqa: F401
 from .flash_attention import attention_ref  # noqa: F401
 from .serve_scan import serve_scan_ref  # noqa: F401
+from .ssd_scan import ssd_scan_ref  # noqa: F401

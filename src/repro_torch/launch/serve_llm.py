@@ -14,13 +14,18 @@ Pipeline:
      meter).
 
 On the card every prefill goes through the flash-attention kernel and
-every decode step through the decode-attention kernel, once per layer.
+every decode step through the decode-attention kernel, once per attention
+layer (for the Mamba2 hybrid, once per occurrence of its shared block),
+and every step of a hybrid through the SSD scan kernel once per Mamba2
+layer.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cpu
-        [--arch qwen2.5-32b] [--n-requests 120] [--rho 0.6] [--gen-tokens 8]
+        [--arch qwen2.5-32b | zamba2-1.2b] [--n-requests 120] [--rho 0.6]
+        [--gen-tokens 8]
 
 The CLI runs the arch's ``reduced()`` config in float32, as the example
-does; ``run_pipeline`` takes any dense config, weights and dtypes.
+does; ``run_pipeline`` takes any dense or hybrid config, weights and
+dtypes.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ class SegmentExecutor:
     timer around it measures the service, not the enqueue.
     """
 
-    def __init__(self, cfg: ModelConfig, params: M.DenseLM, gen_tokens: int,
+    def __init__(self, cfg: ModelConfig, params: M.LM, gen_tokens: int,
                  b_max: int, prompt_len: int, cache_dtype: torch.dtype):
         if gen_tokens < 1:
             raise ValueError("gen_tokens must be >= 1")
@@ -97,7 +102,7 @@ class SegmentExecutor:
         self.run(torch.stack([r.payload for r in batch]))
 
 
-def build_executor(cfg: ModelConfig, params: M.DenseLM, gen_tokens: int,
+def build_executor(cfg: ModelConfig, params: M.LM, gen_tokens: int,
                    b_max: int, prompt_len: int = 16,
                    cache_dtype: torch.dtype = torch.float32) -> SegmentExecutor:
     return SegmentExecutor(cfg, params, gen_tokens, b_max, prompt_len, cache_dtype)
@@ -139,7 +144,7 @@ class PipelineResult:
     segments: int  # decode segments run, profile included
 
 
-def run_pipeline(cfg: ModelConfig, params: M.DenseLM, *, n_requests: int,
+def run_pipeline(cfg: ModelConfig, params: M.LM, *, n_requests: int,
                  rho: float, gen_tokens: int, prompt_len: int, b_max: int,
                  cache_dtype: torch.dtype, seed: int = 0,
                  log: Callable[[str], None] = print) -> PipelineResult:

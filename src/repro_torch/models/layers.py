@@ -1,26 +1,31 @@
-"""Model building blocks, dense subset (counterpart of repro.models.layers).
+"""Model building blocks (counterpart of repro.models.layers): the dense
+decoder's and the Mamba2 hybrid's.
 
-Norms, rotary embeddings, the attention block and the MLPs of the dense
-decoder.  Projections are plain ``torch.matmul``, as the reference leaves
-them to XLA; attention goes to the hand-written kernels through
-``kernels.ops``:
+Norms, rotary embeddings, the attention block, the MLPs and the Mamba2
+block.  Projections are plain ``torch.matmul``, as the reference leaves
+them to XLA; attention and the SSD scan go to the hand-written kernels
+through ``kernels.ops``:
 
   * a fresh-cache prefill (or a cache-free forward) is causal attention
     over the segment's own k, v -- ``ops.flash_attention``;
   * a one-token decode attends over the layer's cache with
     ``lengths = length + 1`` -- ``ops.decode_attention``, which reads the
-    cache in place.
+    cache in place;
+  * the Mamba2 block's chunked SSD scan -- ``ops.ssd_scan`` (its plain
+    version on CPU tensors).
 
 Every other case (sliding-window or chunked-local masks, a multi-token
 append to a non-empty cache) raises ``NotImplementedError`` on both
 devices: there is no plain fallback on the card.
 
-Weight layout of one block (``p``): ``wqkv`` (d, (H + 2 KV) hd) -- the
-reference's wq, wk, wv (d, H|KV, hd) side by side -- with ``bqkv``;
-``wo`` (H hd, d); ``w13`` (d, 2 ff) = [w1 | w3] for gated MLPs, else
-``w1`` (d, ff); ``w2`` (ff, d); norm scales ``ln1`` / ``ln2`` (and
+Weight layout of one attention block (``p``): ``wqkv`` (d, (H + 2 KV) hd)
+-- the reference's wq, wk, wv (d, H|KV, hd) side by side -- with
+``bqkv``; ``wo`` (H hd, d); ``w13`` (d, 2 ff) = [w1 | w3] for gated MLPs,
+else ``w1`` (d, ff); ``w2`` (ff, d); norm scales ``ln1`` / ``ln2`` (and
 ``ln1_b`` / ``ln2_b`` for LayerNorm, ``ln1_post`` / ``ln2_post`` for
-post-block norms).
+post-block norms).  A Mamba2 block keeps the reference's names:
+``in_proj`` (d, 2 di + 2 N + H), ``out_proj`` (di, d), ``conv_w`` (K, di +
+2 N), ``dt_bias`` / ``a_log`` / ``d_skip`` (H,).
 """
 from __future__ import annotations
 
@@ -182,3 +187,60 @@ def mlp(cfg: ModelConfig, p, x):
     else:  # plain gelu MLP
         h = F.gelu(torch.matmul(x, p["w1"]), approximate="tanh")
     return torch.matmul(h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked) -- the hybrid family's backbone
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv along seq. x: (B, S, C), w: (K, C).
+
+    state: (B, K-1, C) trailing inputs of the previous segment (decode).
+    The K shifted products are summed in the reference's order, in x's
+    dtype.  Returns (y, new_state); new_state is a view of the padded input.
+    """
+    B, S, C = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)  # (B, S+K-1, C)
+    wx = w.to(x.dtype)
+    y = xp[:, 0:S, :] * wx[0]  # the reference's sum(), less its leading 0 +
+    for i in range(1, K):
+        y = y + xp[:, i:i + S, :] * wx[i]
+    new_state = xp[:, S:, :] if K > 1 else state
+    return y, new_state
+
+
+def mamba2_block(cfg: ModelConfig, p, x, *, ssm_state=None, conv_state=None,
+                 chunk: int = 128, ssm_out=None):
+    """Mamba2 block via the chunked SSD scan (``ops.ssd_scan``).
+
+    x: (B, S, d).  State: (B, H, P, N) float32 with H = n_ssm_heads, P =
+    ssm_head_dim, N = ssm_state.  Returns (y, new_ssm_state,
+    new_conv_state).  With ``ssm_out`` (e.g. the cache's slice, which may be
+    ``ssm_state`` itself) the scan writes the new state there.
+    """
+    B, S, d = x.shape
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    di = cfg.d_inner_ssm
+
+    zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], conv_state)
+    xbc = F.silu(xbc)
+    xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    xs = xs.reshape(B, S, H, P)
+    # jax.nn.softplus is logaddexp(x, 0) (F.softplus turns linear above 20)
+    dt = torch.logaddexp(dt.float() + p["dt_bias"].float(), torch.zeros((), device=x.device))
+    a = -torch.exp(p["a_log"].float())  # (H,) negative
+    dA = dt * a  # per-step log decay, <= 0
+
+    y, ssm_state = ops.ssd_scan(xs, Bm, Cm, dt, dA, ssm_state, chunk=chunk,
+                                state_out=ssm_out, device=x.device)
+    y = y + xs.float() * p["d_skip"].float()[None, None, :, None]
+    y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
+    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    return out, ssm_state, conv_state

@@ -72,8 +72,9 @@ class KVCachePool:
                          in_use=self.n_slots - len(self._free))
 
     def bytes_per_slot(self) -> int:
-        """Bytes of one slot's cache as the reference counts them: K and V
-        in bf16 (``init_cache``'s default dtype) plus the int32 length
-        counter the reference keeps beside them."""
-        elems = math.prod(M.cache_shape(self.cfg, 1, self.max_len))
-        return int(2 * elems * torch.bfloat16.itemsize + 4)
+        """Bytes of one slot's cache as the reference counts them: every
+        tensor of ``init_cache`` at its default dtype (bf16; the hybrid's
+        SSM state f32) plus the int32 length counter the reference keeps
+        beside them."""
+        shapes = M.cache_shapes(self.cfg, 1, self.max_len).values()
+        return int(sum(math.prod(shape) * dt.itemsize for shape, dt in shapes) + 4)

@@ -30,7 +30,12 @@ on the plain restart, a NaN spec completes as failed), 2e-5 (f32) and
 2e-2 (bf16) for the attention kernels against their plain versions
 (tests/test_kernels.py's), 2e-6 for the f32 decode kernel against the
 plain mirror of its split-K arithmetic (the same sums in another order),
-atol 3e-4 on model logits (tests/test_models.py's), the MMPP sampler
+atol 3e-4 on model logits (tests/test_models.py's; the reduced Zamba2
+too, its launches one SSD scan per Mamba2 layer and step, one flash /
+decode per occurrence of the shared block), the SSD scan kernel at 2e-5
+(f32) and 2e-2 (bf16) against its plain version (the reference's
+kernel-against-naive bar and the attention kernels'; inputs in a Mamba2
+block's regime, see _ssd_inputs), the MMPP sampler
 and simulator kernels equal to their plain walks in every output (lanes
 1, 7, 133; n_steps 1 and a long run; a run that clips at k_max, a > s,
 every service family, the ring wrapping), and a durable sweep resumed on
@@ -54,6 +59,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fleet_scan as fk
 from repro_torch.kernels import mmpp_sample as mk
 from repro_torch.kernels import sim_scan as sk
+from repro_torch.kernels import ssd_scan as sd
 from repro_torch.kernels import serve_scan as ss
 from repro_torch.launch import serve_llm
 from repro_torch.models import model as M
@@ -1134,3 +1140,100 @@ def test_durable_sweep_on_the_card(cuda, tmp_path):
     pt.sweep_solve(specs, checkpoint_dir=str(tmp_path / "cpu"), device="cpu", **kw)
     with pytest.raises(ValueError, match="different sweep"):
         pt.sweep_solve(specs, checkpoint_dir=str(tmp_path / "cpu"), device="cuda", **kw)
+
+
+# --- the SSD scan kernel (Mamba2) ---------------------------------------------
+
+SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _ssd_inputs(seed, B, S, H, P, N, dtype, zero_state, dev):
+    """Inputs in a Mamba2 block's regime: xs, B and C as views of one fused
+    (B, S, H P + 2 N) tensor, B and C at the 1/sqrt(N) scale of a
+    normalised dot product, dt log-uniform on Mamba2's initialisation range
+    [1e-3, 1e-1], A = -exp(log-uniform on [0, log 16]).  (Unit-scale B / C
+    and dt ~ 0.3 make outputs of ~100 from cancelling sums and decays of
+    e^-60 a chunk, where the plain version in f32 misses 2e-5 against
+    float64 itself.)"""
+    rng = np.random.default_rng(seed)
+    xbc = rng.normal(size=(B, S, H * P + 2 * N))
+    xbc[..., H * P:] /= np.sqrt(N)
+    xbc = torch.as_tensor(xbc, dtype=torch.float32, device=dev).to(dtype)
+    xs = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    f = dict(dtype=torch.float32, device=dev)
+    dt = torch.as_tensor(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, H))), **f)
+    a = torch.as_tensor(-np.exp(rng.uniform(0.0, np.log(16.0), H)), **f)
+    state = None if zero_state else torch.as_tensor(rng.normal(size=(B, H, P, N)), **f)
+    return xs, Bm, Cm, dt, dt * a, state
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk", [(1, 128), (7, 8), (7, 128), (128, 128), (129, 128),
+                                     (300, 8), (300, 128)])
+@pytest.mark.parametrize("B,H,P,N", [(8, 64, 64, 64), (1, 8, 16, 16)])
+def test_ssd_scan_kernel_matches_plain(cuda, B, H, P, N, S, chunk, dtype, zero_state):
+    args = _ssd_inputs(S + chunk, B, S, H, P, N, dtype, zero_state, cuda)
+    before = sd.ssd_scan.launches
+    y, st = sd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sd.ssd_scan.launches == before + 1
+    y_ref, st_ref = sd.ssd_scan_ref(*args, chunk=chunk)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
+    torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_kernel_in_place_and_layout(cuda):
+    """The state updated in place (state_out is state); the C library's
+    shared-memory size equals the wrapper's; inputs the kernel cannot read
+    in place, or a chunk over the shared memory, are refused."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    xs, Bm, Cm, dt, dA, st = _ssd_inputs(5, 8, 129, 64, 64, 64, torch.bfloat16, False, cuda)
+    y_ref, st_ref = sd.ssd_scan_ref(xs, Bm, Cm, dt, dA, st, chunk=128)
+    y, out = sd.ssd_scan(xs, Bm, Cm, dt, dA, st, chunk=128, state_out=st)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == st.data_ptr()
+    torch.testing.assert_close(y, y_ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out, st_ref, atol=2e-2, rtol=2e-2)
+    fn = _build.function("ssd_scan", "ssd_scan_smem_bytes", ctypes.c_longlong,
+                         [ctypes.c_int] * 3)
+    for P, N, L in ((64, 64, 128), (16, 16, 8), (64, 64, 1), (32, 128, 100)):
+        assert fn(P, N, L) == sd.smem_bytes(P, N, L)
+    with pytest.raises(ValueError, match="contiguous"):
+        sd.ssd_scan(xs.transpose(2, 3), Bm, Cm, dt, dA, None)
+    long = _ssd_inputs(6, 1, 300, 2, 64, 64, torch.bfloat16, True, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sd.ssd_scan(*long, chunk=200)
+
+
+def test_reduced_hybrid_card_matches_cpu(cuda):
+    """Reduced Zamba2 in f32: the kernels on the card against the plain
+    versions on the CPU from the same weights; prefill + 4 decode steps
+    launch one SSD scan per Mamba2 layer and step, one flash / decode per
+    occurrence of the shared block."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["zamba2-1.2b"].reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 16)))
+    outs = {}
+    kernels.reset_launch_counts()
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        lg, cache = M.prefill(cfg, p, {"tokens": toks.to(p.device)}, 24, torch.float32)
+        seq = [lg]
+        tok = toks[:, :1].to(p.device)
+        for _ in range(4):
+            lg, cache = M.decode_step(cfg, p, cache, tok)
+            seq.append(lg)
+        outs[name] = torch.cat(seq, 1).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=3e-4, rtol=0)
+    counts = kernels.launch_counts()
+    n_occ = M.n_shared_occurrences(cfg)
+    assert counts["ssd_scan"] == 5 * cfg.n_layers
+    assert counts["flash_attention"] == n_occ
+    assert counts["decode_attention"] == 4 * n_occ

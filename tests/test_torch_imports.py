@@ -42,7 +42,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.kernels.fleet_scan\n"
         "import repro_torch.checkpoint, repro_torch.core.simulate\n"
         "import repro_torch.launch.resume_sweep, repro_torch.kernels.sim_scan\n"
-        "import repro_torch.kernels.mmpp_sample\n"
+        "import repro_torch.kernels.mmpp_sample, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.models.layers, repro_torch.models.model\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -111,6 +112,10 @@ def _entry_points():
     h = np.zeros(9)
     pm = np.full((3, 5), 0.2)
     cfg = ARCHS["qwen2.5-32b"].reduced()
+    zamba = ARCHS["zamba2-1.2b"].reduced()
+    xs = np.zeros((1, 3, 2, 4), np.float32)
+    bc = np.zeros((1, 3, 5), np.float32)
+    dt = np.zeros((1, 3, 2), np.float32)
     q = np.zeros((1, 4, 4, 16), np.float32)
     kv = np.zeros((1, 4, 2, 16), np.float32)
     return {
@@ -161,6 +166,10 @@ def _entry_points():
         "decode_attention": lambda: ops.decode_attention(q[:, 0], kv, kv, [2]),
         "init_params": lambda: M.init_params(cfg, torch.Generator()),
         "init_cache": lambda: M.init_cache(cfg, 1, 8),
+        "init_params(hybrid)": lambda: M.init_params(zamba, torch.Generator()),
+        "init_cache(hybrid)": lambda: M.init_cache(zamba, 1, 8),
+        "ssd_scan": lambda: ops.ssd_scan(
+            xs, bc, bc, dt, dt, None, chunk=2),
         "KVCachePool": lambda: KVCachePool(cfg, 2, 8),
         "poisson_times": lambda: poisson_times(0, 1.0, 4),
         "mmpp2_times": lambda: mmpp2_times(0, MMPP2(1.0, 2.0, 5.0, 5.0), 4),
@@ -246,6 +255,7 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
     assert mmpp_sample.mmpp_sample.launches == 0 and sim_scan.sim_scan.launches == 0
     from repro_torch.kernels import decode_attention, flash_attention
 
+    f32 = dict(dtype=torch.float32, device="meta")
     f = dict(dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention.flash_attention(torch.empty(1, 4, 4, 16, **f),
@@ -258,6 +268,15 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
             torch.empty(1, dtype=torch.int32, device="meta"))
     assert flash_attention.flash_attention.launches == 0
     assert decode_attention.decode_attention.launches == 0
+    from repro_torch.kernels import ssd_scan
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = dict(dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ssd_scan.ssd_scan(torch.empty(1, 3, 2, 4, **x), torch.empty(1, 3, 5, **x),
+                              torch.empty(1, 3, 5, **x), torch.empty(1, 3, 2, **f32),
+                              torch.empty(1, 3, 2, **f32), torch.empty(1, 2, 4, 5, **f32))
+    assert ssd_scan.ssd_scan.launches == 0
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():

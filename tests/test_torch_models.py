@@ -130,7 +130,7 @@ def test_greedy_segment_tokens_match_reference(qwen):
 
 def test_unported_families_raise():
     gen = torch.Generator().manual_seed(0)
-    for name in ("zamba2-1.2b", "grok-1-314b", "rwkv6-3b", "whisper-small", "qwen2-vl-7b"):
+    for name in ("grok-1-314b", "rwkv6-3b", "whisper-small", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             M.init_params(PARCHS[name].reduced(), gen, device="cpu")
     gemma = PARCHS["gemma2-9b"].reduced()
