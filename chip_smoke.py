@@ -168,7 +168,28 @@
    exact (flash 6 x segments, decode 6 x 15 x segments, SSD 38 x 16 x
    segments, Bellman the solve's backups), peak memory, and a profiled
    b = 8 decode step with the SSD kernel's share.
-9. Prints a `kernels` JSON line, then the one-line verdict.
+9. Phase 4j, training (examples/train_100m.py --full through the port):
+   the attention backward kernel (csrc/flash_attention_bwd.cu) against
+   autograd through the plain attention at the path's shape (b 8 x 256,
+   8 / 4 heads of 64, causal, f32), at Qwen2.5-32B's 40 / 8 x 128 and
+   Zamba2's 32 / 32 x 64 in bf16, and over 64 edge cases in f32 and bf16
+   (Sq != Sk, lengths off the tiles, G 1 / 2 / 5 / 8, D 64 / 128, softcap,
+   causal on and off), at f32 1e-4 and bf16 2e-2 of each gradient's
+   largest |entry|; timed beside its plain version and SDPA's forward +
+   backward.  Then qwen2.5-100m at full width with 2 layers: lm_loss
+   gradients through the kernels against the CPU's plain versions (1e-4
+   of each tensor's largest |gradient|).  Then the example itself,
+   counters zeroed just before and read just after: qwen2.5-100m (12
+   layers, d 512, 8 / 4 x 64, SwiGLU 2048, vocab 32768, f32) for 300 steps
+   of 8 x 256 with AdamW at lr 6e-4, data seed 17, an async checkpoint
+   every 60 steps; the loss must fall; launches exact (flash 2 x 12 a
+   step -- the forward and its remat recompute -- and 12 backward calls
+   of 3 kernels a step); ms a step, tokens/s, peak memory.  Then the
+   resume drill: 150 steps, a fresh Trainer on the same directory resumed
+   to 300, losses (rtol 1e-6) and parameters (atol 1e-6) equal to the
+   uninterrupted run's.  Last, a profiled train step (busy share, time by
+   kernel group).  TF32 stays off (asserted).
+10. Prints a `kernels` JSON line, then the one-line verdict.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA it exits
 with 2 and prints no result.
@@ -289,16 +310,18 @@ def bound(bytes_moved, flops, flops_rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(torch, fn, reps):
-    """Device time per call: `reps` calls captured in one CUDA graph."""
-    side = torch.cuda.Stream()
+def device_ms(torch, fn, reps, side=None):
+    """Device time per call: `reps` calls captured in one CUDA graph (on
+    the stream `side` when given)."""
+    capture = side
+    side = side or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=capture):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -3398,6 +3421,338 @@ def hybrid_phase(torch, np, kernels, rows):
     hybrid_path(torch, np, kernels, rows)
     log(f"phase 4i ({HYBRID_ARCH}): {time.perf_counter() - t0:.2f} s")
 
+# ---------------------------------------------------------------------------
+# Phase 4j: training on the card (examples/train_100m.py --full)
+# ---------------------------------------------------------------------------
+
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_REPLACES = ("none: the gradient of the port's flash kernel "
+                "(src/repro/kernels/flash_attention.py:72 has no backward; the JAX "
+                "package trains through src/repro/models/layers.py:112 under jax.grad)")
+#: f32 / bf16 bars of the backward kernel, of each gradient's largest |entry|
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the training path's attention (qwen2.5-100m, b 8 x 256) and two other
+#: models' heads at the same tokens: (B, S, H, KV, D, dtype)
+BWD_PATH = (8, 256, 8, 4, 64, "float32")
+BWD_OTHER = [(8, 256, 40, 8, 128, "bfloat16"), (8, 256, 32, 32, 64, "bfloat16")]
+#: edge cases: (Sq, Sk) with Sq != Sk or lengths off the 64 / 32 tiles, G, D,
+#: softcap, causal -- 64 cases, each in f32 and bf16
+BWD_EDGE_LENGTHS = [(100, 100), (70, 130)]
+BWD_EDGE_G, BWD_EDGE_D, BWD_EDGE_CAP = (1, 2, 5, 8), (64, 128), (None, 30.0)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_HALF = 300, 60, 150
+TRAIN_PARITY = dict(layers=2, batch=2)  # full width, cut depth and batch (CPU side)
+TRAIN_PROFILE_STEPS = 3
+
+
+def grad_ms(torch, forward, inputs, grad_out, reps):
+    """Device time of a backward alone: `forward()` runs once, then `reps`
+    `autograd.grad(..., retain_graph=True)` calls are captured in one CUDA
+    graph.  Autograd runs a backward on its forward's stream, so the
+    forward runs on the capture stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.enable_grad():
+        out = forward()
+    return device_ms(
+        torch, lambda: torch.autograd.grad(out, inputs, grad_out, retain_graph=True),
+        reps, side)
+
+
+def _held_to_max(torch, got, want, tol):
+    """max |got - want| over max |want|, checked against tol."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return err, err <= tol * scale
+
+
+def bwd_case(torch, np, rng, B, Sq, Sk, H, KV, D, dtype, causal, cap):
+    """The backward kernel against its plain version on one input; returns
+    the largest absolute error and the largest error relative to each
+    gradient's largest |entry|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v = _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype)
+    do = _normal(torch, rng, (B, Sq, H, D), dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, softcap=cap, return_lse=True)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
+    want = fb.flash_attention_bwd_ref(q, k, v, do, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    dt = str(dtype).replace("torch.", "")
+    worst, rel = 0.0, 0.0
+    for name, g, w in zip("qkv", got, want):
+        err, ok = _held_to_max(torch, g, w, BWD_TOL[dt])
+        scale = w.float().abs().max().item()
+        check(ok, f"flash_attention_bwd {(B, Sq, Sk, H, KV, D)} {dt} causal={causal} "
+                  f"softcap={cap}: d{name} max abs err {err} over max |grad| {scale}")
+        worst, rel = max(worst, err), max(rel, err / scale)
+    return worst, rel
+
+
+def bwd_row(torch, np, rng, B, S, H, KV, D, dt, reps=20):
+    """The backward kernel timed at (B, S, H, KV, D), causal, beside the
+    backward alone of its plain version (autograd through attention_ref)
+    and of SDPA (enable_gqa), each on its own saved forward; and the
+    forward kernel with lse plus the backward kernel.  All in CUDA graphs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    F = torch.nn.functional
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    q, k, v = _flash_inputs(torch, rng, B, S, S, H, KV, D, dtype)
+    do = _normal(torch, rng, (B, S, H, D), dtype)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    ms = device_ms(torch, lambda: fb.flash_attention_bwd(q, k, v, out, lse, do), reps)
+
+    def fwd_bwd():
+        o, l_ = fa.flash_attention(q, k, v, return_lse=True)
+        return fb.flash_attention_bwd(q, k, v, o, l_, do)
+
+    both = device_ms(torch, fwd_bwd, reps)
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    plain = grad_ms(torch, lambda: fa.attention_ref(qq, kk, vv), (qq, kk, vv), do, reps)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib = grad_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), do.transpose(1, 2), reps)
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs per head
+    item = q.element_size()
+    # bytes: q, k, v, out, dO and lse read once, dq, dk, dv written once;
+    # operations: per pair the recomputed score, dP, dV, dK and dQ (2 D each)
+    b_ms, b_by = bound(item * (4 * B * S * H * D + 4 * B * S * KV * D) + 4 * B * H * S,
+                       10 * B * H * D * pairs,
+                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    log(f"flash_attention_bwd b={B} {(S, H, KV, D)} {dt} causal: kernel_ms={ms:.6f} "
+        f"bound_ms={b_ms:.6f} ({b_by}, {10 * B * H * D * pairs / 1e9:.3f} GFLOP); "
+        f"backward alone: plain_ms={plain:.6f} (autograd through attention_ref), "
+        f"library_ms={lib:.6f} (SDPA, enable_gqa); forward + backward kernels "
+        f"{both:.6f} ms")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                fwd_bwd_ms=both, shape=[B, S, S, H, KV, D], dtype=dt)
+
+
+def bwd_kernel_checks(torch, np, rows):
+    """The backward kernel against its plain version at the path's shape,
+    at the two bf16 shapes and over the edge cases; then timed."""
+    rng = np.random.default_rng(22)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    err, rel = dict.fromkeys(dts, 0.0), dict.fromkeys(dts, 0.0)
+    t0 = time.perf_counter()
+    for B, S, H, KV, D, dt in [BWD_PATH] + BWD_OTHER:
+        e, r = bwd_case(torch, np, rng, B, S, S, H, KV, D, dts[dt], True, None)
+        err[dt], rel[dt] = max(err[dt], e), max(rel[dt], r)
+        log(f"flash_attention_bwd {(B, S, S, H, KV, D)} {dt} causal: max_abs_err={e:.3e}, "
+            f"over max |grad| {r:.3e} (bar {BWD_TOL[dt]}) ok")
+    n = 0
+    for Sq, Sk in BWD_EDGE_LENGTHS:
+        for G in BWD_EDGE_G:
+            for D in BWD_EDGE_D:
+                for cap in BWD_EDGE_CAP:
+                    for causal in (True, False):
+                        for dt, dtype in dts.items():
+                            e, r = bwd_case(torch, np, rng, 2, Sq, Sk, 2 * G, 2, D,
+                                            dtype, causal, cap)
+                            err[dt], rel[dt] = max(err[dt], e), max(rel[dt], r)
+                        n += 1
+    log(f"flash_attention_bwd edge cases: {n} cases x (f32, bf16) (Sq, Sk) in "
+        f"{BWD_EDGE_LENGTHS}, G in {BWD_EDGE_G}, D in {BWD_EDGE_D}, softcap "
+        f"{BWD_EDGE_CAP}, causal on / off, all shapes: max_abs_err f32 "
+        f"{err['float32']:.3e} bf16 {err['bfloat16']:.3e}; over max |grad| f32 "
+        f"{rel['float32']:.3e} bf16 {rel['bfloat16']:.3e} ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(n >= 48, f"only {n} edge cases")
+    main = bwd_row(torch, np, rng, *BWD_PATH)
+    others = [bwd_row(torch, np, rng, *shape) for shape in BWD_OTHER]
+    rows["flash_attention_bwd"] = dict(
+        route="cuda", source=BWD_SOURCE, replaces=BWD_REPLACES, **main,
+        max_abs_err=max(err.values()), max_abs_err_by_dtype=err,
+        max_rel_err_by_dtype=rel, max_rel_err_is="of each gradient's largest |entry|",
+        other_shapes=others)
+
+
+def train_parity(torch, np):
+    """qwen2.5-100m at full width, cut to TRAIN_PARITY's depth and batch:
+    lm_loss gradients (remat) through the kernels on the card against the
+    same weights through the plain versions on the CPU."""
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.training.data import DataConfig, batch_at_step
+
+    cfg = dataclasses.replace(T.example_config(True), n_layers=TRAIN_PARITY["layers"])
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(5), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to("cuda").trainable()
+    cpu.trainable()
+    data = DataConfig(cfg.vocab_size, 256, TRAIN_PARITY["batch"], seed=17)
+    toks = batch_at_step(data, 0, device="cpu")["tokens"]
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    loss_c = M.lm_loss(cfg, card, {"tokens": toks.cuda()}, remat=True)
+    g_card = torch.autograd.grad(loss_c, list(card.parameters()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    loss_p = M.lm_loss(cfg, cpu, {"tokens": toks}, remat=True)
+    g_cpu = torch.autograd.grad(loss_p, list(cpu.parameters()))
+    check(counts["flash_attention"] == 2 * cfg.n_layers
+          and counts["flash_attention_bwd"] == cfg.n_layers,
+          f"parity launches {counts['flash_attention']} / {counts['flash_attention_bwd']}")
+    check(abs(loss_c.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item()),
+          f"loss card {loss_c.item()} cpu {loss_p.item()}")
+    worst = (0.0, "")
+    for (name, _), g, w in zip(cpu.named_parameters(), g_card, g_cpu):
+        e, ok = _held_to_max(torch, g.cpu(), w, 1e-4)
+        rel = e / w.abs().max().item()
+        check(ok, f"gradient {name}: card vs CPU max err {e} (rel {rel})")
+        worst = max(worst, (rel, name))
+    log(f"training parity ({cfg.name} full width, {cfg.n_layers} layers, "
+        f"{TRAIN_PARITY['batch']} x 256, f32): loss card {loss_c.item():.7f} cpu "
+        f"{loss_p.item():.7f}; every gradient within 1e-4 of its largest |entry| "
+        f"(worst {worst[0]:.3e}, {worst[1]}); launches flash {counts['flash_attention']} "
+        f"bwd {counts['flash_attention_bwd']} ({time.perf_counter() - t0:.2f} s)")
+
+
+def train_run(torch, np, kernels, rows, workdir):
+    """examples/train_100m.py --full on the card, then the resume drill."""
+    from repro_torch.launch import train as T
+    from repro_torch.training.data import batch_at_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on: training in f32 must run in IEEE f32")
+    lines = []
+    note = lines.append
+
+    def trainer(steps, d):
+        return T.example_trainer(True, steps=steps, ckpt_every=TRAIN_CKPT_EVERY,
+                                 ckpt_dir=os.path.join(workdir, d), log_fn=note,
+                                 device="cuda")
+
+    t_a = trainer(TRAIN_STEPS, "a")
+    cfg, data = t_a.cfg, t_a.data
+    n_params = cfg.n_params()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p_a, opt_a, losses_a = t_a.run(seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    L = cfg.n_layers
+    check(counts["flash_attention"] == 2 * L * TRAIN_STEPS,
+          f"flash_attention launched {counts['flash_attention']} times, not 2 x {L} x "
+          f"{TRAIN_STEPS} (forward and its recompute)")
+    check(counts["flash_attention_bwd"] == L * TRAIN_STEPS,
+          f"flash_attention_bwd called {counts['flash_attention_bwd']} times, not "
+          f"{L} x {TRAIN_STEPS}")
+    for name in ("dot", "dkdv", "dq"):
+        check(counts[f"flash_attention_bwd:{name}"] == L * TRAIN_STEPS,
+              f"bwd kernel {name}: {counts[f'flash_attention_bwd:{name}']} launches")
+    others = {k: v for k, v in counts.items() if v and not k.startswith("flash_attention")}
+    check(not others, f"training launched other kernels: {others}")
+    check(all(np.isfinite(losses_a)) and len(losses_a) == TRAIN_STEPS, "losses finite")
+    first, last = float(np.mean(losses_a[:10])), float(np.mean(losses_a[-10:]))
+    check(last < first, f"loss did not fall: {first} -> {last}")
+    tokens = data.global_batch * data.seq_len
+    step_ms = 1e3 * float(np.median(t_a.step_times))
+    log(f"train {cfg.name} (~{n_params / 1e6:.1f}M params, f32, AdamW lr 6e-4, data "
+        f"seed 17): {TRAIN_STEPS} steps of {data.global_batch} x {data.seq_len}, a "
+        f"checkpoint every {TRAIN_CKPT_EVERY}: loss {losses_a[0]:.4f} -> {losses_a[-1]:.4f} "
+        f"(first 10 mean {first:.4f}, last 10 mean {last:.4f}); wall {wall:.2f} s, "
+        f"median step {step_ms:.3f} ms, {tokens * TRAIN_STEPS / wall:.0f} tokens/s over the "
+        f"run ({tokens / step_ms * 1e3:.0f} at the median step); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"train launches: flash_attention {counts['flash_attention']} (2 x {L} a step), "
+        f"flash_attention_bwd {counts['flash_attention_bwd']} calls ({L} a step) of 3 "
+        f"kernels each")
+    for msg in lines:
+        if msg.startswith("[trainer] step") and int(msg.split()[2]) % 50 == 0:
+            log(f"  {msg}")
+    del lines[:]
+
+    # --- the resume drill: 150 steps, a fresh Trainer on the same directory --
+    t0 = time.perf_counter()
+    trainer(TRAIN_HALF, "b").run(seed=0)
+    t_res = trainer(TRAIN_STEPS, "b")
+    p_b, opt_b, losses_b = t_res.run(seed=0)
+    torch.cuda.synchronize()
+    check(len(losses_b) == TRAIN_STEPS - TRAIN_HALF and int(opt_b["step"]) == TRAIN_STEPS,
+          "the resumed run did not start at the checkpoint")
+    a, b = np.asarray(losses_a[TRAIN_HALF:]), np.asarray(losses_b)
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(a)))
+    check(np.allclose(b, a, rtol=1e-6, atol=0), f"resumed losses differ: {loss_rel}")
+    p_err, bitwise = 0.0, True
+    for (n, x), y in zip(p_a.named_parameters(), p_b.parameters()):
+        p_err = max(p_err, (x - y).abs().max().item())
+        bitwise &= bool(torch.equal(x, y))
+    check(p_err <= 1e-6, f"resumed parameters differ by {p_err}")
+    check(any("resumed from step" in m for m in lines), "the second Trainer did not resume")
+    log(f"resume drill: {TRAIN_HALF} steps, a fresh Trainer on the same directory resumed "
+        f"to {TRAIN_STEPS}: losses max rel diff {loss_rel:.3e} (bar 1e-6), parameters "
+        f"max abs diff {p_err:.3e} (bar 1e-6), bitwise equal {bitwise} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # --- where a step's time goes (after the comparisons) --------------------
+    batch = batch_at_step(data, 0, device="cuda")
+    state = {"p": p_a, "o": opt_a}
+
+    def steps():
+        for _ in range(TRAIN_PROFILE_STEPS):
+            state["p"], state["o"], m = t_a.step_fn(state["p"], state["o"], batch)
+        m["loss"].item()
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
+    dev_ms, launches, by_name = profile_busy(torch, steps)
+    if dev_ms is None:
+        log("profile train step: the profiler recorded no device time (not measured)")
+        busy = None
+    else:
+        total = dev_ms / TRAIN_PROFILE_STEPS
+        busy = total / wall_ms
+        groups = {"flash fwd kernel": 0.0, "flash bwd kernels": 0.0, "matmul (cuBLAS)": 0.0,
+                  "other": 0.0}
+        for key, (ms, _) in by_name.items():
+            low = key.lower()
+            if "flash_fwd" in low:
+                g = "flash fwd kernel"
+            elif "bwd_d" in low:
+                g = "flash bwd kernels"
+            elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90")):
+                g = "matmul (cuBLAS)"
+            else:
+                g = "other"
+            groups[g] += ms / TRAIN_PROFILE_STEPS
+        log(f"profile train step (b {data.global_batch} x {data.seq_len}): wall_ms="
+            f"{wall_ms:.3f} per step unprofiled, device busy {total:.3f} ms per step "
+            f"(busy share {busy:.3f}) in {launches / TRAIN_PROFILE_STEPS:.0f} kernels per "
+            f"step; " + "; ".join(f"{k} {v:.3f} ms (share {v / total:.4f})"
+                                  for k, v in groups.items()))
+        for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"  {ms / TRAIN_PROFILE_STEPS:9.4f} ms/step "
+                f"{cnt // TRAIN_PROFILE_STEPS:5d} calls/step  {key[:90]}")
+    rows["flash_attention_bwd"].update(
+        launches=counts["flash_attention_bwd"], launches_per_step=L,
+        kernel_launches_per_call=3)
+    rows["flash_attention"]["launches_training_path"] = counts["flash_attention"]
+    rows["flash_attention_bwd"]["training"] = dict(
+        steps=TRAIN_STEPS, loss_first=losses_a[0], loss_last=losses_a[-1],
+        step_ms_median=step_ms, tokens_per_s=tokens * TRAIN_STEPS / wall, busy_share=busy)
+
+
+def train_phase(torch, np, kernels, rows):
+    t0 = time.perf_counter()
+    bwd_kernel_checks(torch, np, rows)
+    train_parity(torch, np)
+    workdir = tempfile.mkdtemp(prefix="train_100m_")
+    try:
+        train_run(torch, np, kernels, rows, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 4j (training): {time.perf_counter() - t0:.2f} s")
+
 
 def main():
     import torch
@@ -3516,13 +3871,16 @@ def main():
     # --- the Mamba2 hybrid (Zamba2-1.2B): SSD kernel, attention at D = 64 (4i)
     hybrid_phase(torch, np, kernels, rows)
 
+    # --- training: the backward kernel, qwen2.5-100m --full, the resume (4j)
+    train_phase(torch, np, kernels, rows)
+
     order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
              "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",
              "serve_scan_grid_plain", "serve_scan_grid_adaptive",
              "serve_scan_mix", "serve_scan_grid_mix", "belief_forward",
              "fleet_scan", "fleet_scan_grid", "fleet_scan_mix",
              "mmpp_sample", "sim_scan", "flash_attention", "decode_attention",
-             "ssd_scan")
+             "ssd_scan", "flash_attention_bwd")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_list = []

@@ -41,10 +41,13 @@ over the mean consumption; never more than the n (k_max + 1) an epoch
 can take).  A run that would outrun it raises RuntimeError: nothing
 wraps.
 
-With more than ``k_max`` arrivals in one service, the first k_max are
-kept and the run counts one clip (``n_clipped_arrivals``), as the
-reference counts a Poisson draw clipped at k_max (it keeps k_max arrivals
-spread over the service; here they are the earliest k_max).
+With more than ``k_max`` arrivals in one service, k_max are kept and the
+run counts one clip (``n_clipped_arrivals``), as the reference counts a
+Poisson draw clipped at k_max.  The kept arrivals follow the reference's
+law, k_max sorted uniforms over the service: the first k_max offsets are
+rescaled by T / tau, tau the offset of the (k_max + 1)-th arrival (given
+tau, the first k_max arrival times over tau are sorted uniforms), with no
+extra draws.
 """
 from __future__ import annotations
 

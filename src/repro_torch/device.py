@@ -26,6 +26,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if, under grad mode, a tensor bound for a CUDA kernel without a
+    backward requires grad: its output would carry no ``grad_fn`` and the
+    gradient would be dropped in silence.  (On the CPU the plain versions
+    stay differentiable by autograd.)"""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{kernel}: a CUDA tensor that requires grad reached a kernel with no "
+            "backward; run it under torch.no_grad() or detach the inputs")
+
+
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (read once per device)."""
     n = _n_sm.get(device.index)

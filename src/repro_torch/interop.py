@@ -13,11 +13,17 @@ it.
     policy into the port's ``SMDPScheduler``;
   * ``params_from_reference(cfg, params)`` turns the reference's
     ``init_params`` tree (layers stacked on a leading axis) into the
-    port's ``DenseLM`` or, for the hybrid family, ``HybridLM``.
+    port's ``DenseLM`` or, for the hybrid family, ``HybridLM``;
+  * ``reference_tree(cfg, tensors)`` is the reverse of
+    ``params_from_reference`` for any tensors in the port's layout
+    (gradients, optimizer moments): the reference's nested dict of numpy
+    arrays, leaf by leaf through ``models.model.leaf_map``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
+
 import numpy as np
 import torch
 
@@ -31,6 +37,8 @@ from .models.model import (
     HybridLM,
     block_norms,
     check_supported,
+    gather_leaf,
+    leaf_map,
     mamba_shapes,
 )
 from .serving.scheduler import SMDPScheduler
@@ -150,3 +158,17 @@ def params_from_reference(cfg: ModelConfig, params, *,
     for n in ("ln_a", "ln_m"):
         shared.update(norm(sa[n], n))
     return HybridLM(cfg, top, blocks, shared)
+
+
+def reference_tree(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]) -> dict:
+    """The reference's nested dict of numpy arrays (its ``init_params``
+    layout) holding ``tensors`` -- port-layout tensors by their
+    ``named_parameters()`` names: parameters, gradients or moments."""
+    tree: dict = {}
+    for path, leaf in leaf_map(cfg).items():
+        node = tree
+        *heads, last = path.split("/")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = gather_leaf(tensors, leaf).detach().float().cpu().numpy()
+    return tree

@@ -13,6 +13,7 @@ from . import belief_forward as _belief
 from . import bellman as _bellman
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import flash_attention_bwd as _flash_bwd
 from . import fleet_scan as _fleet_scan
 from . import mmpp_sample as _mmpp_sample
 from . import serve_scan as _serve_scan
@@ -28,6 +29,7 @@ WRAPPERS = {
     "mmpp_sample": _mmpp_sample.mmpp_sample,
     "sim_scan": _sim_scan.sim_scan,
     "flash_attention": _flash.flash_attention,
+    "flash_attention_bwd": _flash_bwd.flash_attention_bwd,
     "decode_attention": _decode.decode_attention,
     "ssd_scan": _ssd_scan.ssd_scan,
 }

@@ -48,6 +48,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "serve_scan": ["-fmad=false"],
     "sim_scan": ["-fmad=false"],
     "flash_attention": [],
+    "flash_attention_bwd": [],
     "decode_attention": [],
     "ssd_scan": [],
 }

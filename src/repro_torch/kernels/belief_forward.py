@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 #: posterior-mass floor below which a propagated belief counts as
@@ -170,6 +171,7 @@ def belief_forward(times, b_init, t_init: float, c: FilterConsts):
         return belief_forward_ref(times, b_init, t_init, c)
     if times.device.type != "cuda":
         raise ValueError(f"unsupported device {times.device}")
+    refuse_grad("belief_forward", times, b_init)
     S, N = times.shape
     K = c.rates.shape[0]
     dev = times.device

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..device import refuse_grad
 from ..device import sm_count as _sm_count
 from . import _build
 
@@ -174,6 +175,7 @@ def _check(h_main, pmfs, tails, h_overflow, batched: bool) -> None:
 
 def _launch(h2, p3, t3, hso1) -> torch.Tensor:
     """One kernel launch over (N, T, A); inputs already checked."""
+    refuse_grad("bellman_banded", h2, p3, t3, hso1)
     if h2.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {h2.device}")
     h2, p3, t3, hso1 = (x.contiguous() for x in (h2, p3, t3, hso1))

@@ -10,7 +10,10 @@
 // softcap * tanh(s / softcap), p rounded to v's dtype before P.V, output
 // acc / max(l, 1e-30) in q's dtype.  q head h reads kv head h / G.  Inputs
 // are read through their strides (last dim contiguous); the output is
-// written (B, Sq, H, D).
+// written (B, Sq, H, D).  When the caller passes an `lse` buffer (B, H, Sq)
+// f32, each row's log-sum-exp m + log(l) of its scaled, capped and masked
+// scores goes there too: the backward kernel (flash_attention_bwd.cu)
+// recomputes P from it.  The serving path passes none and writes nothing.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s): at the
 // serving path's prefill (8 x 128 tokens, 40 q heads, 8 kv heads, D = 128,
@@ -211,11 +214,11 @@ __global__ void __launch_bounds__(WG_THREADS)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int G,
-                long long qsb, long long qss, long long qsh, long long ksb,
-                long long kss, long long ksh, long long vsb, long long vss,
-                long long vsh, int causal, int has_cap, float softcap,
-                float scale) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                int Sk, int H, int G, long long qsb, long long qss,
+                long long qsh, long long ksb, long long kss, long long ksh,
+                long long vsb, long long vss, long long vsh, int causal,
+                int has_cap, float softcap, float scale) {
   constexpr int DB = (D + 63) / 64;     // 64-column blocks of a row
   constexpr int KS = (D + 15) / 16;     // k-steps of Q K^T
   constexpr int QK_CH = 2 * KS;         // staged chunks of a Q / K row
@@ -364,6 +367,13 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   float inv[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) inv[rr] = 1.0f / fmaxf(l[rr], 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // a quad holds its rows' m and l
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      if (qpos[rr] < Sq)
+        lse[(static_cast<long long>(b) * H + h) * Sq + qpos[rr]] =
+            m[rr] + logf(l[rr]);
+  }
   // The output goes through shared memory (the Q and K buffers, free now),
   // rows padded by 16 bytes so the fragment writes miss each other's banks,
   // then out in 16-byte stores along each row.
@@ -412,8 +422,9 @@ constexpr size_t f32_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int Sq,
-              int Sk, int H, int G, long long qsb, long long qss,
+              const float* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, int Sq, int Sk, int H, int G,
+              long long qsb, long long qss,
               long long qsh, long long ksb, long long kss, long long ksh,
               long long vsb, long long vss, long long vsh, int causal,
               int has_cap, float softcap, float scale) {
@@ -563,6 +574,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
+  if (lse != nullptr && tid < BQ && q0 + tid < Sq)
+    lse[(static_cast<long long>(b) * H + h) * Sq + q0 + tid] =
+        row_m[tid] + logf(row_l[tid]);
 
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -588,6 +602,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int B, Sq, Sk, H, KV;
   const long long* st;  // qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh
   int causal, has_cap;
@@ -609,7 +624,7 @@ int launch_kernel(Kernel kernel, bool& configured, size_t smem, int threads,
   const long long* s = a.st;
   kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.Sq, a.Sk, a.H,
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.Sq, a.Sk, a.H,
       a.H / a.KV, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
       a.causal, a.has_cap, a.softcap, scale);
   return static_cast<int>(cudaGetLastError());
@@ -633,7 +648,8 @@ int launch_d(int dtype, const Args& a) {
 // q: (B, Sq, H, D), k / v: (B, Sk, KV, D), strides in elements for the
 // batch, sequence and head axes (the last axis contiguous; for bf16 every
 // base pointer and stride 16-byte aligned); out: (B, Sq, H, D) contiguous;
-// dtype 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
+// dtype 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel);
+// lse: (B, H, Sq) f32 contiguous, or null for none.
 // Returns 0 on success, -1 for an unsupported head size or dtype, else
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(
@@ -641,11 +657,11 @@ extern "C" int flash_attention_launch(
     int Sk, int H, int KV, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, int causal, int has_cap, float softcap, int dtype,
-    void* stream) {
+    float* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (dtype != 0 && dtype != 1) return -1;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  const Args a{q, k, v, out, B, Sq, Sk, H, KV, st, causal, has_cap, softcap,
+  const Args a{q, k, v, out, lse, B, Sq, Sk, H, KV, st, causal, has_cap, softcap,
                static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 8: return launch_d<8>(dtype, a);

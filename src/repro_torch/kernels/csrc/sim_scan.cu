@@ -10,10 +10,16 @@
 //   a >  0: serve the a oldest: T = service(a); the responses are
 //           t + T - (their arrival times); arrivals land during the
 //           service at offsets c_1 < c_2 < ... (exponential gaps at rate
-//           lam summed until they pass T, the first k_max kept, a run
-//           that would give more counted as clipped)
+//           lam summed until they pass T); a run that would give more
+//           than k_max is clipped to k_max arrivals at (c_j / tau) * T,
+//           tau the (k_max + 1)-th arrival's offset, and counted
 //   the exact queue-length integral: s * dt waiting, s * T + sum (T - c_j)
 //   serving; energy en[a] a serve.
+//
+// The clip keeps the reference's law (k_max arrivals at sort(u) * T, u
+// uniform): given that the (k + 1)-th arrival of a Poisson process falls
+// at tau < T, the first k arrival times over tau are k sorted uniforms on
+// [0, 1], whatever tau.  So the rescale needs no extra draws.
 //
 // Arrivals are drawn *during* service, as the reference draws a Poisson
 // count; a run of exponential gaps summed past T gives the count and the
@@ -119,6 +125,7 @@ __global__ void sim_scan_kernel(Args g) {
     for (long long j = 0; j < a; ++j) resp[served + j] = t_next - ring[(head + j) & kMask];
     served += a;
     head = (head + a) & kMask;
+    const long long first = cur;
     double c = 0.0, contrib = 0.0;
     long long n = 0;
     bool out = false;
@@ -126,7 +133,19 @@ __global__ void sim_scan_kernel(Args g) {
       if (cur >= g.A) { out = true; break; }
       c = c + ar[cur++] / g.lam;
       if (!(c < T)) break;
-      if (n == g.k_max) { ++clipped; break; }
+      if (n == g.k_max) {  // clipped at tau = c: redo the kept k_max at
+        ++clipped;         // (c_j / tau) * T, the c_j summed again in order
+        const double tau = c;
+        double cj = 0.0;
+        contrib = 0.0;
+        for (long long j = 0; j < n; ++j) {
+          cj = cj + ar[first + j] / g.lam;
+          const double off = (cj / tau) * T;
+          ring[(tail + j) & kMask] = t + off;
+          contrib = contrib + (T - off);
+        }
+        break;
+      }
       ring[(tail + n) & kMask] = t + c;
       contrib = contrib + (T - c);
       ++n;

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..device import refuse_grad
 from ..device import sm_count as _sm_count
 from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF, aligned16
@@ -148,6 +149,7 @@ def check_readable(q, k_cache, v_cache) -> None:
 
 
 def _launch(q, k_cache, v_cache, lengths, softcap) -> torch.Tensor:
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
     B, H, D = q.shape

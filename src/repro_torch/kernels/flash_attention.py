@@ -11,7 +11,12 @@ alignment ``k <= q + Sk - Sq``, f32 softmax).
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
 kernel (one launch, on the current stream, counted in ``launches``) or
 raises.  The kernels read q, k and v in place through their strides; the
-wrapper copies none of them.
+wrapper copies none of them.  ``return_lse=True`` also returns each row's
+log-sum-exp (B, H, Sq) f32 (``lse_ref`` is its plain version), which the
+backward kernel (``flash_attention_bwd``) reads.  The wrapper itself has
+no backward: under grad mode a CUDA tensor that requires grad is refused
+here, and ``ops.flash_attention`` routes it through the autograd
+``Function`` (``ops.FlashAttentionFn``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 NEG_INF = -1e30
@@ -28,16 +34,15 @@ NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p])
 
 
-def attention_ref(q, k, v, *, causal: bool = True,
-                  softcap: Optional[float] = None, kv_len=None):
-    """Naive masked softmax attention.  q: (B,Sq,H,D), k/v: (B,Sk,KV,D)."""
+def _scores(q, k, causal, softcap, kv_len=None):
+    """Scaled, capped and masked scores (B, KV, G, Sq, Sk) in f32."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, Sq, KV, G, D)
+    qg = q.reshape(B, Sq, KV, H // KV, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / math.sqrt(D)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -48,8 +53,20 @@ def attention_ref(q, k, v, *, causal: bool = True,
         mask &= k_pos[None, :] <= q_pos[:, None] + (Sk - Sq)
     if kv_len is not None:
         mask &= k_pos[None, :] < kv_len
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return s.masked_fill(~mask, NEG_INF)
+
+
+def lse_ref(q, k, *, causal: bool = True, softcap: Optional[float] = None):
+    """Each row's log-sum-exp of the masked scores, (B, H, Sq) f32."""
+    B, Sq, H, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal, softcap), dim=-1).reshape(B, H, Sq)
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  softcap: Optional[float] = None, kv_len=None):
+    """Naive masked softmax attention.  q: (B,Sq,H,D), k/v: (B,Sk,KV,D)."""
+    B, Sq, H, D = q.shape
+    p = torch.softmax(_scores(q, k, causal, softcap, kv_len), dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
@@ -97,7 +114,7 @@ def check_readable(q, k, v) -> None:
                          "need 16-byte aligned base pointers and strides")
 
 
-def _launch(q, k, v, causal: bool, softcap: Optional[float]) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, softcap: Optional[float], want_lse: bool):
     if q.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
     B, Sq, H, D = q.shape
@@ -106,6 +123,7 @@ def _launch(q, k, v, causal: bool, softcap: Optional[float]) -> torch.Tensor:
         raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
     check_readable(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if want_lse else None
     fn = _build.function("flash_attention", "flash_attention_launch",
                          ctypes.c_int, _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -116,27 +134,34 @@ def _launch(q, k, v, causal: bool, softcap: Optional[float]) -> torch.Tensor:
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(causal), int(softcap is not None),
-        float(softcap or 0.0), DTYPES[q.dtype], stream,
+        float(softcap or 0.0), DTYPES[q.dtype], None if lse is None else lse.data_ptr(),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    return out
+    return out, lse
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None, block_q: int = 128,
-                    block_k: int = 128):
-    """Attention (B, Sq, H, D) in q's dtype; see attention_ref.
+                    block_k: int = 128, return_lse: bool = False):
+    """Attention (B, Sq, H, D) in q's dtype; see attention_ref.  With
+    ``return_lse``, (out, lse (B, H, Sq) f32).
 
     ``block_q`` / ``block_k`` are the reference's tile sizes, kept for
     parity of the signature: neither version's result depends on them.
     """
     check_inputs(q, k, v)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, softcap=softcap)
-    out = _launch(q, k, v, causal, softcap)
+        out = attention_ref(q, k, v, causal=causal, softcap=softcap)
+        if return_lse:
+            return out, lse_ref(q, k, causal=causal, softcap=softcap)
+        return out
+    refuse_grad("flash_attention (use ops.flash_attention, which has a backward)",
+                q, k, v)
+    out, lse = _launch(q, k, v, causal, softcap, return_lse)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

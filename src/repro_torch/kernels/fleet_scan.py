@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 #: columns of ``FleetOut.agg_i`` (int64) and ``FleetOut.agg_f`` (f64)
@@ -498,6 +499,8 @@ def fleet_scan(tables, thr, rids, arrivals, deadlines, phases, router_u, draws,
         return fleet_scan_ref(tables, thr, rids, arrivals, deadlines, phases,
                               router_u, draws, means, zeta, edges, fb, fmult,
                               q0_times, q0_dl, busy0, state0, beliefs, bel0, **kw)
+    refuse_grad("fleet_scan", arrivals, deadlines, draws, means, zeta, edges, fb,
+                fmult, q0_times, q0_dl, busy0, beliefs, bel0)
     P, M, K, L = tables.shape
     S, size = arrivals.shape
     R = rids.numel()

@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 
@@ -79,6 +80,7 @@ def mmpp_sample(draws, lam: Sequence[float], dwell: Sequence[float]
         return mmpp_sample_ref(draws, lam, dwell)
     if draws.device.type != "cuda":
         raise ValueError(f"unsupported device {draws.device}")
+    refuse_grad("mmpp_sample", draws)
     L = draws.shape[0]
     dev = draws.device
     draws = draws.contiguous()

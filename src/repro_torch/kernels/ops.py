@@ -7,6 +7,14 @@ inputs' dtype (float32 or bfloat16) and move them to ``device``; so does
 the SSD scan, whose dt / dA / state are float32.  On a CPU
 device they run the plain PyTorch version; on a CUDA device they launch the
 hand-written kernel or raise -- there is no fallback from one to the other.
+
+Gradients.  On the CPU the plain versions are differentiable by autograd.
+On a CUDA device, under grad mode, ``flash_attention`` sends a tensor that
+requires grad through ``FlashAttentionFn``: the forward kernel with its
+log-sum-exp saved, then the hand backward kernel
+(``kernels/flash_attention_bwd.py``).  Every other kernel has no backward
+and its wrapper raises on such a tensor, so no gradient is dropped in
+silence.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from ..device import DeviceLike, resolve_device
 from . import bellman as _bellman
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import flash_attention_bwd as _flash_bwd
 from . import ssd_scan as _ssd
 
 
@@ -48,18 +57,47 @@ def _on(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=dev)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel with a backward: the forward launch saves q, k, v,
+    out and the rows' log-sum-exp; the backward launches the hand backward
+    kernel on them.  (Under activation checkpointing the forward runs again
+    before the backward, and the saved tensors are that run's.)"""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, softcap: Optional[float]):
+        out, lse = _flash.flash_attention(q, k, v, causal=causal, softcap=softcap,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.softcap = causal, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:  # the kernel reads rows of dO in place
+            dout = dout.contiguous()
+        dq, dk, dv = _flash_bwd.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    causal=ctx.causal,
+                                                    softcap=ctx.softcap)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None, block_q: int = 128,
                     block_k: int = 128, device: DeviceLike = None):
     """Blockwise GQA attention (see kernels/flash_attention.py).
 
     q (B, Sq, H, D), k / v (B, Sk, KV, D); returns (B, Sq, H, D) in q's dtype.
+    On a CUDA device, under grad mode, inputs that require grad go through
+    ``FlashAttentionFn`` (forward and backward kernels).
     """
     dev = resolve_device(device)
-    return _flash.flash_attention(
-        _on(q, dev), _on(k, dev), _on(v, dev), causal=causal, softcap=softcap,
-        block_q=block_q, block_k=block_k,
-    )
+    q, k, v = _on(q, dev), _on(k, dev), _on(v, dev)
+    if (dev.type == "cuda" and torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, k, v))):
+        return FlashAttentionFn.apply(q, k, v, causal, softcap)
+    return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap,
+                                  block_q=block_q, block_k=block_k)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,

@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 #: columns of ``ScanOut.agg_i`` (int64) and ``ScanOut.agg_f`` (f64)
@@ -358,6 +359,7 @@ def serve_scan(tables, arrivals, deadlines, phases, draws, means, zeta, edges,
                               means, zeta, edges, **kw)
     if arrivals.device.type != "cuda":
         raise ValueError(f"unsupported device {arrivals.device}")
+    refuse_grad("serve_scan", arrivals, deadlines, draws, means, zeta, edges)
     dev = arrivals.device
     qman = buffer is not None or bool(shed)
     S, size = arrivals.shape

@@ -9,10 +9,12 @@ policy table ``pol`` (P,) from an empty queue at t = 0:
     a >  0:  T = service(a, svc[epoch]); t' = t + T; the a oldest requests
              leave with responses t' - (arrival time); then arrivals land at
              offsets c_1 = arr[cur] / lam, c_{j+1} = c_j + arr[cur + j] / lam
-             while c < T, the first k_max kept (a (k_max + 1)-th that would
-             land counts one clip and ends the run); the draw that passes T
-             is consumed and discarded; integral += s * T + sum_j (T - c_j);
-             energy += en[a]; t = t'
+             while c < T; a (k_max + 1)-th that would land at tau counts
+             one clip, ends the run and moves the k_max kept to (c_j /
+             tau) * T (the reference's law: given tau, the c_j / tau are
+             sorted uniforms); the draw that passes T is consumed and
+             discarded; integral += s * T + sum_j (T - c_j); energy +=
+             en[a]; t = t'
     s += arrivals - a
 
 ``service``: det ``means[a]``; expo ``means[a] * e``; erlang
@@ -39,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 BUF_LOG2 = 15
@@ -159,6 +162,7 @@ def sim_scan_ref(pol, means, en, cum, scales, svc, arr, *, fam: int, erlang_k: i
             for j in range(a):
                 rv.append(t_next - ring[(head + j) & (BUF - 1)])
             head = (head + a) & (BUF - 1)
+            first = cur
             c = contrib = 0.0
             n = 0
             out = False
@@ -170,8 +174,14 @@ def sim_scan_ref(pol, means, en, cum, scales, svc, arr, *, fam: int, erlang_k: i
                 cur += 1
                 if not (c < T):
                     break
-                if n == k_max:
+                if n == k_max:  # clipped at tau = c: redo the kept k_max
                     clipped += 1
+                    tau, cj, contrib = c, 0.0, 0.0
+                    for j in range(n):
+                        cj = cj + ar[first + j] / lam
+                        off = (cj / tau) * T
+                        ring[(tail + j) & (BUF - 1)] = t + off
+                        contrib = contrib + (T - off)
                     break
                 ring[(tail + n) & (BUF - 1)] = t + c
                 contrib = contrib + (T - c)
@@ -205,6 +215,7 @@ def sim_scan(pol, means, en, cum, scales, svc, arr, *, fam: int, erlang_k: int,
                             erlang_k=erlang_k, lam=lam, k_max=k_max, R=R)
     if arr.device.type != "cuda":
         raise ValueError(f"unsupported device {arr.device}")
+    refuse_grad("sim_scan", means, en, cum, scales, svc, arr)
     _check(pol, means, en, cum, scales, svc, arr, fam, erlang_k, R)
     dev = arr.device
     L, E, W = svc.shape

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import refuse_grad
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -138,6 +139,7 @@ def _readable(xs, Bm, Cm) -> None:
 
 
 def _launch(xs, Bm, Cm, dt, dA, state, chunk, state_out):
+    refuse_grad("ssd_scan", xs, Bm, Cm, dt, dA, state)
     if xs.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {xs.device}")
     B, S, H, P = xs.shape

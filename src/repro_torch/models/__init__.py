@@ -15,5 +15,6 @@ from .model import (  # noqa: F401
     forward_lm,
     init_cache,
     init_params,
+    lm_loss,
     prefill,
 )

@@ -1,5 +1,5 @@
-"""The decoder stacks: init / forward / prefill / decode (counterpart of
-repro.models.model, dense and hybrid families).
+"""The decoder stacks: init / forward / train loss / prefill / decode
+(counterpart of repro.models.model, dense and hybrid families).
 
 The parameters are an ``nn.Module``: ``DenseLM`` (the embedding, the final
 norm, the untied output matrix and one ``nn.ParameterDict`` per layer) or
@@ -20,18 +20,32 @@ scan writing into its slice, the conv tail by a copy) and ``length`` is a
 Python int on the host, so a decode step never waits on the card to read
 it.
 
+Training (dense family): the tensors are built frozen; ``params.trainable()``
+turns ``requires_grad`` on in place (the same storage).  ``lm_loss`` is the
+reference's next-token cross-entropy; with ``remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant), so its forward -- the flash
+kernel included -- runs again in the backward.  On the card the attention
+gradient is the hand backward kernel (``kernels.ops.FlashAttentionFn``).
+``leaf_map(cfg)`` says which slices of which tensors hold each of the
+reference's stacked leaves (a layer's ``wq`` is the first H hd columns of
+its ``wqkv``); ``gather_leaf`` / ``scatter_leaf`` read and write a leaf
+through it (Adafactor factors and clips those leaves).
+
 The dense and the Mamba2 hybrid families run.  The others (MoE, RWKV,
 encoder-decoder, VLM) raise ``NotImplementedError`` at ``init_params`` and
 at the forward passes; sliding-window and chunked-local layers raise in
-``layers.attention``.  ROADMAP.md queue 1 lists them.
+``layers.attention``.  ``lm_loss`` on the hybrid raises: the SSD scan has no
+backward kernel yet.  ROADMAP.md queue 1 lists them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
@@ -134,6 +148,12 @@ class _LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def trainable(self) -> "_LM":
+        """Turn ``requires_grad`` on for every tensor, in place."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
     @property
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
@@ -164,6 +184,86 @@ class HybridLM(_LM):
 
 
 LM = Union[DenseLM, HybridLM]
+
+
+# ---------------------------------------------------------------------------
+# The reference's leaves in the port's tensors
+# ---------------------------------------------------------------------------
+
+
+class Piece(NamedTuple):
+    """One port tensor's share of a reference leaf: columns [lo, hi) of its
+    last axis (all of it when lo is None), reshaped to ``shape``."""
+
+    name: str  # as in ``params.named_parameters()``
+    lo: Optional[int]
+    hi: Optional[int]
+    shape: Tuple[int, ...]
+
+
+class Leaf(NamedTuple):
+    """A reference leaf: one piece, or one per layer stacked on a new
+    leading axis."""
+
+    pieces: List[Piece]
+    stacked: bool
+
+
+def leaf_map(cfg: ModelConfig) -> Dict[str, Leaf]:
+    """The reference ``init_params`` leaves of a dense decoder, by their
+    ``/``-joined paths in ``jax.tree.leaves`` order (sorted keys), each
+    with the port tensors that hold it."""
+    check_supported(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: the leaf map covers the dense family")
+    d, H, KV, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.d_ff)
+    qkv = {"q": (0, H * hd, H), "k": (H * hd, (H + KV) * hd, KV),
+           "v": ((H + KV) * hd, (H + 2 * KV) * hd, KV)}
+    per_layer: Dict[str, Tuple[str, Optional[int], Optional[int], tuple]] = {}
+    for x, (lo, hi, n) in qkv.items():
+        per_layer[f"w{x}"] = ("wqkv", lo, hi, (d, n, hd))
+        if cfg.qkv_bias:
+            per_layer[f"b{x}"] = ("bqkv", lo, hi, (n, hd))
+    per_layer["wo"] = ("wo", None, None, (H, hd, d))
+    if cfg.act in ("swiglu", "geglu"):
+        per_layer["w1"] = ("w13", 0, ff, (d, ff))
+        per_layer["w3"] = ("w13", ff, 2 * ff, (d, ff))
+    else:
+        per_layer["w1"] = ("w1", None, None, (d, ff))
+    per_layer["w2"] = ("w2", None, None, (ff, d))
+    for n in block_norms(cfg):
+        per_layer[f"{n}/s"] = (n, None, None, (d,))
+        if cfg.norm != "rmsnorm":
+            per_layer[f"{n}/b"] = (n + "_b", None, None, (d,))
+    leaves = {"embed": Leaf([Piece("embed", None, None, (cfg.vocab_size, d))], False),
+              "final_norm/s": Leaf([Piece("final_norm", None, None, (d,))], False)}
+    if cfg.norm != "rmsnorm":
+        leaves["final_norm/b"] = Leaf([Piece("final_norm_b", None, None, (d,))], False)
+    if not cfg.tie_embeddings:
+        leaves["out"] = Leaf([Piece("out", None, None, (d, cfg.vocab_size))], False)
+    for path, (name, lo, hi, shape) in per_layer.items():
+        leaves[f"blocks/{path}"] = Leaf(
+            [Piece(f"blocks.{i}.{name}", lo, hi, shape) for i in range(cfg.n_layers)], True)
+    return dict(sorted(leaves.items()))
+
+
+def _view(t: torch.Tensor, pc: Piece) -> torch.Tensor:
+    return t if pc.lo is None else t[..., pc.lo:pc.hi]
+
+
+def gather_leaf(tensors: Dict[str, torch.Tensor], leaf: Leaf) -> torch.Tensor:
+    """The reference leaf (a copy when stacked) from the port's tensors."""
+    parts = [_view(tensors[pc.name], pc).reshape(pc.shape) for pc in leaf.pieces]
+    return torch.stack(parts) if leaf.stacked else parts[0]
+
+
+def scatter_leaf(tensors: Dict[str, torch.Tensor], leaf: Leaf, value: torch.Tensor) -> None:
+    """Write a reference leaf's ``value`` into the port's tensors, in place."""
+    for i, pc in enumerate(leaf.pieces):
+        dst = _view(tensors[pc.name], pc)
+        src = value[i] if leaf.stacked else value
+        dst.copy_(src.reshape(dst.shape))
 
 #: the reference's constant initial values of a Mamba2 layer
 _MAMBA_CONST = {"dt_bias": -4.6,  # softplus ~ 0.01
@@ -217,7 +317,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _embed(cfg: ModelConfig, params: LM, tokens):
-    h = params.embed[tokens]
+    # F.embedding, not params.embed[tokens]: the same rows, and a backward
+    # that sums repeated tokens in one fixed order on the CPU too (indexing's
+    # backward accumulates there in a nondeterministic order)
+    h = F.embedding(tokens, params.embed)
     if cfg.embed_scale:
         h = (h.float() * math.sqrt(cfg.d_model)).to(h.dtype)
     return h
@@ -256,6 +359,10 @@ def _block(cfg: ModelConfig, p, h, is_local: bool, kv_cache=None, rope=None):
     return h + m_out, new_cache
 
 
+def _remat_block(cfg: ModelConfig, p, h, is_local: bool, rope):
+    return _block(cfg, p, h, is_local, rope=rope)[0]
+
+
 def _rope_and_lengths(cfg: ModelConfig, h, cache: Optional[dict]):
     """One forward's rope tables (positions length .. length + S - 1) and,
     for a one-token decode, the decode kernel's valid prefix per sequence;
@@ -272,11 +379,14 @@ def _rope_and_lengths(cfg: ModelConfig, h, cache: Optional[dict]):
     return length, rope, lengths
 
 
-@torch.inference_mode()
 def forward_lm(cfg: ModelConfig, params: DenseLM, tokens, *,
-               cache: Optional[dict] = None):
+               cache: Optional[dict] = None, remat: bool = False):
     """Dense decoder stack over tokens (B, S).  Returns (h_final, new_cache);
-    a given cache is updated in place and comes back with length + S."""
+    a given cache is updated in place and comes back with length + S.
+    ``remat`` (cache-free, under grad mode) checkpoints each block, as the
+    reference's ``jax.checkpoint`` of its scanned body.  Gradients flow
+    when the parameters are ``trainable()``; the serving steps below run
+    it under inference mode."""
     check_supported(cfg)
     if _is_hybrid(cfg):
         raise ValueError(f"{cfg.name} is a hybrid: use forward_hybrid")
@@ -288,7 +398,11 @@ def forward_lm(cfg: ModelConfig, params: DenseLM, tokens, *,
         if cache is not None:
             kv = {"k": cache["k"][i], "v": cache["v"][i], "length": length,
                   "lengths": lengths}
-        h, _ = _block(cfg, p, h, _layer_is_local(cfg, i), kv_cache=kv, rope=rope)
+        if remat and kv is None and torch.is_grad_enabled():
+            h = checkpoint(_remat_block, cfg, p, h, _layer_is_local(cfg, i), rope,
+                           use_reentrant=False)
+        else:
+            h, _ = _block(cfg, p, h, _layer_is_local(cfg, i), kv_cache=kv, rope=rope)
     h = L.apply_norm(cfg, h, params.final_norm, params.final_norm_b)
     new_cache = None
     if cache is not None:
@@ -353,8 +467,27 @@ def forward(cfg: ModelConfig, params: LM, tokens, *, cache: Optional[dict] = Non
 
 
 # ---------------------------------------------------------------------------
-# Serving steps
+# Training loss and serving steps
 # ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
+    """Next-token cross-entropy (predict t + 1 from t): the mean over
+    (B, S - 1) of logsumexp(logits) - logits[gold], in f32, as the
+    reference's ``lm_loss``.  (The reference takes the gold logit by a
+    one-hot contraction for its sharding; here a gather.)"""
+    if _is_hybrid(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training the hybrid needs a backward kernel for the SSD "
+            "scan (csrc/ssd_scan.cu), which is not written yet (ROADMAP.md queue 1, "
+            "hybrid training)")
+    tokens = batch["tokens"]
+    h, _ = forward_lm(cfg, params, tokens, remat=remat)
+    logits = _unembed(cfg, params, h[:, :-1, :]).float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 @torch.inference_mode()

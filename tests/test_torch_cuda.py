@@ -40,7 +40,14 @@ and simulator kernels equal to their plain walks in every output (lanes
 1, 7, 133; n_steps 1 and a long run; a run that clips at k_max, a > s,
 every service family, the ring wrapping), and a durable sweep resumed on
 the card bitwise equal to the uninterrupted one, a CPU checkpoint
-refused there.
+refused there.  The attention backward kernel
+(flash_attention_bwd.cu) is held against autograd through the plain
+attention at f32 1e-4 and bf16 2e-2 of each gradient's largest |entry|,
+the forward's saved log-sum-exp against the plain one at 1e-5 (f32) and
+2e-2 (bf16); a reduced Qwen2.5's training gradients through the kernels
+(autograd Function, remat) against the same model's through the plain
+versions on the CPU at 1e-4 of each tensor's largest |gradient|; and the
+kernels without a backward refuse tensors that require grad.
 """
 import copy
 import dataclasses
@@ -56,6 +63,8 @@ from repro_torch.core.policies import q_policy
 from repro_torch.kernels import bellman as tb
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
+from repro_torch.kernels import ops
 from repro_torch.kernels import fleet_scan as fk
 from repro_torch.kernels import mmpp_sample as mk
 from repro_torch.kernels import sim_scan as sk
@@ -1237,3 +1246,108 @@ def test_reduced_hybrid_card_matches_cpu(cuda):
     assert counts["ssd_scan"] == 5 * cfg.n_layers
     assert counts["flash_attention"] == n_occ
     assert counts["decode_attention"] == 4 * n_occ
+
+
+
+# --- attention backward kernel (training) -------------------------------------
+
+#: the training path's shape (qwen2.5-100m: b 8, S 256, 8 / 4 heads of 64),
+#: then edges: Sq != Sk (rows that see no key), lengths off the 64 / 32
+#: tiles, G 1 / 2 / 5 / 8, D 64 / 128 and the other head sizes, softcap,
+#: causal and not
+BWD_SHAPES = [
+    (8, 256, 256, 8, 4, 64, True, None),
+    (2, 100, 100, 4, 2, 64, True, None),
+    (1, 70, 130, 8, 1, 128, False, None),
+    (2, 90, 60, 10, 2, 64, True, 30.0),
+    (1, 33, 77, 8, 8, 128, True, None),
+    (1, 65, 65, 16, 2, 32, False, 20.0),
+] + [(1, 40, 40, 4, 2, d, True, None) for d in (8, 16, 256)]
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(seed, B, Sq, Sk, H, KV, D, dtype, dev):
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (B, Sq, H, D), dtype, dev)
+    k, v = (_normal(rng, (B, Sk, KV, D), dtype, dev) for _ in range(2))
+    return q, k, v, _normal(rng, (B, Sq, H, D), dtype, dev)
+
+
+def _held_to_max(got, want, tol, what):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), f"{what}: {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,cap", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal, cap, dtype):
+    q, k, v, do = _bwd_inputs(Sq + Sk + H, B, Sq, Sk, H, KV, D, dtype, cuda)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, softcap=cap, return_lse=True)
+    before = dict(fb.flash_attention_bwd.instance_launches)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    for name in fb.KERNELS:
+        assert fb.flash_attention_bwd.instance_launches[name] == before.get(name, 0) + 1
+    lse_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(lse, fa.lse_ref(q, k, causal=causal, softcap=cap),
+                               atol=lse_tol, rtol=lse_tol)
+    want = fb.flash_attention_bwd_ref(q, k, v, do, causal=causal, softcap=cap)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape and g.is_contiguous()
+        _held_to_max(g, w, BWD_TOL[dtype], f"d{name}")
+    again = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
+    for g, h in zip(got, again):  # no atomics: the same bits every run
+        assert torch.equal(g, h)
+
+
+def test_flash_function_and_refusals(cuda):
+    """ops.flash_attention on inputs that require grad goes through the
+    autograd Function (forward with lse, then the backward kernel); the
+    flash wrapper called directly, decode, the SSD scan and the Bellman
+    backup refuse such tensors."""
+    q, k, v, do = _bwd_inputs(1, 2, 64, 64, 4, 2, 64, torch.float32, cuda)
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    f0, b0 = fa.flash_attention.launches, fb.flash_attention_bwd.launches
+    out = ops.flash_attention(qg, kg, vg, causal=True)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert fa.flash_attention.launches == f0 + 1 and fb.flash_attention_bwd.launches == b0 + 1
+    for g, w in zip(grads, fb.flash_attention_bwd_ref(q, k, v, do, causal=True)):
+        _held_to_max(g, w, 1e-4, "grad")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(qg, kg, vg)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        da.decode_attention(qg[:, 0], kg, vg,
+                            torch.full((2,), 64, dtype=torch.int32, device=cuda))
+    xs, Bm, Cm, dt, dA, st = _ssd_inputs(2, 1, 16, 2, 16, 16, torch.float32, True, cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        sd.ssd_scan(xs.requires_grad_(True), Bm, Cm, dt, dA, st)
+    h, pmfs, tails, hso = _inputs(0, 64, 9, 40, 1, cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tb.bellman_banded(h[0].requires_grad_(True), pmfs[0], tails[0], hso[0])
+    with torch.no_grad():  # without grad mode the kernels run
+        fa.flash_attention(qg, kg, vg)
+
+
+def test_training_gradients_on_the_card_match_the_cpu(cuda):
+    """A reduced Qwen2.5 (f32): lm_loss with remat through the kernels on
+    the card, against the same weights through the plain versions on the
+    CPU; two flash launches a layer (forward and its recompute), one
+    backward call a layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["qwen2.5-32b"].reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 40)))
+    grads = {}
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        p.trainable()
+        kernels.reset_launch_counts()
+        loss = M.lm_loss(cfg, p, {"tokens": toks.to(p.device)}, remat=True)
+        grads[name] = torch.autograd.grad(loss, list(p.parameters()))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    for (n, _), g, w in zip(cpu.named_parameters(), grads["cuda"], grads["cpu"]):
+        _held_to_max(g.cpu(), w, 1e-4, n)

@@ -44,6 +44,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.launch.resume_sweep, repro_torch.kernels.sim_scan\n"
         "import repro_torch.kernels.mmpp_sample, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.models.layers, repro_torch.models.model\n"
+        "import repro_torch.training, repro_torch.launch.train\n"
+        "import repro_torch.kernels.flash_attention_bwd\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -99,6 +101,8 @@ def _entry_points():
     from repro_torch.serving.kv_cache import KVCachePool
     from repro_torch.core.simulate import simulate, simulate_events
     from repro_torch.launch import resume_sweep
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import DataConfig, Trainer, batch_at_step
     from repro_torch.serving import (
         MMPP2, DiurnalProcess, diurnal_times, mmpp2_times, poisson_times,
     )
@@ -178,6 +182,9 @@ def _entry_points():
         "simulate_events(compiled)": lambda: simulate_events(
             table, svc, np.zeros(5), 0.5, 4, n_epochs=4, backend="compiled"),
         "resume_sweep.main": lambda: resume_sweep.main(["--n", "2"]),
+        "Trainer": lambda: Trainer(cfg, DataConfig(cfg.vocab_size, 8, 2)),
+        "batch_at_step": lambda: batch_at_step(DataConfig(cfg.vocab_size, 8, 2), 0),
+        "train.main": lambda: train_cli.main(["--arch", "qwen2.5-32b", "--steps", "1"]),
         "FleetStream.resume": lambda: FleetStream.resume("no-such-checkpoint"),
         "params_from_reference": lambda: params_from_reference(cfg, {}),
     }

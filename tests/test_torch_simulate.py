@@ -10,12 +10,16 @@
   equals exactly an independent numpy loop (an unbounded list FIFO, no
   ring) over 8 000 epochs of static-8 -- more than 2^15 requests, so the
   ring wraps -- and with k_max = 3, where services clip;
+* a clipped service keeps its k_max arrivals in the reference's law, spread
+  uniformly over the service (a KS test on >= 2000 clipped services, which
+  the earliest k_max arrivals of the same draws fail);
 * every service family runs; a run that outruns its arrival stream
   raises.
 """
 import numpy as np
 import pytest
 import torch
+from scipy import stats
 
 from repro.core import GOOGLENET_P4_LATENCY as REF_LATENCY
 from repro.core import ServiceModel as RefServiceModel
@@ -112,18 +116,21 @@ def _numpy_loop(pol, means, en, arr, lam, E, k_max):
         t_next = t + T
         resp += [t_next - x for x in fifo[:a]]
         del fifo[:a]
-        c, contrib, n = 0.0, 0.0, 0
+        c, contrib, offs = 0.0, 0.0, []
         while True:
             c += arr[cur] / lam
             cur += 1
             if not c < T:
                 break
-            if n == k_max:
+            if len(offs) == k_max:  # clipped: the kept k_max spread over T
                 clipped += 1
+                offs = [(x / c) * T for x in offs]
                 break
-            fifo.append(t + c)
-            contrib += T - c
-            n += 1
+            offs.append(c)
+        for x in offs:
+            fifo.append(t + x)
+            contrib += T - x
+        n = len(offs)
         q += s * T + contrib
         energy += en[a]
         s += n - a
@@ -186,3 +193,31 @@ def test_arrival_stream_sizing_rule():
     mean, sd = 1000 * 7.0, np.sqrt(1000 * (1 + 18.0 + 36.0))
     assert A == int(np.ceil(mean + 8 * sd + 64))
     assert psim.arrival_stream_size(1000, 2.0, 3.0, 9.0, 2) == 3000
+
+
+def test_clipped_arrivals_are_spread_uniformly_over_the_service():
+    """With k_max = 4 at lam T = 40 every service clips.  Serve-all on a det
+    service: a request that arrived at offset c of a service of length T
+    leaves when the next one ends, so its response is 2 T - c.  The kept
+    offsets over T are k_max sorted uniforms, which pooled are U(0, 1) (the
+    reference's sort(u) * T); the earliest k_max of the same draws are not."""
+    k_max, T, E = 4, 2.0, 2_100
+    lam = 40.0 / T
+    means = torch.tensor([0.0] + [T] * k_max, dtype=torch.float64)
+    pol = torch.arange(k_max + 1, dtype=torch.int64)  # serve all (at most k_max)
+    arr = np.random.default_rng(7).exponential(size=(1, E * (k_max + 1) + 8))
+    out = sk.sim_scan(pol, means, torch.zeros(k_max + 1, dtype=torch.float64),
+                      torch.ones(1, dtype=torch.float64), torch.ones(1, dtype=torch.float64),
+                      torch.zeros((1, E, 0), dtype=torch.float64), torch.as_tensor(arr),
+                      fam=0, erlang_k=1, lam=lam, k_max=k_max, R=E * k_max)
+    n_clipped = int(out.clipped[0])
+    assert n_clipped == E - 1 >= 2000  # every epoch but the first wait clips
+    resp = out.resp[0, :int(out.n_served[0])].numpy()
+    offs = (2 * T - resp[1:]) / T  # the first response is the waited-for request's
+    assert len(offs) >= 2000 * k_max and ((offs > 0) & (offs < 1)).all()
+    assert stats.kstest(offs, "uniform").pvalue > 0.01
+    # the earliest k_max offsets of the same draws (each service reads k_max
+    # + 1 gaps after the first epoch's one)
+    gaps = arr[0, 1:1 + (E - 1) * (k_max + 1)].reshape(E - 1, k_max + 1) / lam
+    earliest = np.cumsum(gaps, axis=1)[:, :k_max].ravel() / T
+    assert stats.kstest(earliest, "uniform").pvalue < 1e-6
