@@ -159,15 +159,19 @@
    version (S 1 / 7 / 128 / 129 / 300 x chunk 8 / 128 x b 1 / 8, zero and
    random incoming state, f32 at 2e-5 and bf16 at 2e-2, at Zamba2's 64
    heads of 64 x state 64 and a reduced shape; in place) and timed at the
-   serving path's prefill (8 x 128) and decode (8 x 1); flash and decode
+   serving path's prefill (8 x 128) and decode (8 x 1), the first
+   design's times quoted in the log beside them; bf16 also held at 1e-4,
+   against a control that rounds the carried state to bf16 and must miss
+   it; flash and decode
    attention at Zamba2's 32 / 32 heads of 64, held and timed beside SDPA;
    the reduced Zamba2 in f32 on the card against the CPU (launch counts
    exact), full width at depth 7 (decode path against fresh prefills);
    then Zamba2-1.2B at its published config (38 layers, bf16) through
    serve_llm.run_pipeline with the Qwen path's constants, launch counts
    exact (flash 6 x segments, decode 6 x 15 x segments, SSD 38 x 16 x
-   segments, Bellman the solve's backups), peak memory, and a profiled
-   b = 8 decode step with the SSD kernel's share.
+   segments with the first pass 38 x segments, Bellman the solve's
+   backups), peak memory, and a profiled
+   b = 8 prefill and decode step with the SSD kernels' share.
 9. Phase 4j, training (examples/train_100m.py --full through the port):
    the attention backward kernel (csrc/flash_attention_bwd.cu) against
    autograd through the plain attention at the path's shape (b 8 x 256,
@@ -175,8 +179,9 @@
    Zamba2's 32 / 32 x 64 in bf16, and over 64 edge cases in f32 and bf16
    (Sq != Sk, lengths off the tiles, G 1 / 2 / 5 / 8, D 64 / 128, softcap,
    causal on and off), at f32 1e-4 and bf16 2e-2 of each gradient's
-   largest |entry|; timed beside its plain version and SDPA's forward +
-   backward.  Then qwen2.5-100m at full width with 2 layers: lm_loss
+   largest |entry|; timed beside its plain version's and SDPA's backward
+   alone, the first design's times quoted in the log beside them.  Then
+   qwen2.5-100m at full width with 2 layers: lm_loss
    gradients through the kernels against the CPU's plain versions (1e-4
    of each tensor's largest |gradient|).  Then the example itself,
    counters zeroed just before and read just after: qwen2.5-100m (12
@@ -3009,10 +3014,14 @@ def profile_decode(torch, M, cfg, params, B):
     else:
         flash = [v for key, v in pre_by.items() if "flash_fwd" in key]
         flash_ms = sum(ms for ms, _ in flash)
+        ssd = [v for key, v in pre_by.items() if "ssd_" in key]  # ssd_cb and the scan
+        ssd_ms = sum(ms for ms, _ in ssd)
         log(f"profile prefill b={B} x {LLM_PROMPT} tokens: device busy {pre_ms:.3f} ms in "
             f"{pre_launches} kernels; flash_attention kernel {flash_ms:.3f} ms in "
             f"{sum(c for _, c in flash)} launches (share {flash_ms / pre_ms:.4f}); "
-            f"unprofiled wall_ms={prefill_ms:.3f}")
+            + (f"ssd_scan kernels {ssd_ms:.3f} ms in {sum(c for _, c in ssd)} launches "
+               f"(share {ssd_ms / pre_ms:.4f}); " if cfg.family == "hybrid" else "")
+            + f"unprofiled wall_ms={prefill_ms:.3f}")
     t0 = time.perf_counter()
     steps(cache, tok)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
@@ -3028,7 +3037,7 @@ def profile_decode(torch, M, cfg, params, B):
         low = key.lower()
         if "decode_attn" in low:  # the split and the combine kernel
             g = "decode_attention kernel"
-        elif "ssd_scan" in low:
+        elif "ssd_" in low:  # the scan (and its first pass, which decode skips)
             g = "ssd_scan kernel"
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
             g = "matmul (cuBLAS)"
@@ -3124,10 +3133,19 @@ SSD_REPLACES = ("src/repro/models/layers.py:523 (the lax.scan of mamba2_block's 
 #: f32: tests/test_models.py's kernel-against-naive bar; bf16 inputs: the
 #: attention kernels' (both versions compute in f32 from the same inputs)
 SSD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: bf16 inputs, held inside their 2e-2 bar: both versions multiply the same
+#: bf16 values in f32, so only the order of sums differs.  A kernel that
+#: rounded the decay-weighted att, the state or w x to bf16 would miss it.
+SSD_BF16_IN_F32_TOL = 1e-4
 #: the kernel's edges: one step (decode), a chunk shorter than 8, exactly one
 #: 128-chunk (a prompt), one step past it (a padded second chunk), several
 SSD_EDGE_S, SSD_EDGE_CHUNKS, SSD_EDGE_B = (1, 7, 128, 129, 300), (8, 128), (1, 8)
 SSD_HEADS = [(64, 64, 64), (8, 16, 16)]  # Zamba2's (H, P, N) and the reduced config's
+#: the first design's times at ssd_row's shapes, (S, dtype) -> ms, quoted in
+#: the log (not measured in this run): earlier runs of this script on an
+#: NVIDIA H100 80GB HBM3 at 700.00 W, as PERF.md records them
+SSD_EARLIER_MS = {(128, "bfloat16"): 0.512904, (1, "bfloat16"): 0.014864,
+                  (128, "float32"): 0.520782, (1, "float32"): 0.014720}
 HYBRID_DEPTH = 7  # six Mamba2 layers, the shared block, one more layer
 
 
@@ -3181,11 +3199,30 @@ def ssd_row(torch, np, rng, B, S, dtype, reps):
     ops, nbytes = ssd_work(B, S, H, P, N, sd.chunk_len(S, 128), args[0].element_size())
     b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
     dt = str(dtype).replace("torch.", "")
+    earlier = SSD_EARLIER_MS[(S, dt)]
     log(f"ssd_scan b={B} S={S} (H, P, N)={(H, P, N)} {dt}: kernel_ms={ms:.6f} "
         f"plain_ms={plain:.6f} library_ms=null (no PyTorch call computes it) "
-        f"bound_ms={b_ms:.6f} ({b_by}; {ops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        f"bound_ms={b_ms:.6f} ({b_by}; {ops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB); "
+        f"the first design {earlier:.6f} ms (quoted from PERF.md, not measured in this "
+        f"run; {earlier / ms:.2f}x)")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 shape=[B, S, H, P, N], dtype=dt)
+
+
+def _ssd_state_rounded(torch, sd, xs, Bm, Cm, dt, dA, state, chunk):
+    """The control of the bf16-in-f32 bar: the plain version with the state
+    rounded to bf16 wherever it is read or handed on, as a kernel that kept
+    the state in bf16 would compute."""
+    S = xs.shape[1]
+    L = sd.chunk_len(S, chunk)
+    ys = []
+    for c0 in range(0, S, L):
+        c = slice(c0, c0 + L)
+        state = None if state is None else state.to(torch.bfloat16).float()
+        y, state = sd.ssd_scan_ref(xs[:, c], Bm[:, c], Cm[:, c], dt[:, c], dA[:, c], state,
+                                   chunk=L)
+        ys.append(y)
+    return torch.cat(ys, 1), state.to(torch.bfloat16).float()
 
 
 def ssd_checks(torch, np, rows):
@@ -3195,7 +3232,7 @@ def ssd_checks(torch, np, rows):
 
     rng = np.random.default_rng(21)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    worst, n = dict.fromkeys(dts, 0.0), 0
+    worst, n, tight = dict.fromkeys(dts, 0.0), 0, SSD_BF16_IN_F32_TOL
     for H, P, N in SSD_HEADS:
         for S in SSD_EDGE_S:
             for chunk in SSD_EDGE_CHUNKS:
@@ -3213,20 +3250,40 @@ def ssd_checks(torch, np, rows):
                                   and torch.allclose(st, st_ref, atol=t, rtol=t),
                                   f"ssd_scan {(B, S, H, P, N)} chunk={chunk} zero_state="
                                   f"{zero} {dt}: max abs err {e}")
+                            check(dt == "float32" or (
+                                torch.allclose(y, y_ref, atol=tight, rtol=tight)
+                                and torch.allclose(st, st_ref, atol=tight, rtol=tight)),
+                                f"ssd_scan {(B, S, H, P, N)} chunk={chunk} zero_state="
+                                f"{zero} bf16: max abs err {e}, outside {tight}: an f32 "
+                                f"operand was rounded")
                             worst[dt] = max(worst[dt], e)
                             n += 1
     log(f"ssd_scan against ssd_scan_ref on the card: {n} cases (S {SSD_EDGE_S} x chunk "
         f"{SSD_EDGE_CHUNKS} x B {SSD_EDGE_B} x zero / random state x f32 / bf16 at (H, P, "
         f"N) {SSD_HEADS}): max_abs_err f32 {worst['float32']:.3e} (atol = rtol = "
-        f"{SSD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} ({SSD_TOL['bfloat16']}) ok")
+        f"{SSD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} ({SSD_TOL['bfloat16']}, and "
+        f"{tight}) ok")
+    for S in (1, LLM_PROMPT + 1):  # decode, and a prefill that hands its state on
+        args = _ssd_inputs(torch, np, rng, LLM_B_MAX, S, 64, 64, 64, torch.bfloat16, False)
+        y_ref, st_ref = sd.ssd_scan_ref(*args, chunk=128)
+        y_c, st_c = _ssd_state_rounded(torch, sd, *args, chunk=128)
+        e = max((y_c - y_ref).abs().max().item(), (st_c - st_ref).abs().max().item())
+        check(not (torch.allclose(y_c, y_ref, atol=tight, rtol=tight)
+                   and torch.allclose(st_c, st_ref, atol=tight, rtol=tight)),
+              f"the state-in-bf16 control at S={S} passes the {tight} bar ({e}): the bar "
+              f"cannot tell a rounded state")
+        log(f"ssd_scan's {tight} bar against a control, the plain version with its state "
+            f"rounded to bf16 (b={LLM_B_MAX} S={S} bf16): max_abs_err={e:.3e}, outside the "
+            f"bar ok")
     xs, Bm, Cm, dt_, dA, st = _ssd_inputs(torch, np, rng, 8, 129, 64, 64, 64,
                                           torch.bfloat16, False)
     y_ref, st_ref = sd.ssd_scan_ref(xs, Bm, Cm, dt_, dA, st, chunk=128)
     y, out = sd.ssd_scan(xs, Bm, Cm, dt_, dA, st, chunk=128, state_out=st)
     torch.cuda.synchronize()
     t = SSD_TOL["bfloat16"]
-    check(out.data_ptr() == st.data_ptr() and torch.allclose(y, y_ref, atol=t, rtol=t)
-          and torch.allclose(out, st_ref, atol=t, rtol=t), "ssd_scan in place")
+    check(out.data_ptr() == st.data_ptr() and all(
+        torch.allclose(y, y_ref, atol=b, rtol=b) and torch.allclose(out, st_ref, atol=b, rtol=b)
+        for b in (t, tight)), "ssd_scan in place")
     log("ssd_scan with state_out = the incoming state (the cache updated in place) ok")
     main = ssd_row(torch, np, rng, LLM_B_MAX, LLM_PROMPT, torch.bfloat16, 50)
     others = [ssd_row(torch, np, rng, LLM_B_MAX, 1, torch.bfloat16, 200),
@@ -3305,10 +3362,12 @@ def hybrid_model_checks(torch, np):
     e = (got.cpu() - want).abs().max().item()
     check(e <= LOGIT_ATOL, f"reduced {HYBRID_ARCH} card vs CPU: max abs err {e}")
     n_occ = M.n_shared_occurrences(cfg)
-    check(counts["ssd_scan"] == 5 * cfg.n_layers and counts["flash_attention"] == n_occ
-          and counts["decode_attention"] == 4 * n_occ,
+    check(counts["ssd_scan"] == counts["ssd_scan:scan"] == 5 * cfg.n_layers
+          and counts["ssd_scan:cb"] == cfg.n_layers
+          and counts["flash_attention"] == n_occ and counts["decode_attention"] == 4 * n_occ,
           f"reduced {HYBRID_ARCH} launches {counts}: not one SSD scan per Mamba2 layer and "
-          f"step, one flash / decode per occurrence of the shared block and step")
+          f"step with a first pass at the prefill, one flash / decode per occurrence of the "
+          f"shared block and step")
     log(f"reduced {HYBRID_ARCH} f32 (d={cfg.d_model}, L={cfg.n_layers}, {n_occ} shared-block "
         f"occurrences): card (kernels) vs CPU (plain): prefill + 4 decode logits "
         f"max_abs_err={e:.3e} (atol {LOGIT_ATOL}); launches ssd_scan {counts['ssd_scan']}, "
@@ -3379,11 +3438,14 @@ def hybrid_path(torch, np, kernels, rows):
     seg = res.segments
     want = {"flash_attention": n_occ * seg, "decode_attention": n_occ * (LLM_GEN - 1) * seg,
             "ssd_scan": cfg.n_layers * LLM_GEN * seg,
+            "ssd_scan:scan": cfg.n_layers * LLM_GEN * seg,
+            "ssd_scan:cb": cfg.n_layers * seg,  # the first pass, at each prefill
             "bellman_banded": _backups_of(res.solution, "cuda")}
     for name, n in want.items():
         check(counts[name] == n, f"{name} launched {counts[name]} times, not {n}")
     log(f"hybrid path launches exact: flash {n_occ} x {seg} segments, decode {n_occ} x "
-        f"{LLM_GEN - 1} x {seg}, ssd_scan {cfg.n_layers} x {LLM_GEN} x {seg}, Bellman "
+        f"{LLM_GEN - 1} x {seg}, ssd_scan {cfg.n_layers} x {LLM_GEN} x {seg} (its first "
+        f"pass {cfg.n_layers} x {seg}, at the prefills), Bellman "
         f"{want['bellman_banded']} backups")
     log("hybrid l(b) ms, b = 1..8 (non-decreasing): "
         + " ".join(f"{x:.3f}" for x in res.lat_ms))
@@ -3402,6 +3464,7 @@ def hybrid_path(torch, np, kernels, rows):
     log(f"hybrid peak memory (torch.cuda.max_memory_allocated): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     rows["ssd_scan"]["launches"] = counts["ssd_scan"]
+    rows["ssd_scan"]["launches_by_kernel"] = {k: counts[f"ssd_scan:{k}"] for k in ("cb", "scan")}
     for name in ("flash_attention", "decode_attention"):
         rows[name]["launches_hybrid_path"] = counts[name]
     rows["bellman_banded"]["launches_hybrid_path"] = counts["bellman_banded"]
@@ -3439,6 +3502,10 @@ BWD_OTHER = [(8, 256, 40, 8, 128, "bfloat16"), (8, 256, 32, 32, 64, "bfloat16")]
 #: softcap, causal -- 64 cases, each in f32 and bf16
 BWD_EDGE_LENGTHS = [(100, 100), (70, 130)]
 BWD_EDGE_G, BWD_EDGE_D, BWD_EDGE_CAP = (1, 2, 5, 8), (64, 128), (None, 30.0)
+#: the first design's times at bwd_row's shapes, quoted in the log (not
+#: measured in this run): an earlier run of this script on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W, as PERF.md records it
+BWD_EARLIER_MS = {BWD_PATH: 0.194490, BWD_OTHER[0]: 1.474691, BWD_OTHER[1]: 0.471499}
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_HALF = 300, 60, 150
 TRAIN_PARITY = dict(layers=2, batch=2)  # full width, cut depth and batch (CPU side)
 TRAIN_PROFILE_STEPS = 3
@@ -3521,11 +3588,14 @@ def bwd_row(torch, np, rng, B, S, H, KV, D, dt, reps=20):
     b_ms, b_by = bound(item * (4 * B * S * H * D + 4 * B * S * KV * D) + 4 * B * H * S,
                        10 * B * H * D * pairs,
                        BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    earlier = BWD_EARLIER_MS[(B, S, H, KV, D, dt)]
     log(f"flash_attention_bwd b={B} {(S, H, KV, D)} {dt} causal: kernel_ms={ms:.6f} "
         f"bound_ms={b_ms:.6f} ({b_by}, {10 * B * H * D * pairs / 1e9:.3f} GFLOP); "
         f"backward alone: plain_ms={plain:.6f} (autograd through attention_ref), "
         f"library_ms={lib:.6f} (SDPA, enable_gqa); forward + backward kernels "
-        f"{both:.6f} ms")
+        f"{both:.6f} ms; the first design {earlier:.6f} ms (quoted from PERF.md, not "
+        f"measured in this run; "
+        f"{earlier / ms:.2f}x)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                 fwd_bwd_ms=both, shape=[B, S, S, H, KV, D], dtype=dt)
 
@@ -3735,7 +3805,8 @@ def train_run(torch, np, kernels, rows, workdir):
                 f"{cnt // TRAIN_PROFILE_STEPS:5d} calls/step  {key[:90]}")
     rows["flash_attention_bwd"].update(
         launches=counts["flash_attention_bwd"], launches_per_step=L,
-        kernel_launches_per_call=3)
+        kernel_launches_per_call=3,
+        launches_by_kernel={k: counts[f"flash_attention_bwd:{k}"] for k in ("dot", "dkdv", "dq")})
     rows["flash_attention"]["launches_training_path"] = counts["flash_attention"]
     rows["flash_attention_bwd"]["training"] = dict(
         steps=TRAIN_STEPS, loss_first=losses_a[0], loss_last=losses_a[-1],

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 nvcc into its own shared library under ``build/repro_torch/`` at the root
-of the checkout, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads straight away.  No
+of the checkout, named by a hash of the flags, the source and every local
+header it includes (``csrc/*.cuh``), so a changed source or header
+rebuilds and an unchanged one loads straight away.  No
 PyTorch headers are included: a source builds in seconds.
 
 ``build_all()`` starts one nvcc per source at once and waits for all of
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -73,10 +75,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes ("..."),
+    directly or through another header, in the order first reached."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / inc.decode()).resolve())
+    return found
+
+
 def _target(name: str) -> Tuple[Path, List[str]]:
-    src = CSRC / f"{name}.cu"
+    """The library's path, named by a hash of the flags and of every source
+    it compiles (a changed header rebuilds its includers), and the flags."""
     flags = BASE_FLAGS + EXTRA_FLAGS[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so", flags
 
 

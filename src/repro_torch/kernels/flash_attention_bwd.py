@@ -2,12 +2,13 @@
 
 The kernels are in ``csrc/flash_attention_bwd.cu``: the gradient of the
 forward kernel's function (``flash_attention.py``), FlashAttention-2's
-backward on the CUDA cores in f32 -- a short first pass for D =
-rowsum(dO * O), one kernel for dK and dV per (b, kv head, key tile), one
-for dQ per (b, head, query tile) -- with no atomics, so the gradient is
-the same from run to run.  They replace no TPU kernel: the JAX package
-trains through its differentiable jnp attention and its Pallas kernel has
-no backward.
+backward -- a short first pass for D = rowsum(dO * O), one kernel for dK
+and dV per (b, kv head, key tile), one for dQ per (b, head, query tile) --
+with no atomics, so the gradient is the same from run to run.  bf16 runs
+on the tensor cores (``wgmma``; P and dS rounded to bf16 before their
+products, as the forward rounds P), f32 in IEEE f32 on the CUDA cores.
+They replace no TPU kernel: the JAX package trains through its differentiable jnp attention
+and its Pallas kernel has no backward.
 
 ``flash_attention_bwd_ref`` is the plain version: ``torch.autograd.grad``
 through ``attention_ref``.  A tensor on the CPU runs it; a CUDA tensor

@@ -13,15 +13,18 @@ This is the ``chunk_body`` scan of the reference's ``mamba2_block``
 (src/repro/models/layers.py:484-527), which ``ssd_scan_ref`` below repeats
 op for op in torch.  The kernel is ``csrc/ssd_scan.cu``, the device
 counterpart of that ``lax.scan`` (not of a Pallas kernel); its header says
-how it is laid out and what bounds it.
+how it is laid out and what bounds it: a first pass forms C B^T once per
+(sequence, chunk) for every head (skipped at L = 1), then one block per
+(head, sequence) walks the chunks with register-tiled f32 products.
 
 Inputs: ``xs`` (B, S, H, P) and ``Bm`` / ``Cm`` (B, S, N) in the
 activation dtype (float32 or bfloat16), ``dt`` and ``dA`` (B, S, H)
 float32, the incoming ``state`` (B, H, P, N) float32 (None: zeros).  The
 output is float32 (B, S, H, P), before the ``d_skip`` term, and the final
 state.  Tensors on the CPU run the plain version; CUDA tensors launch the
-kernel (one launch, on the current stream, counted in ``launches``) or
-raise.  The kernel reads xs, Bm and Cm in place through their batch and
+kernels on the current stream (one call, counted once in ``launches`` and
+per kernel in ``instance_launches``: ``cb``, the first pass, when L > 1,
+then ``scan``) or raise.  The kernel reads xs, Bm and Cm in place through their batch and
 step strides, as views of the block's fused projection.
 """
 from __future__ import annotations
@@ -40,7 +43,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232_448
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
              + ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
-             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+#: rows of A a scan block forms at a time (csrc/ssd_scan.cu's RB_MAX)
+ROW_BLOCK = 64
+#: the kernels one call launches, in order (``cb`` only for chunks of L > 1)
+KERNELS = ("cb", "scan")
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -48,9 +55,21 @@ def chunk_len(S: int, chunk: int) -> int:
     return chunk if S >= chunk else S
 
 
+def _up4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
 def smem_bytes(P: int, N: int, L: int) -> int:
-    """Shared memory of one kernel block (csrc/ssd_scan.cu's layout)."""
-    return 4 * (L * P + 2 * L * (N + 1) + 3 * L + L * L + P * (N + 1))
+    """Shared memory of one scan block (csrc/ssd_scan.cu's layout).  Chunks
+    of L > 1: x (L x P), the state transposed (N x P), one region for A
+    ((L + N) x the 64-row block) or w B (L x N), and dt, cum, w; P and N
+    padded to multiples of 4.  L = 1 (decode): for each of the block's two
+    heads, the state, the x, C and B rows, dt, dA and the step's C . B
+    term, rounded to 16 bytes."""
+    if L == 1:
+        return 4 * 2 * _up4(P * N + P + 2 * N + 3)
+    PP, NN = _up4(P), _up4(N)
+    return 4 * (L * PP + NN * PP + max((L + NN) * ROW_BLOCK, L * NN) + 3 * L)
 
 
 def check_inputs(xs, Bm, Cm, dt, dA, state, chunk: int) -> None:
@@ -163,11 +182,16 @@ def _launch(xs, Bm, Cm, dt, dA, state, chunk, state_out):
           or state_out.device != xs.device or not state_out.is_contiguous()):
         raise ValueError("state_out must be a contiguous float32 tensor shaped as state")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=xs.device)
+    n_scratch = _build.function("ssd_scan", "ssd_scan_scratch_floats", ctypes.c_longlong,
+                                [ctypes.c_int] * 4)(B, S, N, L)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=xs.device)
+               if n_scratch else None)
     fn = _build.function("ssd_scan", "ssd_scan_launch", ctypes.c_int, _ARGTYPES)
     rc = fn(xs.data_ptr(), xs.stride(0), xs.stride(1),
             Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
             Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
-            dt.data_ptr(), dA.data_ptr(), state.data_ptr(), y.data_ptr(),
+            dt.data_ptr(), dA.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            state.data_ptr(), y.data_ptr(),
             state_out.data_ptr(), B, S, H, P, N, L, DTYPES[xs.dtype],
             torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
@@ -188,7 +212,11 @@ def ssd_scan(xs, Bm, Cm, dt, dA, state=None, *, chunk: int = 128,
         return ssd_scan_ref(xs, Bm, Cm, dt, dA, state, chunk=chunk, state_out=state_out)
     out = _launch(xs, Bm, Cm, dt, dA, state, chunk, state_out)
     ssd_scan.launches += 1
+    counts = ssd_scan.instance_launches
+    for name in KERNELS if chunk_len(xs.shape[1], chunk) > 1 else KERNELS[1:]:
+        counts[name] = counts.get(name, 0) + 1
     return out
 
 
 ssd_scan.launches = 0
+ssd_scan.instance_launches = {}

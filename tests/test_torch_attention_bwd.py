@@ -13,6 +13,10 @@ backward kernel.
   see no key averaging every key -- against autograd, at f32 1e-5; and the
   plain log-sum-exp ``lse_ref`` against ``torch.logsumexp`` of the plain
   scores;
+* the same arithmetic with the bf16 kernel's roundings (bf16 inputs and
+  output, P and dS rounded to bf16 before the dV, dK and dQ products,
+  everything else f32) against autograd through ``attention_ref`` at the
+  card's bf16 bar, 2e-2 of each gradient's largest |entry|;
 * on the CPU ``ops.flash_attention`` stays differentiable by autograd; a
   tensor that requires grad and does not lie on the CPU never reaches a
   kernel without a backward (decode, SSD scan, Bellman, and the flash
@@ -67,8 +71,14 @@ def test_attention_gradient_matches_jax_grad(B, Sq, Sk, H, KV, D, causal, cap):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)
 
 
-def _dense_kernel_arithmetic(q, k, v, out, lse, do, causal, cap):
-    """The backward kernel's formulas, over whole (Sq, Sk) tiles."""
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def _dense_kernel_arithmetic(q, k, v, out, lse, do, causal, cap, round_pds=False):
+    """The backward kernel's formulas, over whole (Sq, Sk) tiles; with
+    ``round_pds`` P and dS are rounded to bf16 before their products, as
+    the bf16 kernel feeds them to the tensor cores."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -88,6 +98,8 @@ def _dense_kernel_arithmetic(q, k, v, out, lse, do, causal, cap):
     dvec = torch.einsum("bqhd,bqhd->bhq", do, out)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vh)
     ds = torch.where(seen & ~blind, p * (dp - dvec[..., None]) * dcap, torch.zeros(()))
+    if round_pds:
+        p, ds = _bf16(p), _bf16(ds)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh) / math.sqrt(D)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) / math.sqrt(D)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
@@ -107,6 +119,24 @@ def test_backward_kernel_arithmetic_matches_autograd(B, Sq, Sk, H, KV, D, causal
     want = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
     for name, g, w in zip("qkv", got, want):
         torch.testing.assert_close(g, w, **TOL, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,cap",
+                         CASES + [(1, 12, 7, 4, 2, 8, True, None)])
+def test_bf16_kernel_arithmetic_holds_the_bar(B, Sq, Sk, H, KV, D, causal, cap):
+    """bf16 inputs (held in f32), the forward's output rounded to bf16, P
+    and dS rounded to bf16 before their products: within 2e-2 of each
+    gradient's largest |entry| of autograd through attention_ref on the
+    same inputs (the bar chip_smoke.py and the card tests hold the bf16
+    kernel to)."""
+    q, k, v, do = (_bf16(torch.as_tensor(x)) for x in _inputs(11 + Sk, B, Sq, Sk, H, KV, D))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, softcap=cap, return_lse=True)
+    got = _dense_kernel_arithmetic(q, k, v, _bf16(out), lse, do, causal, cap, round_pds=True)
+    want = fb.flash_attention_bwd_ref(q, k, v, do, causal=causal, softcap=cap)
+    for name, g, w in zip("qkv", got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 2e-2 * w.abs().max().item(), f"d{name}: {err}"
+        assert err > 0 or name == "v"  # the roundings are really there
 
 
 def test_ops_flash_attention_is_differentiable_on_the_cpu():

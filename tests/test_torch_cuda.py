@@ -1154,6 +1154,10 @@ def test_durable_sweep_on_the_card(cuda, tmp_path):
 # --- the SSD scan kernel (Mamba2) ---------------------------------------------
 
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: bf16 inputs, held inside their 2e-2 bar: both versions multiply the same
+#: bf16 values in f32, so only the order of sums differs.  A kernel that
+#: rounded the decay-weighted att, the state or w x to bf16 would miss it.
+SSD_BF16_IN_F32_TOL = 1e-4
 
 
 def _ssd_inputs(seed, B, S, H, P, N, dtype, zero_state, dev):
@@ -1180,18 +1184,27 @@ def _ssd_inputs(seed, B, S, H, P, N, dtype, zero_state, dev):
 @pytest.mark.parametrize("zero_state", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,chunk", [(1, 128), (7, 8), (7, 128), (128, 128), (129, 128),
-                                     (300, 8), (300, 128)])
-@pytest.mark.parametrize("B,H,P,N", [(8, 64, 64, 64), (1, 8, 16, 16)])
+                                     (300, 8), (300, 128), (70, 66), (200, 100)])
+@pytest.mark.parametrize("B,H,P,N", [(8, 64, 64, 64), (1, 8, 16, 16), (2, 5, 32, 128),
+                                     (1, 3, 18, 10)])
 def test_ssd_scan_kernel_matches_plain(cuda, B, H, P, N, S, chunk, dtype, zero_state):
     args = _ssd_inputs(S + chunk, B, S, H, P, N, dtype, zero_state, cuda)
     before = sd.ssd_scan.launches
+    inst = dict(sd.ssd_scan.instance_launches)
     y, st = sd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert sd.ssd_scan.launches == before + 1
+    for name in sd.KERNELS:  # the first pass only for chunks of L > 1
+        ran = name == "scan" or sd.chunk_len(S, chunk) > 1
+        assert sd.ssd_scan.instance_launches.get(name, 0) == inst.get(name, 0) + ran
     y_ref, st_ref = sd.ssd_scan_ref(*args, chunk=chunk)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
     torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        tol = SSD_BF16_IN_F32_TOL
+        torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
+        torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
 
 
 def test_ssd_scan_kernel_in_place_and_layout(cuda):
@@ -1207,17 +1220,19 @@ def test_ssd_scan_kernel_in_place_and_layout(cuda):
     y, out = sd.ssd_scan(xs, Bm, Cm, dt, dA, st, chunk=128, state_out=st)
     torch.cuda.synchronize()
     assert out.data_ptr() == st.data_ptr()
-    torch.testing.assert_close(y, y_ref, atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(out, st_ref, atol=2e-2, rtol=2e-2)
+    for tol in (SSD_TOL[torch.bfloat16], SSD_BF16_IN_F32_TOL):
+        torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
+        torch.testing.assert_close(out, st_ref, atol=tol, rtol=tol)
     fn = _build.function("ssd_scan", "ssd_scan_smem_bytes", ctypes.c_longlong,
                          [ctypes.c_int] * 3)
-    for P, N, L in ((64, 64, 128), (16, 16, 8), (64, 64, 1), (32, 128, 100)):
+    for P, N, L in ((64, 64, 128), (16, 16, 8), (64, 64, 1), (32, 128, 100), (18, 10, 66),
+                    (64, 64, 200)):
         assert fn(P, N, L) == sd.smem_bytes(P, N, L)
     with pytest.raises(ValueError, match="contiguous"):
         sd.ssd_scan(xs.transpose(2, 3), Bm, Cm, dt, dA, None)
-    long = _ssd_inputs(6, 1, 300, 2, 64, 64, torch.bfloat16, True, cuda)
+    long = _ssd_inputs(6, 1, 600, 2, 64, 64, torch.bfloat16, True, cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        sd.ssd_scan(*long, chunk=200)
+        sd.ssd_scan(*long, chunk=512)
 
 
 def test_reduced_hybrid_card_matches_cpu(cuda):
@@ -1243,7 +1258,8 @@ def test_reduced_hybrid_card_matches_cpu(cuda):
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=3e-4, rtol=0)
     counts = kernels.launch_counts()
     n_occ = M.n_shared_occurrences(cfg)
-    assert counts["ssd_scan"] == 5 * cfg.n_layers
+    assert counts["ssd_scan"] == counts["ssd_scan:scan"] == 5 * cfg.n_layers
+    assert counts["ssd_scan:cb"] == cfg.n_layers  # the prefill's first pass
     assert counts["flash_attention"] == n_occ
     assert counts["decode_attention"] == 4 * n_occ
 
@@ -1252,9 +1268,10 @@ def test_reduced_hybrid_card_matches_cpu(cuda):
 # --- attention backward kernel (training) -------------------------------------
 
 #: the training path's shape (qwen2.5-100m: b 8, S 256, 8 / 4 heads of 64),
-#: then edges: Sq != Sk (rows that see no key), lengths off the 64 / 32
-#: tiles, G 1 / 2 / 5 / 8, D 64 / 128 and the other head sizes, softcap,
-#: causal and not
+#: then edges: Sq != Sk (rows that see no key), lengths off the 64-row bf16
+#: tiles and the 32-key / 64-query f32 tiles (31, 33, 63, 65, 97, 129, 161),
+#: G 1 / 2 / 5 / 8, D 64 / 128 and the other head sizes (D = 256 on its two
+#: warpgroups, over several tiles), softcap, causal and not
 BWD_SHAPES = [
     (8, 256, 256, 8, 4, 64, True, None),
     (2, 100, 100, 4, 2, 64, True, None),
@@ -1262,6 +1279,11 @@ BWD_SHAPES = [
     (2, 90, 60, 10, 2, 64, True, 30.0),
     (1, 33, 77, 8, 8, 128, True, None),
     (1, 65, 65, 16, 2, 32, False, 20.0),
+    (1, 31, 31, 5, 1, 64, True, None),
+    (2, 97, 161, 10, 2, 128, True, 30.0),
+    (1, 129, 65, 4, 4, 32, True, None),
+    (1, 130, 130, 4, 2, 256, True, None),
+    (1, 63, 97, 5, 1, 256, False, None),
 ] + [(1, 40, 40, 4, 2, d, True, None) for d in (8, 16, 256)]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1299,6 +1321,26 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal, cap, 
     again = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
     for g, h in zip(got, again):  # no atomics: the same bits every run
         assert torch.equal(g, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_reads_a_misaligned_dout(cuda, dtype):
+    """dO as a view one element into a buffer (rows not 16-byte aligned):
+    the kernels stage it by plain loads instead of 16-byte copies, with the
+    same result and bits as an aligned copy of it."""
+    q, k, v, do = _bwd_inputs(3, 2, 70, 70, 4, 2, 64, dtype, cuda)
+    buf = torch.empty(do.numel() + 1, dtype=dtype, device=cuda)
+    odd = buf[1:].view(do.shape)
+    odd.copy_(do)
+    assert odd.data_ptr() % 16 != 0
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, odd)
+    want = fb.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, fb.flash_attention_bwd_ref(q, k, v, do)):
+        _held_to_max(g, w, BWD_TOL[dtype], "grad")
 
 
 def test_flash_function_and_refusals(cuda):

@@ -113,7 +113,8 @@ def test_ssd_scan_ref_equals_recurrence():
         np.testing.assert_allclose(fin.numpy(), st.numpy(), atol=STEP_TOL)
     out = torch.empty_like(state0)
     _, fin = K.ssd_scan(xs, Bm, Cm, dt, dA, state0, chunk=8, state_out=out)
-    assert fin is out and K.ssd_scan.launches == 0  # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert fin is out and K.ssd_scan.launches == 0 and not K.ssd_scan.instance_launches
 
 
 def test_mamba2_block_chunked_equals_stepwise():
@@ -133,6 +134,21 @@ def test_mamba2_block_chunked_equals_stepwise():
     np.testing.assert_allclose(y_full.numpy(), torch.cat(outs, 1).numpy(), atol=STEP_TOL)
     np.testing.assert_allclose(ssm_f.numpy(), ssm.numpy(), atol=STEP_TOL)
     np.testing.assert_allclose(conv_f.numpy(), conv.numpy(), atol=STEP_TOL)
+
+
+def test_ssd_kernel_shared_memory_plan():
+    """csrc/ssd_scan.cu's layout as the wrapper computes it (the card tests
+    hold it equal to the C library's): Zamba2-1.2B's prefill block fits
+    twice in an H100 SM; a decode block (L = 1) holds two heads' states
+    row-major; a chunk of 200 fits a block and one of 512 does not (the
+    card test's refusal)."""
+    cfg = PARCHS[ARCH]
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    smem = K.smem_bytes(P, N, 128)
+    assert smem <= 110 * 1024 and 2 * (smem + 1024) <= 228 * 1024
+    assert K.smem_bytes(P, N, 1) == 8 * (P * N + P + 2 * N + 4)  # decode: 2 heads' state, rows
+    assert K.smem_bytes(64, 64, 200) <= K.MAX_SMEM < K.smem_bytes(64, 64, 512)
+    assert K.smem_bytes(18, 10, 66) == K.smem_bytes(20, 12, 66)  # P, N padded to 4
 
 
 def test_params_from_reference_layout(zamba):
