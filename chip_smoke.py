@@ -4,7 +4,8 @@
     python3 chip_smoke.py        (from the root of the checkout, one card)
 
 1. Prints the card (name, power limit) and builds the CUDA kernels from
-   the sources in this checkout (one nvcc per source, all at once).
+   the sources in this checkout (one nvcc per source, all at once); counts
+   the walking kernels' SASS instructions per instance (cuobjdump -sass).
 2. Kernel phase: holds each kernel against its plain PyTorch version on
    the card -- the Bellman backup at the reference test shapes, the
    solver's path shape (129, 33, 129) and (4097, 33, 4097), then at the
@@ -107,7 +108,10 @@
    aware serves from a lower queue and wins MMPP2 goodput).  Then the
    fleet kernel's one-lane (faults, buffer), grid and mix instances are
    held against their plain walk on the inputs of those launches and
-   timed.
+   timed, each beside its chain floor (csrc/chain_floor.cu: the walk's
+   dependent chain alone, operands in registers and shared memory, for
+   the steps each lane's plain walk took) and the time before its
+   redesign (EARLIER_MS, quoted from PERF.md).
 4h. Durable sweeps and streams, the on-device samplers and the independent
    simulator, counters zeroed just before and read just after:
    launch/resume_sweep.py --self-preempt with backup="pallas" (SIGTERM
@@ -132,7 +136,9 @@
    paper's anchors; W and P within 2% of evaluate_policy and Little's law
    within 2%, asserted) and simulate_events(backend="compiled").  Then the
    MMPP sampler and simulator kernels are held against their plain walks
-   on the inputs of the launches that time them, exactly.
+   on the inputs of the launches that time them, exactly; the simulator
+   beside its chain floor (the epochs' dependent chain alone, for the
+   run's E epochs) and its time before the redesign.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -1678,6 +1684,12 @@ def mmpp_phase(torch, np, kernels, rows, main_res, energy):
 
 
 FLEET_SOURCE = "src/repro_torch/kernels/csrc/fleet_scan.cu"
+#: the walking kernels' times before their redesign, by row (ms; PERF.md
+#: section 6: chip_smoke.py runs of the first designs on an NVIDIA H100
+#: 80GB HBM3 at 700 W).  Quoted on the rows' log lines and on a line of their
+#: own, never in the `kernels` line: not measured here.
+EARLIER_MS = {"fleet_scan": 15.788, "fleet_scan_grid": 53.927, "fleet_scan_mix": 55.729,
+              "sim_scan": 135.708}
 FLEET_REPLACES = ("src/repro/serving/fleet.py:551 (the lax.scan of _fleet_scan_core{}, "
                   "with its per-request reconstruction :558-648; not a Pallas kernel)")
 FLEET_M, FLEET_RHO, FLEET_N, FLEET_SEEDS = 4, 0.7, 20_000, 4  # fleet_frontier.py
@@ -1727,6 +1739,136 @@ def fleet_inputs(np, tables, traces, rids, *, means, zeta, b_max, faults=None,
         bel, None if bel is None else bel[:, 0], t0=0.0, horizon=np.inf, max_eps=max_eps,
         drain=True, b_max=b_max, buf_cap=fleet._NO_BUFFER if buffer is None else buffer,
         max_retries=max_retries, cap=cap)
+
+
+def event_ms(torch, fn, reps=3):
+    """Best of `reps` single launches, CUDA events around each (warm first)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _window(np, x, n):
+    """The first n finite entries of x, the run replayed with an offset
+    when x has fewer (chain_floor.cu's arrival window)."""
+    x = np.asarray(x, dtype=np.float64)
+    x = x[np.isfinite(x)]
+    out, base = [], 0.0
+    span = x[-1] - x[0] + (x[-1] - x[0]) / max(len(x) - 1, 1)
+    while sum(len(o) for o in out) < n:
+        out.append(x + base)
+        base += span
+    return np.concatenate(out)[:n]
+
+
+def fleet_chain_ms(torch, np, call, ref):
+    """The fleet walk's chain alone (csrc/chain_floor.cu): each lane walks
+    the steps its plain walk took (n_steps_used), M replicas in registers,
+    arrival times from a window of its own trace in shared memory, one
+    block a lane as the kernel launches them.  Returns (ms, the floor's
+    admissions over the lanes)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fleet_scan as fk
+
+    args, _ = call
+    tables, rids, arr, means, zeta = args[0], args[2], args[3], args[8], args[9]
+    beliefs = args[17] if len(args) > 17 else None
+    P, M, K, L = tables.shape
+    S, size = arr.shape
+    R = len(rids)
+    lanes = S * P * R
+    win_n = int(_build.function("chain_floor", "chain_floor_window", ctypes.c_longlong, [])())
+    host = arr.cpu().numpy()
+    win = torch.as_tensor(np.stack([_window(np, host[ln // (P * R)], win_n)
+                                    for ln in range(lanes)]), device="cuda")
+    bel = None
+    if beliefs is not None:
+        b = beliefs.cpu().numpy()
+        bel = torch.as_tensor(np.stack([np.resize(b[ln // (P * R)], (win_n, K))
+                                        for ln in range(lanes)]), device="cuda")
+    steps = ref.agg_i[:, fk.AGG_I.index("n_steps_used")].contiguous().cuda()
+    out = torch.empty((lanes, 3), dtype=torch.float64, device="cuda")
+    tab = tables[0].contiguous()
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = _build.function("chain_floor", "fleet_floor_launch", ctypes.c_int,
+                         [vp] * 7 + [ll] * 5 + [ctypes.c_double] * 2 + [ctypes.c_int, vp])
+
+    def launch():
+        check(fn(win.data_ptr(), tab.data_ptr(), None if bel is None else bel.data_ptr(),
+                 means.data_ptr(), zeta.data_ptr(), steps.data_ptr(), out.data_ptr(), lanes,
+                 M, K, L, len(means) - 1, 1.0, 1.0, int(bel is not None),
+                 torch.cuda.current_stream().cuda_stream) == 0, "fleet chain floor launch")
+
+    ms = event_ms(torch, launch)
+    check(bool(torch.isfinite(out).all()), "fleet chain floor: non-finite clock")
+    return ms, int(out[:, 2].sum())
+
+
+def sim_chain_ms(torch, np, args, kw):
+    """The simulator walk's chain alone (csrc/chain_floor.cu): E epochs of
+    the policy, the service time, the run of offset sums and the state
+    update, gaps from a window of the lane's stream in shared memory.
+    Returns (ms, the floor's arrivals consumed)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    pol, means, en, svc, arr = args[0], args[1], args[2], args[5], args[6]
+    n = int(_build.function("chain_floor", "chain_floor_window", ctypes.c_longlong, [])())
+    gaps = (arr[0, :n] / kw["lam"]).contiguous()
+    W = svc.shape[2]
+    units = (svc[0, :n, W - 1] if W else torch.ones(n, dtype=torch.float64,
+                                                    device="cuda")).contiguous()
+    E = svc.shape[1]
+    out = torch.empty(4, dtype=torch.float64, device="cuda")
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = _build.function("chain_floor", "sim_floor_launch", ctypes.c_int,
+                         [vp, vp, vp, ll, vp, vp, ll, ll, ll, ctypes.c_int, vp, vp])
+
+    def launch():
+        check(fn(gaps.data_ptr(), units.data_ptr(), pol.data_ptr(), len(pol), means.data_ptr(),
+                 en.data_ptr(), len(means), E, int(kw["k_max"]), int(kw["fam"]),
+                 out.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0,
+              "sim chain floor launch")
+
+    ms = event_ms(torch, launch)
+    check(bool(torch.isfinite(out).all()), "sim chain floor: non-finite output")
+    return ms, int(out[3])
+
+
+#: SASS instructions a kernel instance, from cuobjdump -sass of the built
+#: libraries (main fills it for fleet_scan and sim_scan)
+SASS = {}
+
+
+def sass_counts(name):
+    """{kernel function: SASS instructions} of csrc/<name>.cu's library."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(_build._target(name)[0])],
+                         capture_output=True, text=True)
+    check(res.returncode == 0, f"cuobjdump -sass failed for {name}: {res.stderr[-500:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and line.strip().startswith("/*") and ";" in line:
+            counts[fn] += 1
+    check(len(counts) > 0, f"cuobjdump found no kernels in {name}")
+    return counts
 
 
 def fleet_row(torch, np, name, call, reps=3):
@@ -1807,12 +1949,20 @@ def fleet_row(torch, np, name, call, reps=3):
     flops = int(4 * eps.sum() + 3 * served.sum() + (2 * K * eps.sum() if mix else 0))
     b_ms, b_by = bound(n_bytes, flops, F64_FLOPS)
     steps = int(a["n_steps_used"].sum())
+    chain, floor_adm = fleet_chain_ms(torch, np, call, ref)
+    longest = int(a["n_steps_used"].max())
     log(f"{name} ({lanes} lanes, M={M}, {steps} steps, {int(served.sum())} served): "
-        f"kernel_ms={best:.3f} plain_ms={plain:.3f} (Python walk on the host) "
-        f"bound_ms={b_ms:.6f} ({b_by}); every output equal to the plain version")
+        f"kernel_ms={best:.3f} ({1e3 * best / longest:.4f} us a step of the longest lane) "
+        f"plain_ms={plain:.3f} (Python walk on the host) bound_ms={b_ms:.6f} ({b_by}) "
+        f"chain_ms={chain:.3f} (the walk's chain alone, {longest} steps on the longest "
+        f"lane: kernel {best / chain:.2f}x it; the floor admitted {floor_adm}, the path "
+        f"{int(adm.sum())}) earlier_ms={EARLIER_MS[name]} (quoted, PERF.md); every "
+        f"output equal to the plain version")
     return dict(route="cuda", source=FLEET_SOURCE, max_abs_err=err, ms=best,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=[lanes, M, steps], served=int(served.sum()))
+                chain_ms=chain, shape=[lanes, M, steps], served=int(served.sum()),
+                walk=fk.smem_plan(len(args[10]), M, K, L, size, len(args[8]) - 1, mix).walk,
+                sass_instructions=SASS["fleet_scan"])
 
 
 def _fleet_traces(np, mode, lam, n, seeds, base):
@@ -2473,14 +2623,19 @@ def sim_row(torch, np, args, kw, launches, name):
     # bytes: the draws this run reads, the actions and responses written
     n_bytes = 8 * consumed + 8 * W * serves + 4 * E + 8 * n + 8 * (len(args[0]) + 4 * len(args[1]))
     b_ms, b_by = bound(n_bytes, 4 * consumed + 6 * E + n, F64_FLOPS)
+    chain, floor_consumed = sim_chain_ms(torch, np, args, kw)
     log(f"sim_scan ({name}, {E} epochs, {n} requests, {consumed} arrival draws): "
         f"kernel_ms={best:.6f} ({1e3 * best / E:.4f} us an epoch: the serial walk) "
         f"plain_ms={plain:.3f} (the plain walk, Python floats on the host) "
-        f"bound_ms={b_ms:.6f} ({b_by}; the serial chain is the real bound); equal to the "
-        f"plain walk in every output")
+        f"bound_ms={b_ms:.6f} ({b_by}) chain_ms={chain:.6f} (the walk's chain alone, "
+        f"{E} epochs, {floor_consumed} arrivals: kernel {best / chain:.2f}x it) "
+        f"earlier_ms={EARLIER_MS['sim_scan']} (quoted, PERF.md); equal to the plain walk "
+        f"in every output")
     return dict(route="cuda", source=SIM_SOURCE, replaces=SIM_REPLACES, launches=launches,
                 max_abs_err=0.0, ms=best, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, shape=[E, n], policy=name)
+                library_ms=None, chain_ms=chain, shape=[E, n], policy=name,
+                chain_consumed=floor_consumed,
+                sass_instructions=SASS["sim_scan"])
 
 
 def durable_phase(torch, np, kernels, rows):
@@ -3852,6 +4007,10 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for name in ("fleet_scan", "sim_scan"):
+        SASS[name] = sass_counts(name)
+        for fn, n in sorted(SASS[name].items()):
+            log(f"  {name}: {n} SASS instructions in {fn}")
 
     rows = kernel_phase(torch, np)
 
@@ -3962,6 +4121,10 @@ def main():
     log("bellman first design, quoted from PERF.md (not measured in this run): "
         + json.dumps([dict(shape=list(shape), ms=ms, run=run)
                       for shape, (ms, run) in PREVIOUS_MS.items()]))
+    log("walking kernels before their redesign, quoted from PERF.md (not measured in this "
+        "run): " + json.dumps(dict(earlier_ms=EARLIER_MS, now_ms={
+            name: rows[name]["ms"] for name in EARLIER_MS}, chain_ms={
+            name: rows[name]["chain_ms"] for name in EARLIER_MS})))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernel_list}))
     print(json.dumps({"ok": True, "device": {

@@ -40,11 +40,14 @@ BASE_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: belief_forward fuses only where its plain version does (explicit fma).
 #: fleet_scan rounds its clocks and crash energies the same way, and
 #: mmpp_sample / sim_scan round t + gap, nsw + e * dwell, s * T + sum as
-#: their plain walks do.  ssd_scan is held to tolerances, not bit for bit,
-#: and keeps nvcc's default contraction.
+#: their plain walks do.  chain_floor (the fleet and simulator walks' chains
+#: alone, launched only by chip_smoke.py) takes the walks' flags.  ssd_scan
+#: is held to tolerances, not bit for bit, and keeps nvcc's default
+#: contraction.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "belief_forward": ["-fmad=false"],
     "bellman": [],
+    "chain_floor": ["-fmad=false"],
     "fleet_scan": ["-fmad=false"],
     "mmpp_sample": ["-fmad=false"],
     "serve_scan": ["-fmad=false"],

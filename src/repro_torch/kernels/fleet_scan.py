@@ -20,13 +20,12 @@ one event a step, in the reference's step priority:
       fault boundary (arrivals win ties, completions beat boundaries),
       or the lane stops.
 
-Every served request is accounted at serve start, inside the walk: each
-replica keeps a FIFO of the arrival slots routed to it (positions
-``[0, c0)`` are the carried queue ``q0``), a serve resolves positions
-``[n_srv + n_drop, ... + a)`` -- latency, SLO miss, histogram bin, the
-record rows -- and a crash leaves its positions in place, so a requeue
-to the front costs nothing.  Energy and the latency sum add in step
-order.
+Every served request is accounted from a per-replica FIFO of the arrival
+slots routed to it (positions ``[0, c0)`` are the carried queue ``q0``):
+a serve resolves positions ``[n_srv + n_drop, ... + a)`` -- latency, SLO
+miss, histogram bin, the record rows -- and a crash leaves its positions
+in place, so a requeue to the front costs nothing.  Energy and the
+latency sum add in step order.
 
 Lanes: lane = (s * P + p) * R + r over S traces, P table stacks
 (``tables`` (P, M, K, L)) and R router ids; the carried replica state and
@@ -34,11 +33,16 @@ the fault schedule are shared by all lanes.
 
 The kernel is ``csrc/fleet_scan.cu``, the device counterpart of the
 reference's ``lax.scan`` in ``_fleet_scan_core`` (not of a Pallas
-kernel).  Lanes given as CPU tensors run the plain version below; CUDA
-tensors launch the kernel or raise.  ``fleet_scan.launches`` counts
-launches, ``fleet_scan.instance_launches`` splits them by instance
-(``plain`` / ``mix``, prefixed ``grid_`` for a launch of more than one
-lane).
+kernel): one thread walks a lane's chain while a consumer warp accounts
+the served requests and a stager warp copies the lane's inputs into
+shared memory ahead of it.  ``smem_plan`` is the wrapper's half of its
+layout: which walk an M takes (replica state in registers up to
+``REG_REPLICAS``, in shared memory above) and whether the tables and the
+FIFO fit in a block's shared memory.  Lanes given as CPU tensors run the
+plain version below; CUDA tensors launch the kernel or raise.
+``fleet_scan.launches`` counts launches, ``fleet_scan.instance_launches``
+splits them by instance (``plain`` / ``mix``, prefixed ``grid_`` for a
+launch of more than one lane).
 """
 from __future__ import annotations
 
@@ -63,8 +67,10 @@ REP_I = ("qlen", "n_route", "n_srv", "nbat", "needs", "fcur", "rty", "infl",
 STATE0 = ("nbat", "needs", "fcur", "rty", "infl")
 #: bits of the record's per-request state
 SERVED, DROPPED, SHED = 1, 2, 4
-#: replica state lives in the block's shared memory up to this many replicas
+#: the kernel keeps replica state on chip up to this many replicas
 MAX_REPLICAS = 64
+#: up to this many replicas the walk holds the scanned state in registers
+REG_REPLICAS = 8
 #: JSQ score = 2 * min(qlen, SCORE_QCAP) + busy; the cap keeps the
 #: batch-aware score gap * GAP_SHIFT + jsq inside int32
 SCORE_QCAP = (1 << 14) - 1
@@ -419,6 +425,16 @@ def _check(tables, thr, rids, arrivals, deadlines, phases, router_u, draws,
         raise ValueError("beliefs must be (S, size, K) and bel0 (S, K)")
 
 
+def _check_int32(q0w: int, size: int, state0, step_cap: int) -> None:
+    """The kernel keeps per-replica counters in int32: positions (at most
+    q0w + size) and the carried counts, each of which grows by at most
+    one a step."""
+    if q0w + size >= 2 ** 31:
+        raise ValueError("carried queue + arrival slots must stay below 2^31")
+    if int(state0.abs().max()) + int(step_cap) >= 2 ** 31:
+        raise ValueError("carried replica counters + step_cap must stay below 2^31")
+
+
 class _Params(ctypes.Structure):
     """FleetParams of csrc/fleet_scan.cu, field for field."""
 
@@ -434,15 +450,66 @@ class _Params(ctypes.Structure):
             "n_mult", "q0w", "max_eps", "step_cap", "rec_cap", "b_max", "buf_cap",
             "max_retries", "rr0", "ph0")]
         + [(n, ctypes.c_double) for n in ("t0", "horizon", "t_last")]
-        + [(n, ctypes.c_int) for n in ("drain", "more_coming", "mix", "record")]
+        + [(n, ctypes.c_int) for n in ("drain", "more_coming", "mix", "record",
+                                       "stage_tables", "fifo_smem")]
     )
 
 
 #: the shared memory a block may use (H100: 227 KB)
 MAX_SMEM_BYTES = 227 * 1024
+#: the kernel's staging chunk (arrivals, two buffers), record ring and
+#: int32 per-replica arrays in shared memory (csrc/fleet_scan.cu)
+_CHUNK, _RING, _COLD = 256, 64, 8
 
 
-def _launcher(n_edges: int, M: int):
+class SmemPlan(NamedTuple):
+    walk: str  # "registers" (M <= REG_REPLICAS) or "shared"
+    stage_tables: bool  # the lane's (M, K, L) action and threshold rows
+    fifo_smem: bool  # the per-replica FIFOs of routed slots (M x size int32)
+    bytes: int  # dynamic shared memory a block
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(n_edges: int, M: int, K: int, L: int, size: int, n_means: int,
+               mix: bool, stage_tables: bool, fifo_smem: bool) -> int:
+    """A block's dynamic shared memory, region by region as the kernel's
+    ``layout`` (csrc/fleet_scan.cu) lays it out, each 16-byte aligned."""
+    regions = [
+        8 * n_edges, 8 * n_means, 8 * n_means, 8 * _RING,  # edges, means, zeta, ring
+        8 * 2 * _CHUNK, 8 * 2 * _CHUNK, 16 * 2 * _CHUNK,  # staged due times, phases, pow2
+        8 * 2 * _CHUNK * K if mix else 0,  # staged belief rows
+        8 * M, 8 * M,  # busy, next boundary (the shared walk's)
+        8 * M * K * L if stage_tables else 0, 8 * M * K * L if stage_tables else 0,
+        4 * _RING, 4 * _RING, 4 * _RING, 4 * _COLD * M, 4 * M, 4 * M,
+        4 * (n_edges + 1),  # histogram row
+        4 * M * size if fifo_smem else 0,
+    ]
+    return 64 + sum(_up16(r) for r in regions)
+
+
+def smem_plan(n_edges: int, M: int, K: int, L: int, size: int, b_max: int,
+              mix: bool) -> SmemPlan:
+    """The block's shared-memory plan: the staging windows, record ring,
+    edges and histogram always; then the lane's tables where they fit;
+    then the FIFOs where they fit too (else in global scratch).  Raises
+    when even the fixed part exceeds ``MAX_SMEM_BYTES``."""
+    args = (n_edges, M, K, L, size, b_max + 1, bool(mix))
+    fixed = smem_bytes(*args, False, False)
+    if fixed > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{n_edges} histogram edges need {fixed} B of shared memory a lane, "
+            f"above {MAX_SMEM_BYTES}: use fewer bins")
+    tables = smem_bytes(*args, True, False) <= MAX_SMEM_BYTES
+    fifo = smem_bytes(*args, tables, True) <= MAX_SMEM_BYTES
+    return SmemPlan("registers" if M <= REG_REPLICAS else "shared", tables, fifo,
+                    smem_bytes(*args, tables, fifo))
+
+
+def _launcher(plan: SmemPlan, n_edges: int, M: int, K: int, L: int, size: int,
+              b_max: int, mix: bool):
     size_fn = _build.function("fleet_scan", "fleet_scan_params_bytes",
                               ctypes.c_longlong, [])
     if size_fn() != ctypes.sizeof(_Params):
@@ -450,13 +517,14 @@ def _launcher(n_edges: int, M: int):
             f"FleetParams is {size_fn()} bytes in fleet_scan.cu, "
             f"{ctypes.sizeof(_Params)} in the wrapper"
         )
-    smem = _build.function("fleet_scan", "fleet_scan_smem_bytes", ctypes.c_longlong,
-                           [ctypes.c_longlong, ctypes.c_longlong])(n_edges, M)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{n_edges} histogram edges need {smem} B of shared memory a lane, "
-            f"above {MAX_SMEM_BYTES}: use fewer bins"
-        )
+    ll = ctypes.c_longlong
+    smem = _build.function("fleet_scan", "fleet_scan_smem_bytes", ll,
+                           [ll] * 6 + [ctypes.c_int] * 3)(
+        n_edges, M, K, L, size, b_max + 1, int(mix), int(plan.stage_tables),
+        int(plan.fifo_smem))
+    if smem != plan.bytes:
+        raise RuntimeError(f"fleet_scan.cu lays out {smem} B of shared memory, "
+                           f"the wrapper's plan {plan.bytes}")
     return _build.function("fleet_scan", "fleet_scan_launch", ctypes.c_int,
                            [ctypes.POINTER(_Params), ctypes.c_void_p])
 
@@ -505,13 +573,15 @@ def fleet_scan(tables, thr, rids, arrivals, deadlines, phases, router_u, draws,
     S, size = arrivals.shape
     R = rids.numel()
     n_lanes = S * P * R
+    q0w = q0_times.shape[1]
+    _check_int32(q0w, size, state0, step_cap)
     ins = [x.contiguous() for x in (
         tables, thr, rids, arrivals, deadlines, phases, router_u, draws, means,
         zeta, edges, fb, fmult, q0_times, q0_dl, busy0, state0)]
     mix = beliefs is not None
     bels = (beliefs.contiguous(), bel0.contiguous()) if mix else (None, None)
     rec_cap = max(int(max_eps), 1)
-    q0w = q0_times.shape[1]
+    plan = smem_plan(edges.numel(), M, K, L, size, int(b_max), mix)
 
     def empty(*shape, dtype):
         return torch.empty(*shape, dtype=dtype, device=dev)
@@ -533,7 +603,7 @@ def fleet_scan(tables, thr, rids, arrivals, deadlines, phases, router_u, draws,
             torch.zeros(n_lanes, M, q0w, dtype=torch.int8, device=dev),
         ) if record else None,
     )
-    fifo = empty(n_lanes, M, size, dtype=torch.int32)
+    fifo = empty(1 if plan.fifo_smem else n_lanes * M * size, dtype=torch.int32)
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
@@ -547,9 +617,10 @@ def fleet_scan(tables, thr, rids, arrivals, deadlines, phases, router_u, draws,
         int(buf_cap), int(max_retries), int(rr0), int(ph0),
         float(t0), float(horizon), float(t_last),
         int(bool(drain)), int(bool(more_coming)), int(mix), int(bool(record)),
+        int(plan.stage_tables), int(plan.fifo_smem),
     )
-    rc = _launcher(edges.numel(), M)(ctypes.byref(params),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+    launch = _launcher(plan, edges.numel(), M, K, L, size, int(b_max), mix)
+    rc = launch(ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fleet_scan launch failed: CUDA error {rc}")
     fleet_scan.launches += 1

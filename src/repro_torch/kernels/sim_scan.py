@@ -30,9 +30,15 @@ epoch and the wrapper raises.
 This is the ``step`` of the reference's ``simulate`` (src/repro/core/
 simulate.py:169-232) with its ``jax.random`` draws replaced by shared
 streams of standard variates, so the kernel ``csrc/sim_scan.cu`` and this
-plain walk read the same numbers and agree in every output.  Draws given
-as CPU tensors run the plain version; CUDA tensors launch the kernel or
-raise.  ``sim_scan.launches`` counts launches.
+plain walk read the same numbers and agree in every output.  The kernel
+runs a block a lane: one thread walks, a stager warp divides the gaps
+and folds the service draws ahead of it, a responder warp writes the
+responses; ``smem_bytes`` mirrors the block's shared memory (the policy
+table is its only part that grows).  ``check_smem`` refuses a table above
+``MAX_SMEM_BYTES``, runs of more than ``MAX_K_MAX`` kept arrivals and
+streams of 2^30 draws or epochs.  Draws given as CPU tensors run the plain version; CUDA
+tensors launch the kernel or raise.  ``sim_scan.launches`` counts
+launches.
 """
 from __future__ import annotations
 
@@ -48,6 +54,45 @@ BUF_LOG2 = 15
 BUF = 1 << BUF_LOG2
 #: service families, as the kernel's codes
 FAMILIES = ("det", "expo", "erlang", "hyperexpo", "atoms")
+#: the shared memory a block may use (H100: 227 KB)
+MAX_SMEM_BYTES = 227 * 1024
+#: the kernel's staging chunks (gaps; epochs' service factors; two buffers
+#: each), its arrival buffer and its ring of serve records (csrc/sim_scan.cu)
+_GAP_CHUNK, _EP_CHUNK, _RING = 1024, 512, 64
+#: a run of kept arrivals lives in the kernel's arrival buffer until the
+#: responder has written it to the ring: at most this many a serve
+MAX_K_MAX = 4096
+
+
+def smem_bytes(P: int, n_means: int, C: int) -> int:
+    """A block's dynamic shared memory, region by region as the kernel's
+    ``layout`` lays it out, each 16-byte aligned: the counters, the gap and
+    service-factor windows, the arrival buffer, the record ring, then the
+    tables (means, energies, means / k, the mixture's cum and scales, the
+    int32 policy)."""
+    regions = [8 * 2 * _GAP_CHUNK, 16 * 2 * _EP_CHUNK, 8 * MAX_K_MAX,
+               8 * _RING, 8 * _RING, 8 * _RING, 8 * n_means, 8 * n_means, 8 * n_means,
+               8 * C, 8 * C, 4 * _RING, 4 * _RING, 4 * _RING, 4 * _RING, 4 * P]
+    return 64 + sum((r + 15) // 16 * 16 for r in regions)
+
+
+def check_smem(P: int, n_means: int, C: int, A: int = 1, E: int = 1,
+               k_max: int = 1) -> int:
+    """The block's shared memory for a P-state policy; raises above
+    ``MAX_SMEM_BYTES`` (the kernel keeps the whole table on chip), for
+    streams of 2^30 draws or epochs (the kernel counts them in int32) and
+    for runs longer than ``MAX_K_MAX`` (min(k_max, A) kept arrivals)."""
+    if max(A, E, P) >= 2 ** 30:
+        raise ValueError("the simulator kernel takes fewer than 2^30 arrival draws, "
+                         "epochs and policy states")
+    if min(k_max, A) > MAX_K_MAX:
+        raise ValueError(f"k_max {k_max}: the simulator kernel keeps at most "
+                         f"{MAX_K_MAX} arrivals of a run on chip")
+    n = smem_bytes(P, n_means, C)
+    if n > MAX_SMEM_BYTES:
+        raise ValueError(f"a policy of {P} states needs {n} B of shared memory a lane, "
+                         f"above {MAX_SMEM_BYTES}")
+    return n
 
 
 class SimOut(NamedTuple):
@@ -219,6 +264,7 @@ def sim_scan(pol, means, en, cum, scales, svc, arr, *, fam: int, erlang_k: int,
     _check(pol, means, en, cum, scales, svc, arr, fam, erlang_k, R)
     dev = arr.device
     L, E, W = svc.shape
+    smem = check_smem(len(pol), len(means), len(cum), arr.shape[1], E, int(k_max))
     tensors = [x.contiguous() for x in (pol, means, en, cum, scales, svc, arr)]
     pol, means, en, cum, scales, svc, arr = tensors
     ring = torch.zeros((L, BUF), dtype=torch.float64, device=dev)
@@ -227,10 +273,15 @@ def sim_scan(pol, means, en, cum, scales, svc, arr, *, fam: int, erlang_k: int,
     fo = torch.empty((L, 3), dtype=torch.float64, device=dev)
     io = torch.empty((L, 4), dtype=torch.int64, device=dev)
     vp, ll, dbl = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
+    built = _build.function("sim_scan", "sim_scan_smem_bytes", ll, [ll, ll, ll])(
+        len(pol), len(means), len(cum))
+    if built != smem:
+        raise RuntimeError(f"sim_scan.cu lays out {built} B of shared memory, "
+                           f"the wrapper {smem}")
     fn = _build.function("sim_scan", "sim_scan_launch", ctypes.c_int,
-                         [vp, ll, vp, vp, ctypes.c_int, ll, vp, vp, ll, vp, ll, vp,
+                         [vp, ll, vp, ll, vp, ctypes.c_int, ll, vp, vp, ll, vp, ll, vp,
                           ll, dbl, ll, ll, ll, ll, vp, vp, vp, vp, vp, vp])
-    rc = fn(pol.data_ptr(), len(pol), means.data_ptr(), en.data_ptr(), int(fam),
+    rc = fn(pol.data_ptr(), len(pol), means.data_ptr(), len(means), en.data_ptr(), int(fam),
             int(erlang_k), cum.data_ptr(), scales.data_ptr(), len(cum), svc.data_ptr(),
             W, arr.data_ptr(), arr.shape[1], float(lam), int(k_max), E, L, int(R),
             ring.data_ptr(), acts.data_ptr(), resp.data_ptr(), fo.data_ptr(),

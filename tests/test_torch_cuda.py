@@ -21,7 +21,10 @@ belief kernel against its plain version (the same operations, but CUDA's
 exp / sin / cos are within an ulp of the host's, not bit for bit), the
 fleet kernel equal to its plain walk in every record, count, clock and
 sum (plain, faults with a finite room, the mix rule, a chunk carry, a grid;
-M = 1, 3, 4, 8 and its maximum of 64, and a refusal above), equal policies between the kernel and banded
+M = 1, 3, 4, 8 and its maximum of 64, and a refusal above; the seams of its
+design: M = 2, 5, 8 in registers against 9 and 64 in shared memory, traces of
+several staging chunks, bursts that fill the record ring, lanes of unequal
+length, the FIFO and tables in global memory, RECORD on and off), equal policies between the kernel and banded
 batched solves (lockstep, MPI, Anderson), their g at rtol 1e-6 of each
 other (the float64 finish run to eps 1e-6) and of the same solve through
 the kernel's mirror, and a sweep whose guard ladder
@@ -38,7 +41,9 @@ kernel-against-naive bar and the attention kernels'; inputs in a Mamba2
 block's regime, see _ssd_inputs), the MMPP sampler
 and simulator kernels equal to their plain walks in every output (lanes
 1, 7, 133; n_steps 1 and a long run; a run that clips at k_max, a > s,
-every service family, the ring wrapping), and a durable sweep resumed on
+every service family, the ring wrapping; clipped runs across the staging
+chunks, a queue that outgrows the ring, lanes that run out of draws beside
+lanes that do not), and a durable sweep resumed on
 the card bitwise equal to the uninterrupted one, a CPU checkpoint
 refused there.  The attention backward kernel
 (flash_attention_bwd.cu) is held against autograd through the plain
@@ -1003,6 +1008,97 @@ def test_fleet_kernel_refuses_above_its_maximum(cuda):
     assert fk.fleet_scan.launches == before
 
 
+# The redesigned fleet kernel's seams: the register walk (M <= 8) against the
+# shared-memory walk (M >= 9), the staging windows (256 arrivals a chunk),
+# the consumer's record ring (64 records), the FIFO and tables in shared or
+# global memory by the wrapper's plan, RECORD on and off.
+
+
+@pytest.mark.parametrize("record", [True, False])
+@pytest.mark.parametrize("router", ["rr", "pow2", "batch_aware"])
+@pytest.mark.parametrize("M", [2, 5, 8, 9, fk.MAX_REPLICAS])
+def test_fleet_kernel_walk_switch(cuda, M, router, record):
+    """M = 2, 5 and 8 walk in registers (the instances for 2 and 8), 9 and
+    64 in shared memory; a trace of several staging chunks, with faults so
+    boundaries replay too."""
+    assert fk.smem_plan(6, M, 1, 97, 10, FLEET_BMAX, False).walk == (
+        "registers" if M <= fk.REG_REPLICAS else "shared")
+    tabs, tr = _fleet_tables(M), _fleet_trace(M, n=5 * 256 + 37, load=1.2)
+    sch = pfa.FaultModel(**FLEET_FAULTS).materialize(M, float(tr[-1]) + 50.0, seed=M)
+    kw = dict(router=router, means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX,
+              slo=2.0, faults=sch, buffer=40, record=record)
+    _same_fleet(pf.simulate_fleet(tabs, tr, device="cuda", **kw),
+                pf.simulate_fleet(tabs, tr, device="cpu", **kw))
+
+
+def test_fleet_kernel_record_ring_bursts(cuda):
+    """Clumps of 16 x M simultaneous arrivals and a table that serves
+    b_max at once: back-to-back serves, many more records than the
+    consumer's ring holds, every one accounted."""
+    M, n = 4, 6000
+    rng = np.random.default_rng(5)
+    tr = np.repeat(np.cumsum(rng.exponential(6.0, n // (16 * M) + 1)), 16 * M)[:n]
+    tabs = np.stack([q_policy(1, 96, FLEET_BMAX)] * M)
+    kw = dict(router="rr", means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX,
+              slo=5.0, record=True)
+    got = pf.simulate_fleet(tabs, tr, device="cuda", **kw)
+    _same_fleet(got, pf.simulate_fleet(tabs, tr, device="cpu", **kw))
+    assert got.n_served == n and got.n_batches > 4 * 64  # the ring holds 64
+
+
+@pytest.mark.parametrize("mix", [False, True])
+def test_fleet_kernel_unequal_lanes(cuda, mix):
+    """One launch over traces of 300, 1900 and 700 arrivals (lanes end at
+    different steps; the longest crosses several staging chunks)."""
+    traces = [_fleet_trace(4, n=k, seed=k) for k in (300, 1900, 700)]
+    arr = pad_arrivals_batch(traces)
+    kw = dict(routers=FLEET_ROUTERS, means=FLEET_MEANS, zeta=FLEET_ZETA,
+              b_max=FLEET_BMAX, router_seed=2)
+    if mix:
+        lo, hi = q_policy(4, 96, FLEET_BMAX), q_policy(10, 96, FLEET_BMAX)
+        tabs = np.stack([np.stack([np.stack([lo, hi])] * 4)])
+        kw.update(phase_mode="belief_mix", beliefs=_fleet_beliefs(arr, "cpu"))
+    else:
+        tabs = _fleet_tables(4)[None]
+    got = pf.run_fleet_grid(tabs, arr, device="cuda", **kw)
+    want = pf.run_fleet_grid(tabs, arr, device="cpu", **kw)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("M,n,L", [(8, 9000, 97), (fk.MAX_REPLICAS, 600, 400)])
+def test_fleet_kernel_global_fifo_and_tables(cuda, M, n, L):
+    """The plan's fallbacks: 8 x 9000 FIFO slots exceed a block's shared
+    memory (the FIFO stays in global scratch); 64 x 400-column tables do
+    (read from global memory)."""
+    plan = fk.smem_plan(129, M, 1, L, n + 64, FLEET_BMAX, False)
+    assert not (plan.fifo_smem and plan.stage_tables) and plan.bytes <= fk.MAX_SMEM_BYTES
+    qs = (4, 6, 8, 12)
+    tabs = np.stack([q_policy(qs[m % 4], L - 1, FLEET_BMAX) for m in range(M)])
+    tr = _fleet_trace(M, n=n, seed=3)
+    kw = dict(router="jsq", means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX,
+              slo=3.0, record=True)
+    _same_fleet(pf.simulate_fleet(tabs, tr, device="cuda", **kw),
+                pf.simulate_fleet(tabs, tr, device="cpu", **kw))
+
+
+def test_scan_kernels_lay_out_the_wrappers_plans(cuda):
+    """The C layouts of fleet_scan.cu and sim_scan.cu equal the wrappers'
+    mirrors (the wrappers raise on a mismatch; this names it)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    ll, ci = ctypes.c_longlong, ctypes.c_int
+    fleet = _build.function("fleet_scan", "fleet_scan_smem_bytes", ll, [ll] * 6 + [ci] * 3)
+    for args in [(129, 3, 1, 97, 8100, 17, 0, 1, 1), (64, 64, 3, 129, 600, 33, 1, 0, 0),
+                 (1, 1, 1, 1, 1, 2, 0, 0, 0), (300, 9, 2, 385, 20000, 17, 1, 1, 0)]:
+        assert fleet(*args) == fk.smem_bytes(*args)
+    sim = _build.function("sim_scan", "sim_scan_smem_bytes", ll, [ll] * 3)
+    for args in [(128, 33, 1), (4097, 65, 3), (1, 2, 5)]:
+        assert sim(*args) == sk.smem_bytes(*args)
+
+
 # ---------------------------------------------------------------------------
 # The MMPP sampler kernel, the simulator kernel, durable sweeps on the card
 # ---------------------------------------------------------------------------
@@ -1108,6 +1204,56 @@ def test_sim_scan_kernel_cuts_actions_above_the_queue(cuda):
                            svc_d.cpu(), short.cpu(), k_max=64, R=E * 12, **kw)
     assert int(want.exhausted[0]) >= 0
     _same_sim(got, want)
+
+
+def _sim_both(pol, inputs, kw, **extra):
+    got = sk.sim_scan(pol, *inputs, **kw, **extra)
+    torch.cuda.synchronize()
+    want = sk.sim_scan_ref(pol.cpu(), *(x.cpu() for x in inputs), **kw, **extra)
+    _same_sim(got, want)
+    return want
+
+
+@pytest.mark.parametrize("family", ["det", "erlang"])
+def test_sim_scan_kernel_clips_across_staging_chunks(cuda, family):
+    """Arrivals at 40x the rate: every serve's run is clipped at k_max =
+    300, so clipped runs (and their re-sums) cross the 1024-gap staging
+    chunks, and the epochs' service factors cross theirs (512 epochs)."""
+    E, L = 1_500, 2
+    extra = dict(erlang_k=3) if family == "erlang" else {}
+    inputs, kw = _sim_inputs(family, L, E, 7, k_max_arr=320, **extra)
+    kw["lam"] *= 40
+    pol = torch.as_tensor(pt.static_policy(8, 128)[:-1], device="cuda")
+    want = _sim_both(pol, inputs, kw, k_max=300, R=E * 8)
+    assert (want.exhausted == -1).all() and int(want.clipped.min()) > 100
+
+
+def test_sim_scan_kernel_overfull_ring(cuda):
+    """Load 2.1: the queue outgrows the 2^15-entry ring, so a serve reads
+    an entry that a later arrival overwrote, as the reference's carried
+    buffer does; the kernel's responses must read the same entries."""
+    E = 8_000
+    inputs, kw = _sim_inputs("det", 1, E, 11, k_max_arr=30)
+    kw["lam"] *= 3
+    pol = torch.as_tensor(pt.static_policy(8, 128)[:-1], device="cuda")
+    want = _sim_both(pol, inputs, kw, k_max=64, R=E * 8)
+    assert int(want.consumed[0]) - int(want.n_served[0]) > sk.BUF
+
+
+def test_sim_scan_kernel_unequal_lanes(cuda):
+    """Five lanes with one arrival stream length: the stream is cut at the
+    median lane's need, so some lanes stop early (exhausted) and others
+    run every epoch, in one launch."""
+    E, L = 4_000, 5
+    (means, en, cum, scales, svc_d, arr), kw = _sim_inputs("expo", L, E, 13)
+    pol = torch.as_tensor(pt.static_policy(8, 128)[:-1], device="cuda")
+    full = sk.sim_scan_ref(pol.cpu(), means.cpu(), en.cpu(), cum.cpu(), scales.cpu(),
+                           svc_d.cpu(), arr.cpu(), k_max=64, R=E * 8, **kw)
+    cut = int(np.sort(full.consumed.numpy())[L // 2])
+    short = arr[:, :cut].contiguous()
+    want = _sim_both(pol, (means, en, cum, scales, svc_d, short), kw, k_max=64, R=E * 8)
+    ex = want.exhausted.numpy()
+    assert (ex >= 0).any() and (ex == -1).any()
 
 
 def test_simulate_on_the_card_meets_the_analytic_values(cuda):
