@@ -83,7 +83,14 @@
    each through ServingEngine(backend="compiled") and verify_backends.  The
    bursty scenario: the exact_modulated gaps (chain and simulated, 5
    seeds), the belief kernel over the 6-seed batch against its plain
-   version on the card (atol 1e-12, argmax rows equal), run_grid with
+   version on the card (atol 1e-12, argmax rows equal) and against its
+   own one-chunk call (C = N, a serial fold), deterministic and equal over
+   prefixes bit for bit, timed as its earlier design was (CUDA events
+   around one call) and in a CUDA graph, beside the chain floors and the
+   earlier time (with the chunks pass B folded exactly), then timed where
+   pass B must fold chunks exactly (the batch's times rounded to 1 ms,
+   through this filter, a two-phase filter whose E(0) rounds below zero and
+   a 3-phase cycle), run_grid with
    belief_argmax and belief_mix (one launch each, W + w2 P of every lane
    against its Python engine at rtol 1e-9).  The mix instance is also held
    and timed on the main path's inputs with two equal phase rows, where it
@@ -136,9 +143,9 @@
    paper's anchors; W and P within 2% of evaluate_policy and Little's law
    within 2%, asserted) and simulate_events(backend="compiled").  Then the
    MMPP sampler and simulator kernels are held against their plain walks
-   on the inputs of the launches that time them, exactly; the simulator
-   beside its chain floor (the epochs' dependent chain alone, for the
-   run's E epochs) and its time before the redesign.
+   on the inputs of the launches that time them, exactly; each beside its
+   chain floor (the walk's dependent chain alone: the simulator's run's E
+   epochs, the sampler's n steps) and its time before the redesign.
 5. Attention kernels: flash (prefill; bf16 on the tensor cores, f32 on
    the CUDA cores) and split-K decode held against their plain versions
    at the reference test shapes (f32 at 2e-5, bf16 at 2e-2, softcap 50
@@ -1419,17 +1426,86 @@ def _lift(np, tab, s_max):
     return np.append(pol, pol[s_max])
 
 
+def belief_chain_ms(torch, np, c, b_init, t_init, arrs, steps):
+    """The belief fold's chain alone (csrc/chain_floor.cu): `steps` guarded
+    folds on one thread a trace, step matrices from a window of the trace's
+    first gaps in shared memory, one block a trace."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import belief_forward as bf
+
+    S, K = arrs.shape[0], c.rates.shape[0]
+    n = int(_build.function("chain_floor", "belief_floor_window", ctypes.c_longlong, [])())
+    gaps = []
+    for tr in arrs:
+        x = np.resize(tr[np.isfinite(tr)], n)
+        gaps.append(np.maximum(np.diff(np.concatenate([[t_init], x])), 0.0))
+    win = bf.step_matrices(torch.as_tensor(np.stack(gaps), device="cuda"), c).contiguous()
+    consts = bf.pack_consts(c, b_init, t_init)
+    n_steps = torch.full((S,), int(steps), dtype=torch.int64, device="cuda")
+    out = torch.empty((S, K), dtype=torch.float64, device="cuda")
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = _build.function("chain_floor", "belief_floor_launch", ctypes.c_int,
+                         [vp] * 3 + [ll] * 2 + [vp] * 2)
+
+    def launch():
+        check(fn(win.data_ptr(), consts.data_ptr(), n_steps.data_ptr(), S, K, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream) == 0, "belief chain floor launch")
+
+    ms = event_ms(torch, launch)
+    check(bool(torch.isfinite(out).all()), "belief chain floor: non-finite belief")
+    return ms
+
+
+def belief_unsafe_case(torch, np, filt, arrs, n_prefix=2048):
+    """The belief kernel where pass B must fold chunks exactly: one call's
+    rows against a one-chunk call (C = N, a serial fold) over every slot and
+    against the plain fold over the first ``n_prefix`` slots (a call's rows
+    over a prefix are the prefix call's), atol 1e-12 with argmax rows equal;
+    timed as the path's row is (CUDA events around one call, best of 3)."""
+    from repro_torch.kernels import belief_forward as bf
+
+    times = torch.as_tensor(arrs, device="cuda")
+    b_init = torch.as_tensor(filt.belief, device="cuda")
+    c = filt.consts(torch.device("cuda"))
+    S, N = arrs.shape
+    *got, unsafe = bf._launch(times, b_init, filt._last, c, bf.CHUNK)
+    one = bf._launch(times, b_init, filt._last, c, N)
+    err_one = (got[0] - one[0]).abs().max().item()
+    check(err_one <= 1e-12 and torch.equal(got[0].argmax(-1), one[0].argmax(-1)),
+          f"belief_forward: off its one-chunk call by {err_one}")
+    n = min(n_prefix, N)
+    want = bf.belief_forward_ref(times[:, :n].contiguous(), b_init, filt._last, c)
+    err_pre = (got[0][:, :n] - want[0]).abs().max().item()
+    check(err_pre <= 1e-12 and torch.equal(got[0][:, :n].argmax(-1), want[0].argmax(-1)),
+          f"belief_forward: off the plain fold by {err_pre} over the first {n} slots")
+    ms = event_ms(torch, lambda: bf.belief_forward(times, b_init, filt._last, c))
+    return dict(ms=ms, unsafe_chunks=int(unsafe.sum()),
+                chunks_with_a_product=S * max(-(-N // bf.CHUNK) - 1, 0),
+                max_abs_err_one_chunk=err_one, max_abs_err_prefix=err_pre, prefix=n,
+                shape=[S, N, len(filt.rates)])
+
+
 def belief_row(torch, np, filt, arrs, launches):
     """The belief kernel at the bursty batch's shape against its plain
-    version on the card: atol 1e-12, argmax rows equal; timed."""
+    version on the card (atol 1e-12, argmax rows equal) and against a
+    one-chunk call of itself (C = N: a serial fold); two calls equal bit for
+    bit, and a call on a prefix of the slots equal to the full call's rows
+    there; timed as its earlier design was (CUDA events around one wrapper
+    call, best of 3) and as device time in a CUDA graph, beside the chain
+    floors and its earlier time; then timed where pass B folds chunks
+    exactly (repeated times, a 3-phase cycle)."""
     from repro_torch.kernels import belief_forward as bf
+    from repro_torch.serving import PhaseBeliefFilter
 
     dev = torch.device("cuda")
     times = torch.as_tensor(arrs, device=dev)
     b_init = torch.as_tensor(filt.belief, device=dev)
     c = filt.consts(dev)
-    got = bf.belief_forward(times, b_init, filt._last, c)
+    *got, unsafe = bf._launch(times, b_init, filt._last, c, bf.CHUNK)
     torch.cuda.synchronize()
+    unsafe = int(unsafe.sum())
     t0 = time.perf_counter()
     want = bf.belief_forward_ref(times, b_init, filt._last, c)
     torch.cuda.synchronize()
@@ -1439,33 +1515,79 @@ def belief_row(torch, np, filt, arrs, launches):
     check(torch.equal(got[0].argmax(-1), want[0].argmax(-1)), "belief_forward argmax rows differ")
     check((got[1] - want[1]).abs().max().item() <= 1e-12 and torch.equal(got[2], want[2]),
           "belief_forward final state differs")
-    best = float("inf")
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        bf.belief_forward(times, b_init, filt._last, c)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end))
+    again = bf.belief_forward(times, b_init, filt._last, c)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "belief_forward: two calls differ")
     S, N = arrs.shape
+    for n in (1, bf.CHUNK - 1, bf.CHUNK + 1, N // 2 + 3):
+        pre = bf.belief_forward(times[:, :n].contiguous(), b_init, filt._last, c)
+        check(torch.equal(pre[0], got[0][:, :n]), f"belief_forward: prefix {n} differs")
+    one = bf._launch(times, b_init, filt._last, c, N)
+    err_one = (got[0] - one[0]).abs().max().item()
+    check(err_one <= 1e-12 and torch.equal(got[0].argmax(-1), one[0].argmax(-1)),
+          f"belief_forward: off its one-chunk call by {err_one}")
+    # one wrapper call as the earlier design was timed (its host work, the
+    # allocations and the ctypes call, included), and the device time of a
+    # call (its three kernels) in a CUDA graph of 20
+    best = event_ms(torch, lambda: bf.belief_forward(times, b_init, filt._last, c))
+    dev_ms = device_ms(torch, lambda: bf.belief_forward(times, b_init, filt._last, c), 20)
+    one_ms = event_ms(torch, lambda: bf._launch(times, b_init, filt._last, c, N))
     K = len(filt.rates)
     n_valid = int(np.isfinite(arrs).sum())
-    n_long = int(np.isfinite(arrs).sum(1).max())  # the longest trace: the serial chain
+    n_long = int(np.isfinite(arrs).sum(1).max())  # the longest trace: a serial fold's chain
+    # the floor: one chunk's fold chain (pass C's lanes each fold a chunk);
+    # a serial fold over the longest trace is what the earlier design ran
+    floor = belief_chain_ms(torch, np, c, b_init, filt._last, arrs, bf.CHUNK)
+    serial = belief_chain_ms(torch, np, c, b_init, filt._last, arrs, n_long)
     # bytes: the times read, the rows and the final state written; operations:
     # per valid slot the step matrix (K exps, 4K^3 + 8K^2 flops) and the fold
     n_bytes = 8 * S * N * (1 + K) + 8 * S * (K + 1) + 8 * (6 * K * K + 5 * K + 1)
     flops = n_valid * (4 * K ** 3 + 8 * K * K + 10 * K)
     b_ms, b_by = bound(n_bytes, flops, F64_FLOPS)
     log(f"belief_forward ({S} traces x {N} slots, {n_valid} arrivals, the longest trace "
-        f"{n_long}, K={K}): kernel_ms={best:.6f} ({1e3 * best / n_long:.4f} us an arrival "
-        f"of the longest trace: the serial fold) "
-        f"plain_ms={plain:.3f} (the plain torch fold on the card) bound_ms={b_ms:.6f} "
-        f"({b_by}); max_abs_err={err:.3e} (atol 1e-12), argmax rows equal")
+        f"{n_long}, K={K}, chunks of {bf.CHUNK}; {CARD[0]}): kernel_ms={best:.6f} (events "
+        f"around one call, best of 3, as earlier_ms was taken) device_ms={dev_ms:.6f} (a "
+        f"call's kernels in a CUDA graph of 20) plain_ms={plain:.3f} (the plain torch fold "
+        f"on the card) bound_ms={b_ms:.6f} ({b_by}) floor_ms={floor:.6f} (the fold chain "
+        f"alone over {bf.CHUNK} arrivals, a chunk: kernel {best / floor:.3f}x it) "
+        f"serial_fold_ms={serial:.6f} (the fold chain alone over the longest trace, "
+        f"{n_long} arrivals: what the earlier design walked) "
+        f"earlier_ms={EARLIER_MS['belief_forward']} (quoted, PERF.md; "
+        f"{EARLIER_MS['belief_forward'] / best:.1f}x) one-chunk call (C = N) {one_ms:.6f} "
+        f"ms; max_abs_err={err:.3e} against the plain fold, {err_one:.3e} against the "
+        f"one-chunk call (atol 1e-12), argmax rows equal; {unsafe} chunks folded exactly "
+        f"in pass B; deterministic and prefix-stable bit for bit")
+    # pass B's exact folds.  A gap of exactly 0 (a repeated time) gives E =
+    # I up to rounding: this filter's E(0) has no entry below zero, so its
+    # chunks stay safe, but the card tests' two-phase filter (rates 0.26 /
+    # 2.79, the same dwells) leaves -4e-21 off the diagonal, and a 3-phase
+    # cycle (complex eigenvalues) too.  On times rounded to 1 ms nearly
+    # every chunk then holds a repeated time and is folded exactly.
+    a3 = 1 / 300
+    cycle3 = PhaseBeliefFilter([0.3, 1.1, 2.6], [[-a3, a3, 0.0], [0.0, -a3, a3],
+                                                 [a3, 0.0, -a3]])
+    mmpp2 = PhaseBeliefFilter([0.26, 2.79], [[-1 / 4000, 1 / 4000], [1 / 800, -1 / 800]])
+    rounded = np.round(arrs)
+    unsafe_cases = {
+        "rounded_to_1ms": belief_unsafe_case(torch, np, filt, rounded),
+        "rounded_to_1ms_test_filter": belief_unsafe_case(torch, np, mmpp2, rounded),
+        "k3_cycle": belief_unsafe_case(torch, np, cycle3, arrs),
+        "k3_cycle_rounded_to_1ms": belief_unsafe_case(torch, np, cycle3, rounded),
+    }
+    for name, u in unsafe_cases.items():
+        log(f"belief_forward where pass B folds exactly, {name} ({u['shape']}; {CARD[0]}): "
+            f"kernel_ms={u['ms']:.6f} (events around one call, best of 3; earlier_ms="
+            f"{EARLIER_MS['belief_forward']} on the path's traces) with "
+            f"{u['unsafe_chunks']} of {u['chunks_with_a_product']} chunks folded exactly; "
+            f"max_abs_err {u['max_abs_err_one_chunk']:.3e} against the one-chunk call, "
+            f"{u['max_abs_err_prefix']:.3e} against the plain fold over the first "
+            f"{u['prefix']} slots (atol 1e-12), argmax rows equal")
     return dict(route="cuda", source="src/repro_torch/kernels/csrc/belief_forward.cu",
                 replaces=BELIEF_REPLACES, launches=launches, max_abs_err=err, ms=best,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=[S, N, K], longest_trace=n_long, us_per_arrival=1e3 * best / n_long)
+                device_ms=dev_ms, floor_ms=floor, serial_fold_ms=serial, one_chunk_ms=one_ms,
+                max_abs_err_one_chunk=err_one, unsafe_chunks=unsafe, chunk=bf.CHUNK,
+                shape=[S, N, K], longest_trace=n_long, unsafe_cases=unsafe_cases)
 
 
 def mmpp_phase(torch, np, kernels, rows, main_res, energy):
@@ -1689,7 +1811,10 @@ FLEET_SOURCE = "src/repro_torch/kernels/csrc/fleet_scan.cu"
 #: 80GB HBM3 at 700 W).  Quoted on the rows' log lines and on a line of their
 #: own, never in the `kernels` line: not measured here.
 EARLIER_MS = {"fleet_scan": 15.788, "fleet_scan_grid": 53.927, "fleet_scan_mix": 55.729,
-              "sim_scan": 135.708}
+              "sim_scan": 135.708, "belief_forward": 16.258, "mmpp_sample": 4.908}
+#: the card's name and power limit (nvidia-smi), set by main: every time
+#: the walking kernels' rows print names it
+CARD = []
 FLEET_REPLACES = ("src/repro/serving/fleet.py:551 (the lax.scan of _fleet_scan_core{}, "
                   "with its per-request reconstruction :558-648; not a Pallas kernel)")
 FLEET_M, FLEET_RHO, FLEET_N, FLEET_SEEDS = 4, 0.7, 20_000, 4  # fleet_frontier.py
@@ -2571,25 +2696,54 @@ def mmpp_row(torch, np, m, n_steps, lanes, launches):
     plain = (time.perf_counter() - t0) * 1e3
     for a, b, name in zip(got, want, ("times", "emitted", "phases")):
         check(torch.equal(a.cpu(), b), f"mmpp_sample: {name} differ from the plain walk")
-    best = float("inf")
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        mk.mmpp_sample(draws, lam, dwell)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end))
+    # one wrapper call as the earlier design was timed, and the device time
+    # of a call in a CUDA graph of 5
+    best = event_ms(torch, lambda: mk.mmpp_sample(draws, lam, dwell))
+    dev_ms = device_ms(torch, lambda: mk.mmpp_sample(draws, lam, dwell), 5)
     n_bytes = lanes * (1 + 2 * n_steps) * 8 + lanes * n_steps * (8 + 1 + 4)
     b_ms, b_by = bound(n_bytes, lanes * n_steps * 4, F64_FLOPS)
-    log(f"mmpp_sample ({lanes} lanes x {n_steps} steps, the bursty batch): kernel_ms="
-        f"{best:.6f} ({1e6 * best / n_steps:.2f} ns a step of a lane: the serial walk) "
-        f"plain_ms={plain:.3f} (the plain walk, torch ops on the host) bound_ms={b_ms:.6f} "
-        f"({b_by}; the serial chain is the real bound); equal to the plain walk in every "
-        f"output")
+    floor, switches = mmpp_chain_ms(torch, draws, lam, dwell, n_steps)
+    log(f"mmpp_sample ({lanes} lanes x {n_steps} steps, the bursty batch; {CARD[0]}): "
+        f"kernel_ms={best:.6f} (events around one call, best of 3, as earlier_ms was "
+        f"taken) device_ms={dev_ms:.6f} (a CUDA graph of 5; {1e6 * dev_ms / n_steps:.2f} ns "
+        f"a step of a lane: the serial walk) plain_ms={plain:.3f} (the plain walk, torch "
+        f"ops on the host) bound_ms={b_ms:.6f} ({b_by}; the serial chain is the real bound) "
+        f"floor_ms={floor:.6f} (the walk's chain alone, {n_steps} steps, {switches} "
+        f"switches: kernel {best / floor:.2f}x it) earlier_ms={EARLIER_MS['mmpp_sample']} "
+        f"(quoted, PERF.md; {EARLIER_MS['mmpp_sample'] / best:.2f}x); equal to the plain "
+        f"walk in every output")
     return dict(route="cuda", source=MMPP_SOURCE, replaces=MMPP_REPLACES, launches=launches,
                 max_abs_err=0.0, ms=best, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, shape=[lanes, n_steps])
+                library_ms=None, device_ms=dev_ms, floor_ms=floor, shape=[lanes, n_steps])
+
+
+def mmpp_chain_ms(torch, draws, lam, dwell, n_steps):
+    """The MMPP walk's chain alone (csrc/chain_floor.cu): n_steps steps a
+    lane, the staged candidates of the lane's first draws in shared memory,
+    one block a lane.  Returns (ms, the floor's switches over the lanes)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    n = int(_build.function("chain_floor", "chain_floor_window", ctypes.c_longlong, [])())
+    e_g, e_d = draws[:, 1:1 + 2 * n:2], draws[:, 2:2 + 2 * n:2]
+    check(e_g.shape[1] == n, "mmpp chain floor: fewer steps than its window")
+    win = torch.stack([e_g / lam[0], e_g / lam[1], e_d * dwell[0], e_d * dwell[1]],
+                      -1).contiguous()
+    nsw0 = (draws[:, 0] * dwell[0]).contiguous()
+    L = draws.shape[0]
+    out = torch.empty((L, 3), dtype=torch.float64, device="cuda")
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = _build.function("chain_floor", "mmpp_floor_launch", ctypes.c_int,
+                         [vp] * 2 + [ll] * 2 + [vp] * 2)
+
+    def launch():
+        check(fn(win.data_ptr(), nsw0.data_ptr(), L, n_steps, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream) == 0, "mmpp chain floor launch")
+
+    ms = event_ms(torch, launch)
+    check(bool(torch.isfinite(out[:, :2]).all()), "mmpp chain floor: non-finite clock")
+    return ms, int(out[:, 2].sum())
 
 
 def sim_row(torch, np, args, kw, launches, name):
@@ -3995,6 +4149,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    CARD.append(card)
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4122,9 +4277,10 @@ def main():
         + json.dumps([dict(shape=list(shape), ms=ms, run=run)
                       for shape, (ms, run) in PREVIOUS_MS.items()]))
     log("walking kernels before their redesign, quoted from PERF.md (not measured in this "
-        "run): " + json.dumps(dict(earlier_ms=EARLIER_MS, now_ms={
-            name: rows[name]["ms"] for name in EARLIER_MS}, chain_ms={
-            name: rows[name]["chain_ms"] for name in EARLIER_MS})))
+        f"run; now_ms and floor_ms measured on {card}): " + json.dumps(dict(
+            earlier_ms=EARLIER_MS, now_ms={name: rows[name]["ms"] for name in EARLIER_MS},
+            floor_ms={name: rows[name].get("chain_ms", rows[name].get("floor_ms"))
+                      for name in EARLIER_MS})))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernel_list}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-// Chain floors of the two walking kernels: each walk's dependent chain
-// alone, with every operand already in registers or shared memory, no
-// staging, no accounting, no records and no global traffic inside the
-// loop.  Not a port of any kernel and not on any path: chip_smoke.py
-// launches it beside fleet_scan.cu and sim_scan.cu to say how far each is
-// from the least time its serial walk can take on this card.
+// Chain floors of the walking kernels: each walk's dependent chain alone,
+// with every operand already in registers or shared memory, no staging, no
+// accounting, no records and no global traffic inside the loop.  Not a
+// port of any kernel and not on any path: chip_smoke.py launches it beside
+// fleet_scan.cu, sim_scan.cu, belief_forward.cu and mmpp_sample.cu to say
+// how far each is from the least time its serial walk can take on this
+// card.
 //
 //   fleet: per step, the fault-boundary scan over M replicas in registers,
 //          the admission test and a JSQ route (scores over M), the first
@@ -19,13 +20,24 @@
 //          kept), and the state update (queue length, clock, integral,
 //          energy); run for E epochs.  Gaps come from a window of the
 //          lane's own stream in shared memory, read cyclically.
+//   belief: the serial fold of belief_fold.cuh (a K-term product, the two
+//          guarded sums, 2K divides) for a given number of arrivals a
+//          trace, step matrices from a window of the trace's own in shared
+//          memory, read cyclically.  A one-lane walk of a trace is bounded
+//          by it; the time-parallel belief kernel is not.
+//   mmpp:  the competing-clocks step (a select by phase, the add, the
+//          compare, the selects of t and nsw, the phase flip) for n steps a
+//          lane, the staged candidates (E_g / lam0, E_g / lam1, E_d * dw0,
+//          E_d * dw1) from a window of the lane's own in shared memory.
 //
 // Built with the walking kernels' flags (-fmad=false), so each add and
 // product is the same instruction as in the walk.  A floor's own counts
-// (arrivals consumed, requests admitted) are returned so a caller can set
-// them beside the path's.
+// (arrivals consumed, requests admitted, switches) are returned so a caller
+// can set them beside the path's.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "belief_fold.cuh"
 
 namespace {
 
@@ -252,6 +264,67 @@ __global__ void __launch_bounds__(32) sim_floor_kernel(const SimFloor g) {
   g.out[3] = static_cast<double>(cur);
 }
 
+constexpr int kBelWin = 256;  // step matrices in the belief floor's window
+
+// One lane (thread 0 of a block) a trace: steps[lane] folds from b_init.
+template <int K>
+__global__ void __launch_bounds__(32) belief_floor_kernel(const double* win,
+                                                          const double* consts,
+                                                          const long long* steps, double* out) {
+  constexpr int KK = K * K;
+  __shared__ double e[kBelWin * KK];
+  const long long lane = blockIdx.x;
+  for (int i = threadIdx.x; i < kBelWin * KK; i += 32) e[i] = win[lane * kBelWin * KK + i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const belief::Consts cs = belief::unpack(consts, K);
+  const belief::FoldConsts<K> f(cs);
+  double b[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) b[j] = cs.b_init[j];
+  int n = static_cast<int>(steps[lane]);
+  asm volatile("" : "+r"(n));
+  for (int i = 0; i < n; ++i) belief::fold_step<K>(b, e + (i & (kBelWin - 1)) * KK, f);
+#pragma unroll
+  for (int j = 0; j < K; ++j) out[lane * K + j] = b[j];
+}
+
+// One lane (thread 0 of a block) a walk: win (lanes, kWin, 4) holds each
+// step's (E_g / lam0, E_g / lam1, E_d * dw0, E_d * dw1); nsw0 (lanes,) the
+// first switch.  out (lanes, 3): t, nsw, switches.
+__global__ void __launch_bounds__(32) mmpp_floor_kernel(const double* win, const double* nsw0,
+                                                        long long n, double* out) {
+  __shared__ __align__(16) double w[kWin * 4];
+  const long long lane = blockIdx.x;
+  for (int i = threadIdx.x; i < kWin * 4; i += 32) w[i] = win[lane * kWin * 4 + i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const double2* sg = reinterpret_cast<const double2*>(w);
+  int steps = static_cast<int>(n);
+  asm volatile("" : "+r"(steps));
+  double t = 0.0, nsw = nsw0[lane];
+  int phase = 0, switches = 0;
+  double2 gg = sg[0], dd = sg[1];
+  for (int i = 0; i < steps; ++i) {
+    const int k = (i + 1) & (kWin - 1);
+    const double2 ngg = sg[2 * k], ndd = sg[2 * k + 1];
+    const double gap = phase ? gg.y : gg.x;
+    const double dstep = phase ? dd.x : dd.y;
+    const double cand = t + gap;
+    const double nn = nsw + dstep;
+    const bool sw = cand >= nsw;
+    t = sw ? nsw : cand;
+    nsw = sw ? nn : nsw;
+    phase ^= sw ? 1 : 0;
+    switches += sw ? 1 : 0;
+    gg = ngg;
+    dd = ndd;
+  }
+  out[lane * 3 + 0] = t;
+  out[lane * 3 + 1] = nsw;
+  out[lane * 3 + 2] = static_cast<double>(switches);
+}
+
 template <int MAXM>
 int launch_floor(const FleetFloor& g, long long lanes, long long bytes, cudaStream_t st) {
   if (bytes > 48 * 1024) {
@@ -303,5 +376,33 @@ extern "C" int sim_floor_launch(const double* gaps, const double* units, const l
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   sim_floor_kernel<<<1, 32, bytes, static_cast<cudaStream_t>(stream)>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step matrices in the belief floor's window.
+extern "C" long long belief_floor_window() { return kBelWin; }
+
+// The belief fold's chain: one block a trace, win (lanes, kBelWin, K * K),
+// consts as belief_fold.cuh lays them out, out (lanes, K).
+extern "C" int belief_floor_launch(const double* win, const double* consts,
+                                   const long long* steps, long long lanes, long long K,
+                                   double* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(lanes);
+  switch (K) {
+    case 1: belief_floor_kernel<1><<<blocks, 32, 0, st>>>(win, consts, steps, out); break;
+    case 2: belief_floor_kernel<2><<<blocks, 32, 0, st>>>(win, consts, steps, out); break;
+    case 3: belief_floor_kernel<3><<<blocks, 32, 0, st>>>(win, consts, steps, out); break;
+    case 4: belief_floor_kernel<4><<<blocks, 32, 0, st>>>(win, consts, steps, out); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The MMPP walk's chain: one block a lane, n steps each.
+extern "C" int mmpp_floor_launch(const double* win, const double* nsw0, long long lanes,
+                                 long long n, double* out, void* stream) {
+  mmpp_floor_kernel<<<static_cast<unsigned>(lanes), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      win, nsw0, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,9 +16,12 @@ with its ``jax.random`` draws replaced by the shared stream, so the kernel
 and this plain walk read the same numbers and agree exactly.
 
 The kernel is ``csrc/mmpp_sample.cu``, the device counterpart of the
-reference's ``lax.scan`` (not of a Pallas kernel).  Draws given as CPU
-tensors run the plain version below; CUDA tensors launch the kernel or
-raise.  ``mmpp_sample.launches`` counts launches.
+reference's ``lax.scan`` (not of a Pallas kernel): a block a lane, whose
+walking thread reads only shared memory -- a stager warp copies the
+draws ahead and divides both candidate gaps, a writer warp stores the
+outputs -- in chunks of ``RING`` steps.  Draws given as CPU tensors run
+the plain version below; CUDA tensors launch the kernel or raise.
+``mmpp_sample.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ import torch
 
 from ..device import refuse_grad
 from . import _build
+
+#: steps a staged chunk of the kernel (csrc/mmpp_sample.cu's kR)
+RING = 512
 
 
 def _check(draws, lam, dwell) -> int:

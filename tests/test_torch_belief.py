@@ -10,6 +10,13 @@ scans on the same numpy inputs.  Held:
   numpy's order), within atol 1e-15 of belief_forward_jax, over padded
   tails and an (S, N) batch, and into the stationary fallback after a gap
   that underflows the propagation;
+* belief_forward_chunked_ref (the belief kernel's time-parallel algorithm:
+  chunk products, chunk starts, exact folds from the starts) within atol
+  1e-12 of belief_forward_jax and of the serial fold, argmax rows equal,
+  at chunks of 1, 7, 32 and N slots, through an underflowing gap (pass B
+  folds that chunk exactly), a zero-rate phase, K = 3 and 8 with complex
+  eigenvalues, padded slots and a wholly padded trace; its rows over a
+  prefix of the slots bit for bit those of a call on the prefix;
 * BeliefPhaseScheduler in both modes through the compiled engine against
   the Python engine (batch sizes equal, latencies at atol 1e-9, the
   reference's bar) and against the reference's engine; verify_backends
@@ -157,6 +164,78 @@ def test_the_wrapper_checks_its_inputs():
                           torch.as_tensor(big.belief), 0.0, big.consts(torch.device(CPU)))
     with pytest.raises(ValueError, match="1-D or 2-D"):
         pa.belief_forward(np.zeros((1, 1, 3)), filt, device=CPU)
+
+
+def _cyclic(K, a, rates):
+    """A K-phase cycle 0 -> 1 -> ... -> 0 at rate a (complex eigenvalues of
+    R - Lambda when a is large beside the rates' spread)."""
+    gen = np.zeros((K, K))
+    for k in range(K):
+        gen[k, k], gen[k, (k + 1) % K] = -a, a
+    return list(rates), gen.tolist()
+
+
+def _chunk_case(case):
+    """(rates, gen, (S, N) times, chunk sizes, the filter's start time)."""
+    tr = _trace(700, 20)
+    if case.startswith("chunk"):
+        two = np.stack([tr, np.concatenate([tr[:300] + 0.25, [np.nan], tr[301:500] + 0.25,
+                                            np.full(len(tr) - 500, np.inf)])])
+        C = int(case[5:]) if case[5:] != "N" else two.shape[1]
+        return RATES, GEN, two, C, 0.0
+    if case == "underflow":  # a gap no propagation survives, mid-chunk
+        t = np.concatenate([tr[:100], tr[100:] + 2.0e6])
+        return RATES, GEN, t[None], 7, 0.0
+    if case == "zero_rate":
+        return [0.0, RATES[1]], GEN, tr[None], 32, 0.0
+    if case == "padded":
+        t = np.concatenate([tr[:150], [np.inf, np.nan], tr[150:400], np.full(9, np.inf)])
+        return RATES, GEN, np.stack([t, np.full(len(t), np.inf), t + 1.5]), 32, 0.5
+    K = int(case[1:])
+    rates, gen = _cyclic(K, 2.0, np.linspace(0.2, 3.0, K) * LAM)
+    return rates, gen, tr[None, :400], 7, 0.0
+
+
+@pytest.mark.parametrize("case", ["chunk1", "chunk7", "chunk32", "chunkN", "underflow",
+                                  "zero_rate", "padded", "K3", "K8"])
+def test_the_chunked_mirror_holds_to_the_reference(case):
+    """The belief kernel's algorithm (chunk products, chunk starts, exact
+    folds) within atol 1e-12 of the reference scan and of the serial fold,
+    argmax rows equal; bit for bit the same over a prefix."""
+    rates, gen, times, C, t0 = _chunk_case(case)
+    filt = pa.PhaseBeliefFilter(rates, gen)
+    if t0:
+        filt.observe(t0)
+    c = filt.consts(torch.device(CPU))
+    tt, b_init = torch.as_tensor(times), torch.as_tensor(filt.belief)
+    stats = {}
+    got = bf.belief_forward_chunked_ref(tt, b_init, filt._last, c, C, stats=stats)
+    serial = bf.belief_forward_ref(tt, b_init, filt._last, c)
+    want, (wb, wt) = belief_forward_jax(times, _ref_copy(filt))
+    want = torch.as_tensor(np.array(want))
+    for ref in (want, serial[0]):
+        torch.testing.assert_close(got[0], ref, rtol=0, atol=1e-12)
+        assert torch.equal(got[0].argmax(-1), ref.argmax(-1))
+    torch.testing.assert_close(got[1], torch.as_tensor(np.asarray(wb)), rtol=0, atol=1e-12)
+    torch.testing.assert_close(got[1], serial[1], rtol=0, atol=1e-12)
+    assert torch.equal(got[2], serial[2]) and np.array_equal(got[2].numpy(), np.asarray(wt))
+    # chunks where a guard could fire (the underflow), or whose step matrices
+    # round below zero (some of the K-cycle's), are folded exactly; the
+    # two-phase cases have none, the K cases keep most chunks on products
+    n_unsafe = int(stats["unsafe_chunks"].sum())
+    if case == "underflow":
+        assert n_unsafe > 0
+    elif case.startswith("K"):
+        assert n_unsafe < times.shape[0] * (-(-times.shape[1] // C) - 1) // 2
+    else:
+        assert n_unsafe == 0
+    if case == "underflow":
+        fb = filt._b0 * filt.rates / (filt._b0 * filt.rates).sum()
+        np.testing.assert_allclose(got[0][0, 100].numpy(), fb, rtol=0, atol=1e-12)
+    for n in (1, C - 1, C, C + 1, times.shape[1] // 2):
+        if 0 < n <= times.shape[1]:
+            pre = bf.belief_forward_chunked_ref(tt[:, :n], b_init, filt._last, c, C)
+            assert torch.equal(pre[0], got[0][:, :n])
 
 
 # --- the schedulers and the engine's lowering -------------------------------

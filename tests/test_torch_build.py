@@ -41,7 +41,9 @@ def test_flags_change_the_library_name(tree, monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(_build.EXTRA_FLAGS))
 def test_the_kernels_headers(name):
-    """The attention kernels share wgmma.cuh; every other source stands alone."""
+    """The attention kernels share wgmma.cuh, the belief kernel and the chain
+    floors belief_fold.cuh; every other source stands alone."""
     got = [p.name for p in _build.sources(name)]
-    shared = ["wgmma.cuh"] if name in ("flash_attention", "flash_attention_bwd") else []
-    assert got == [f"{name}.cu"] + shared
+    shared = {"flash_attention": ["wgmma.cuh"], "flash_attention_bwd": ["wgmma.cuh"],
+              "belief_forward": ["belief_fold.cuh"], "chain_floor": ["belief_fold.cuh"]}
+    assert got == [f"{name}.cu"] + shared.get(name, [])

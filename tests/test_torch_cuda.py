@@ -17,8 +17,12 @@ version's arithmetic; every instance of the event kernel -- plain,
 managed queue, adaptive, both, each with and without the belief mix
 rule -- equals the plain walk exactly in its counts, clocks, sums,
 histograms, queues and records), atol 1e-12 and equal argmax rows for the
-belief kernel against its plain version (the same operations, but CUDA's
-exp / sin / cos are within an ulp of the host's, not bit for bit), the
+belief kernel against its plain serial fold (its time-parallel passes
+associate the steps' products differently, and CUDA's exp / sin / cos are
+within an ulp of the host's: not bit for bit; at chunk seams, 1 to 200
+traces, K 1 to 8, any chunk length, a gap that underflows every
+propagation, repeated times, zero slots, a wholly padded trace), its rows
+bit for bit the same in two calls and over any prefix of the slots, the
 fleet kernel equal to its plain walk in every record, count, clock and
 sum (plain, faults with a finite room, the mix rule, a chunk carry, a grid;
 M = 1, 3, 4, 8 and its maximum of 64, and a refusal above; the seams of its
@@ -40,7 +44,9 @@ decode per occurrence of the shared block), the SSD scan kernel at 2e-5
 kernel-against-naive bar and the attention kernels'; inputs in a Mamba2
 block's regime, see _ssd_inputs), the MMPP sampler
 and simulator kernels equal to their plain walks in every output (lanes
-1, 7, 133; n_steps 1 and a long run; a run that clips at k_max, a > s,
+1, 6, 7, 133, 200; n_steps 1, the staged chunk's length +-1 and a long
+run; dwells so short that most steps switch, rates 1e3 apart; a run that
+clips at k_max, a > s,
 every service family, the ring wrapping; clipped runs across the staging
 chunks, a queue that outgrows the ring, lanes that run out of draws beside
 lanes that do not), and a durable sweep resumed on
@@ -65,6 +71,7 @@ from repro_torch import core as pt
 from repro_torch import kernels
 from repro_torch.configs import ARCHS
 from repro_torch.core.policies import q_policy
+from repro_torch.kernels import belief_forward as bfk
 from repro_torch.kernels import bellman as tb
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -421,6 +428,145 @@ def test_belief_kernel_matches_plain(cuda, K, S):
     np.testing.assert_allclose(bel[0, 1500].numpy(), fb, rtol=0, atol=1e-12)
     # padded tail repeats the last row
     assert torch.equal(bel[:, -1], bel[:, 2999])
+
+
+def _k_filter(K):
+    """A K-phase filter: a single Poisson phase, the bursty MMPP2, or a
+    K-phase cycle (complex eigenvalues for K >= 3)."""
+    from repro_torch.serving import PhaseBeliefFilter
+
+    if K <= 3:
+        return _phase_filter(K) if K > 1 else PhaseBeliefFilter([1.1], [[0.0]])
+    a = 2.0  # beside rates 0.25 .. 2.8: complex eigenvalues
+    gen = np.zeros((K, K))
+    for k in range(K):
+        gen[k, k], gen[k, (k + 1) % K] = -a, a
+    return PhaseBeliefFilter(list(np.linspace(0.25, 2.8, K)), gen.tolist())
+
+
+def _bursty_times(seed, S, n):
+    """S traces of n arrivals from a bursty MMPP2, the later traces shorter
+    (padded with +inf)."""
+    from repro_torch.serving.arrivals import MMPP2
+
+    m = MMPP2(lam1=0.26, lam2=2.79, dwell1=4000.0, dwell2=800.0)
+    out = np.full((S, n), np.inf)
+    for s in range(S):
+        k = n - (s * n) // (2 * S)
+        tr = m.sample_arrivals(1.2 * max(n, 64) / m.mean_rate,
+                               np.random.default_rng(seed + s))[0]
+        while len(tr) < k:
+            tr = np.concatenate([tr, tr[-1] + 1.0 + tr[: k - len(tr)]])
+        out[s, :k] = tr[:k]
+    return out
+
+
+def _belief_both(cuda, filt, times, chunk=None, t_init=0.0):
+    """The kernel (one call at `chunk`, default CHUNK; launches checked),
+    its count of chunks folded exactly in pass B, and the serial plain
+    fold."""
+    from repro_torch.kernels import belief_forward as bf
+
+    tt = torch.as_tensor(times)
+    b_init = torch.as_tensor(filt.belief)
+    before = bf.belief_forward.launches
+    inst = dict(bf.belief_forward.instance_launches)
+    *got, unsafe = bf._launch(tt.to(cuda), b_init.to(cuda), t_init, filt.consts(cuda),
+                              bf.CHUNK if chunk is None else chunk)
+    torch.cuda.synchronize()
+    assert bf.belief_forward.launches == before + 1
+    passes = ("products", "starts", "fold") if times.shape[1] else ("starts",)
+    for name in ("products", "starts", "fold"):
+        want_n = inst.get(name, 0) + (1 if name in passes else 0)
+        assert bf.belief_forward.instance_launches.get(name, 0) == want_n
+    want = bf.belief_forward_ref(tt, b_init, t_init, filt.consts(torch.device("cpu")))
+    return tuple(x.cpu() for x in got), want, unsafe.cpu()
+
+
+def _held(got, want):
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-12)
+    assert torch.equal(got[0].argmax(-1), want[0].argmax(-1))
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-12)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("S,N,K", [(1, 1, 2), (6, bfk.CHUNK - 1, 2), (6, bfk.CHUNK, 2),
+                                   (6, bfk.CHUNK + 1, 2), (200, 700, 2), (6, 49_152, 2),
+                                   (1, 3000, 1), (6, 300, 3), (6, 300, 4), (6, 300, 5),
+                                   (6, 300, 6), (6, 300, 7), (6, 300, 8),
+                                   (200, bfk.CHUNK + 1, 8)])
+def test_belief_kernel_chunked_matches_plain(cuda, S, N, K):
+    """The time-parallel kernel against the serial plain fold at chunk
+    seams (N = C - 1, C, C + 1 for the default C), many traces, the bursty
+    batch's shape and every K; deterministic and prefix-stable bit for bit;
+    the same algorithm's CPU mirror within atol 1e-12."""
+    bf = bfk
+    filt = _k_filter(K)
+    times = _bursty_times(100 + K + S, S, N)
+    got, want, unsafe = _belief_both(cuda, filt, times)
+    _held(got, want)
+    if K <= 2:  # no guard can fire and no step matrix rounds below zero here
+        assert int(unsafe.sum()) == 0
+    tt = torch.as_tensor(times, device=cuda)
+    b_init = torch.as_tensor(filt.belief, device=cuda)
+    c = filt.consts(cuda)
+    again = bf.belief_forward(tt, b_init, 0.0, c)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+    for n in sorted({1, bf.CHUNK - 1, bf.CHUNK, bf.CHUNK + 1, N // 2, N - 1}):
+        if 0 < n < N:
+            pre = bf.belief_forward(tt[:, :n].contiguous(), b_init, 0.0, c)
+            assert torch.equal(pre[0].cpu(), got[0][:, :n])
+    if N <= 3000:
+        mirror = bf.belief_forward_chunked_ref(torch.as_tensor(times), b_init.cpu(), 0.0,
+                                               filt.consts(torch.device("cpu")), bf.CHUNK)
+        _held(got, mirror)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32, 64, 1000, 3007])
+def test_belief_kernel_any_chunk_and_unsafe_slots(cuda, chunk):
+    """Any chunk length, on traces with a hole and a gap that underflows
+    every propagation (the chunk holding it is folded exactly in pass B
+    and counted); the one-chunk call (C = N) is a serial fold."""
+    filt = _phase_filter(2)
+    times = _belief_times(40 + chunk, 3, 3000, 2)
+    got, want, unsafe = _belief_both(cuda, filt, times, chunk=chunk)
+    _held(got, want)
+    n_chunks = -(-times.shape[1] // chunk)
+    assert unsafe.shape == (3,) and unsafe.dtype == torch.int32
+    # the underflowing gap sits in chunk 1500 // C of each trace (the hole
+    # keeps every gap positive); the last chunk's product is never used
+    assert unsafe.tolist() == [1 if 1500 // chunk < n_chunks - 1 else 0] * 3
+    fb = filt._b0 * filt.rates / (filt._b0 * filt.rates).sum()
+    np.testing.assert_allclose(got[0][:, 1500].numpy(), np.tile(fb, (3, 1)), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("K", [2, 8])
+def test_belief_kernel_repeated_times(cuda, K):
+    """Runs of equal times (gaps of exactly 0: E = I up to rounding, which
+    leaves entries a hair below zero) and a start after the first arrivals:
+    the chunks holding them are folded exactly; rows still held."""
+    filt = _k_filter(K)
+    times = _bursty_times(60 + K, 4, 2000)
+    times[:, 300:340] = times[:, 300:301]
+    times[1, 1000:1200] = times[1, 1000]
+    got, want, unsafe = _belief_both(cuda, filt, times, t_init=5.0)
+    _held(got, want)
+    assert int(unsafe.sum()) >= 1
+
+
+def test_belief_kernel_empty_and_padded_traces(cuda):
+    """Zero slots give the start state back (one launch, pass B alone); a
+    wholly padded trace repeats b_init and keeps t_init."""
+    filt = _phase_filter(2)
+    got, want, _ = _belief_both(cuda, filt, np.zeros((3, 0)))
+    assert got[0].shape == (3, 0, 2)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    times = _bursty_times(7, 3, 400)
+    times[1] = np.inf
+    got, want, _ = _belief_both(cuda, filt, times)
+    _held(got, want)
+    assert torch.equal(got[0][1], torch.as_tensor(filt.belief).expand(400, 2))
+    assert float(got[2][1]) == 0.0
 
 
 def _mix_inputs(seed, S=2, n=600, P=3, adaptive=False, dev="cpu"):
@@ -1118,6 +1264,44 @@ def test_mmpp_sample_kernel_matches_plain(cuda, L, n):
     want = mk.mmpp_sample_ref(draws.cpu(), lam, dwell)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("L", [1, 6, 200])
+@pytest.mark.parametrize("n", [mk.RING - 1, mk.RING, mk.RING + 1, 2 * mk.RING + 1])
+def test_mmpp_sample_kernel_ring_seams(cuda, L, n):
+    """Walks of one chunk's length +-1 and over two, 1 to 200 lanes, bit for
+    bit against the plain walk."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    ring = _build.function("mmpp_sample", "mmpp_sample_chunk", ctypes.c_longlong, [])()
+    assert ring == mk.RING
+    g = torch.Generator(device="cuda")
+    g.manual_seed(L * 11 + n)
+    draws = torch.empty((L, 1 + 2 * n), dtype=torch.float64, device="cuda").exponential_(
+        generator=g)
+    got = mk.mmpp_sample(draws, (0.3, 2.5), (40.0, 8.0))
+    want = mk.mmpp_sample_ref(draws.cpu(), (0.3, 2.5), (40.0, 8.0))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("lam,dwell", [((0.01, 10.0), (0.05, 0.02)), ((10.0, 0.01), (1e-3, 5.0)),
+                                       ((1e-3, 1.0), (300.0, 300.0))])
+def test_mmpp_sample_kernel_switch_heavy_and_extreme_rates(cuda, lam, dwell):
+    """Dwells so short that most steps switch, rates 1e3 apart: the walk's
+    selects on both sides of every compare, bit for bit."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    draws = torch.empty((6, 1 + 2 * 4000), dtype=torch.float64, device="cuda").exponential_(
+        generator=g)
+    got = mk.mmpp_sample(draws, lam, dwell)
+    want = mk.mmpp_sample_ref(draws.cpu(), lam, dwell)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    share = 1.0 - float(want[1].double().mean())
+    assert share > 0.5 if dwell[0] < 0.1 else share < 0.5
 
 
 def test_mmpp2_times_on_the_card(cuda):
