@@ -50,6 +50,26 @@
    backup="pallas": the sweep completes with that row quarantined and
    failed (the reference's guard ladder), the other rows equal the grid
    without it, and the batched kernel's launch count rose.
+4k. The paper's own figures and tables (launch/paper_figures.py: Figs. 3,
+   4, 7-10, Tables II-III, App. E) at the benchmarks' full size, every
+   solve and sweep with backup="pallas", counters zeroed just before and
+   read just after: one bellman_banded launch per backup of every kernel
+   RVI call (+1 for its policy), every sweep and accel-ladder call on the
+   spec-batched kernel, no guard rung.  Held against the reference's
+   full-size numbers (FIG_REF): Fig. 10's smallest acceptable s_max per
+   c_o (its search's solves converged wherever the reference's did), then
+   s_min acceptable and s_min - 8 not on the float64 banded path on the
+   card, Table II's space and time cuts from the kernel's and the f64
+   path's iterations (the f64 ones equal to the reference's) beside the
+   paper's 63.5% / 98%, the busy share of one Fig. 10 solve; Fig. 3's
+   60/60 control-limit and 40/40 Prop. 4 matches; App. E's four counts,
+   each breaking spec's policy equal to one f64 banded RVI at its final
+   truncation; every sweep spec of Figs. 4, 7, 8, 9 against the scalar f64
+   solve() (the sweep phase's near-tie rule), their verdicts, Fig. 8's
+   power range and Fig. 9's W per family at rtol 1e-6; Table III's
+   baselines' g and the accel ladder's policy matches.  The Bellman
+   kernels are held against their plain versions and timed at the phase's
+   shapes.
 4d. Overload shedding on one server (benchmarks/degraded_frontier.py's
    shedding section, through ServingEngine / simulate_compiled instead of
    the M = 1 fleet), counters zeroed just before and read just after:
@@ -106,7 +126,9 @@
    verify_fleet (PythonFleet against the fleet kernel), and an MMPP-aware
    fleet (per-phase tables, the posterior from the belief kernel, the mix
    rule) through it too; a 16-chunk FleetStream equal to the one-shot run
-   on every aggregate; examples/serve_fleet.py (M = 8, 20 000 arrivals x 3
+   on every aggregate; chunked FleetStreams in both belief modes (faults,
+   a room of 24) equal to simulate_fleet with one belief_forward call's
+   beliefs on every aggregate; examples/serve_fleet.py (M = 8, 20 000 arrivals x 3
    seeds x 4 routers, one launch); benchmarks/degraded_frontier.py (§1
    verify_faults for every router on Poisson and MMPP2 with the moderate
    schedule, buffer 24, slo 2.0, and the no-fault rail; §2 the fault
@@ -160,8 +182,8 @@
    Qwen2.5-32B at full width with 2 layers, decode path (decode kernel)
    against a fresh prefill (flash kernel), both at atol 3e-4.
 7. LLM serving path, counters zeroed just before and read just after:
-   Qwen2.5-32B at its published config (64 layers, bf16, random weights
-   from a seed) -- l(b) profile for b = 1..8 (prompt 128, 16 tokens),
+   Qwen2.5-32B at its published width with 32 of its 64 layers (bf16,
+   random weights from a seed) -- l(b) profile for b = 1..8 (prompt 128, 16 tokens),
    SMDP solve on it through the Bellman kernel, then 32 Poisson requests
    at rho = 0.6 served in wall-clock executor mode by the SMDP, greedy and
    static schedulers.  Checks one flash launch per layer per segment, one
@@ -179,11 +201,11 @@
    attention at Zamba2's 32 / 32 heads of 64, held and timed beside SDPA;
    the reduced Zamba2 in f32 on the card against the CPU (launch counts
    exact), full width at depth 7 (decode path against fresh prefills);
-   then Zamba2-1.2B at its published config (38 layers, bf16) through
-   serve_llm.run_pipeline with the Qwen path's constants, launch counts
-   exact (flash 6 x segments, decode 6 x 15 x segments, SSD 38 x 16 x
-   segments with the first pass 38 x segments, Bellman the solve's
-   backups), peak memory, and a profiled
+   then Zamba2-1.2B at its published width with 19 of its 38 layers (the
+   shared block 3 times, bf16) through serve_llm.run_pipeline with the
+   Qwen path's constants, launch counts exact (flash 3 x segments, decode
+   3 x 15 x segments, SSD 19 x 16 x segments with the first pass 19 x
+   segments, Bellman the solve's backups), peak memory, and a profiled
    b = 8 prefill and decode step with the SSD kernels' share.
 9. Phase 4j, training (examples/train_100m.py --full through the port):
    the attention backward kernel (csrc/flash_attention_bwd.cu) against
@@ -198,16 +220,19 @@
    gradients through the kernels against the CPU's plain versions (1e-4
    of each tensor's largest |gradient|).  Then the example itself,
    counters zeroed just before and read just after: qwen2.5-100m (12
-   layers, d 512, 8 / 4 x 64, SwiGLU 2048, vocab 32768, f32) for 300 steps
-   of 8 x 256 with AdamW at lr 6e-4, data seed 17, an async checkpoint
-   every 60 steps; the loss must fall; launches exact (flash 2 x 12 a
+   layers, d 512, 8 / 4 x 64, SwiGLU 2048, vocab 32768, f32) for 150 of
+   the example's 300 steps of 8 x 256 with AdamW at lr 6e-4, data seed 17,
+   an async checkpoint every 30 steps (the example's steps / 5); the loss
+   must fall; launches exact (flash 2 x 12 a
    step -- the forward and its remat recompute -- and 12 backward calls
    of 3 kernels a step); ms a step, tokens/s, peak memory.  Then the
-   resume drill: 150 steps, a fresh Trainer on the same directory resumed
-   to 300, losses (rtol 1e-6) and parameters (atol 1e-6) equal to the
-   uninterrupted run's.  Last, a profiled train step (busy share, time by
-   kernel group).  TF32 stays off (asserted).
-10. Prints a `kernels` JSON line, then the one-line verdict.
+   resume drill: a fresh Trainer on a copy of the run's checkpoint
+   directory without the steps after 120, resumed to 150, losses (rtol
+   1e-6) and parameters (atol 1e-6) equal to the uninterrupted run's.
+   Last, a profiled train step (busy share, time by kernel group).  TF32
+   stays off (asserted).
+10. Prints each phase's wall time and their summary, a `kernels` JSON line,
+   then the one-line verdict.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA it exits
 with 2 and prints no result.
@@ -283,6 +308,9 @@ MAX_TIES_PER_SPEC, MAX_TIES, TIE_MASS = 1, 4, 1e-12
 
 # --- the LLM serving path (examples/serve_llm.py on Qwen2.5-32B) ---------
 LLM_ARCH = "qwen2.5-32b"
+#: the serving path's depth: Qwen2.5-32B at its published width with 32 of
+#: its 64 layers (a depth cut that keeps the script inside its time limit)
+LLM_LAYERS = 32
 LLM_B_MAX, LLM_PROMPT, LLM_GEN, LLM_REQUESTS, LLM_RHO = 8, 128, 16, 32, 0.6
 #: tests/test_kernels.py's attention shapes
 FLASH_TEST_SHAPES = [(2, 64, 64, 4, 2, 16, True, None), (1, 33, 70, 4, 4, 8, False, None),
@@ -479,6 +507,31 @@ def batched_row(torch, np, rng, N, T, A, K, reps=100):
                 blocks=gx * gz, threads=threads, smem_bytes=smem)
 
 
+def bellman_row(torch, np, rng, T, A, K, reps):
+    """Times of the scalar Bellman kernel at (T, A, K): kernel (device time in
+    a CUDA graph), one wrapper call, plain version, the torch.matmul library
+    call, the launch floor, and the bound."""
+    from repro_torch.kernels import bellman
+
+    h, p, t, hso = bellman_inputs(torch, np, rng, T, A, K)
+    ms = device_ms(torch, lambda: bellman.bellman_banded(h, p, t, hso), reps)
+    wrapper_ms = call_ms(torch, lambda: bellman.bellman_banded(h, p, t, hso), reps)
+    plain = device_ms(torch, lambda: bellman.bellman_banded_ref(h, p, t, hso), reps)
+    lib = device_ms(torch, lambda: torch.matmul(h.unfold(0, K, 1)[:T], p.T), reps)
+    floor = launch_floor_ms(torch, 1, T, A, K, reps)
+    split, gx, _, _, threads, smem = bellman_geometry(1, T, A, K)
+    b_ms, b_by = bound(4 * ((T + K) + A * K + 2 * T * A + 1),
+                       2 * T * A * K + 2 * T * A, F32_FLOPS)
+    log(f"bellman_banded {T}x{A}x{K}: kernel_ms={ms:.6f} call_ms={wrapper_ms:.6f} "
+        f"plain_ms={plain:.6f} library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+        f"launch_floor_ms={floor:.6f}; split {split}, {gx} blocks of {threads} "
+        f"threads, {smem} B shared")
+    return dict(ms=ms, call_ms=wrapper_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor,
+                shape=[T, A, K], split=split, blocks=gx, threads=threads,
+                smem_bytes=smem)
+
+
 def bellman_registers():
     """Registers a thread of the Bellman kernel, from its -Xptxas -v log
     (None when the library was built before this process)."""
@@ -571,28 +624,9 @@ def kernel_phase(torch, np):
     edge_err = bellman_edge_phase(torch, np)
     err = max(err, edge_err)
 
-    def bellman_row(T, A, K, reps):
-        h, p, t, hso = bellman_inputs(torch, np, rng, T, A, K)
-        ms = device_ms(torch, lambda: bellman.bellman_banded(h, p, t, hso), reps)
-        wrapper_ms = call_ms(torch, lambda: bellman.bellman_banded(h, p, t, hso), reps)
-        plain = device_ms(torch, lambda: bellman.bellman_banded_ref(h, p, t, hso), reps)
-        lib = device_ms(torch, lambda: torch.matmul(h.unfold(0, K, 1)[:T], p.T), reps)
-        floor = launch_floor_ms(torch, 1, T, A, K, reps)
-        split, gx, _, _, threads, smem = bellman_geometry(1, T, A, K)
-        b_ms, b_by = bound(4 * ((T + K) + A * K + 2 * T * A + 1),
-                           2 * T * A * K + 2 * T * A, F32_FLOPS)
-        log(f"bellman_banded {T}x{A}x{K}: kernel_ms={ms:.6f} call_ms={wrapper_ms:.6f} "
-            f"plain_ms={plain:.6f} library_ms={lib:.6f} bound_ms={b_ms:.6f} ({b_by}) "
-            f"launch_floor_ms={floor:.6f}; split {split}, {gx} blocks of {threads} "
-            f"threads, {smem} B shared")
-        return dict(ms=ms, call_ms=wrapper_ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor,
-                    shape=[T, A, K], split=split, blocks=gx, threads=threads,
-                    smem_bytes=smem)
-
-    path_row = bellman_row(*PATH_SHAPE, reps=200)
-    large_row = bellman_row(*LARGE_SHAPE, reps=20)
-    llm_row = bellman_row(*LLM_SOLVE_SHAPE, reps=200)
+    path_row = bellman_row(torch, np, rng, *PATH_SHAPE, reps=200)
+    large_row = bellman_row(torch, np, rng, *LARGE_SHAPE, reps=20)
+    llm_row = bellman_row(torch, np, rng, *LLM_SOLVE_SHAPE, reps=200)
     rows["bellman_banded"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bellman.cu",
         replaces="src/repro/kernels/bellman.py:66", max_abs_err=err,
@@ -847,6 +881,57 @@ def solve_checked(np, kernels, rho):
     return res, wall
 
 
+def tie_gaps(torch, np, o, policy):
+    """States where ``policy`` differs from the oracle solve ``o``'s, and the
+    Q-gap of the two actions there under the oracle's own h."""
+    from repro_torch.core import rvi
+
+    d = np.flatnonzero(policy != o.policy)
+    if not d.size:
+        return d, np.zeros(0)
+    mdp = o.mdp
+    pm, tl, sc = rvi.make_banded_inputs(mdp, device=torch.device("cuda"))
+    q = rvi.banded_backup(torch.as_tensor(mdp.c_tilde, device="cuda"), pm, tl, sc,
+                          o.spec.s_max, torch.as_tensor(o.rvi.h, device="cuda"))
+    q = q.cpu().numpy()
+    return d, q[d, policy[d]] - q[d, o.policy[d]]
+
+
+#: the scalar f64 solve() of each spec on the card, by (repr, s_max): filled
+#: by the sweep phase, reused by phase 4k (six of Fig. 4's specs are specs
+#: of the sweep phase's bank)
+ORACLES = {}
+
+
+def hold_to_oracle(torch, np, what, sp, r, oracles, ties):
+    """A sweep's result ``r`` for the input spec ``sp`` against the scalar
+    f64 solve() of ``sp`` on the card (cached in ``oracles``): s_max equal,
+    g / W / P within rtol 1e-9, the policy equal or a near-tie certified by
+    the oracle's own residual -- the two actions' Q under its h differ by
+    less than its final span, at a state of negligible stationary mass (the
+    reference's sweep_bank shows the same ties against its own solve()).
+    Appends such states to ``ties``."""
+    from repro_torch.core import solve
+
+    key = (repr(sp), sp.s_max)
+    if key not in oracles:
+        oracles[key] = solve(sp, device="cuda")
+    o = oracles[key]
+    check(r.spec.s_max == o.spec.s_max,
+          f"{what}: s_max {r.spec.s_max} vs oracle {o.spec.s_max}")
+    states, gaps = tie_gaps(torch, np, o, r.policy)
+    mass = np.asarray(o.eval.mu)[states]
+    check(len(states) <= MAX_TIES_PER_SPEC and bool(np.all(gaps <= o.rvi.span))
+          and bool(np.all(mass <= TIE_MASS)),
+          f"{what}: policy vs oracle at states {states}, Q-gaps {gaps}, "
+          f"stationary mass {mass}")
+    ties += [(what, int(st), int(r.policy[st]), int(o.policy[st]), float(gp), float(m))
+             for st, gp, m in zip(states, gaps, mass)]
+    for f in ("g", "w_bar", "p_bar"):
+        want = getattr(o.eval, f)
+        check(abs(getattr(r.eval, f) - want) <= 1e-9 * abs(want), f"{what}: eval.{f} vs oracle")
+
+
 # ---------------------------------------------------------------------------
 # The sweep path: sweep_solve -> batched RVI on the spec-batched kernel ->
 # evaluate_policy_batched -> SMDPSchedulerBank -> compiled serve
@@ -973,54 +1058,19 @@ def sweep_phase(torch, np, kernels, rows, main_res, energy):
     log("tradeoff_sweep --backup pallas (Fig. 5 CSV): " + " | ".join(cli_rows))
 
     # --- every spec against the scalar f64 oracle, and the banded sweep ---
-    def tie_gaps(o, policy):
-        """States where ``policy`` differs from the oracle's, and the
-        Q-gap of the two actions there under the oracle's own h."""
-        d = np.flatnonzero(policy != o.policy)
-        if not d.size:
-            return d, np.zeros(0)
-        mdp = o.mdp
-        pm, tl, sc = rvi.make_banded_inputs(mdp, device=torch.device("cuda"))
-        q = rvi.banded_backup(torch.as_tensor(mdp.c_tilde, device="cuda"), pm, tl, sc,
-                              o.spec.s_max, torch.as_tensor(o.rvi.h, device="cuda"))
-        q = q.cpu().numpy()
-        return d, q[d, policy[d]] - q[d, o.policy[d]]
-
-    oracles, ties = {}, []
+    oracles, ties = ORACLES, []
     t0 = time.perf_counter()
     n_checked = 0
     for name, g in kern.items():
         specs = bank_specs if name == "bank" else grids[name]
         for sp, r, b in zip(specs, g["res"], banded[name]["res"]):
-            key = (sp.lam, sp.w2, sp.s_max)
-            if key not in oracles:
-                oracles[key] = solve(sp, device="cuda")
-            o = oracles[key]
             what = f"{name} rho={sp.rho:.2f} w2={sp.w2}"
-            check(r.spec.s_max == o.spec.s_max,
-                  f"{what}: s_max {r.spec.s_max} vs oracle {o.spec.s_max}")
             check(np.array_equal(r.policy, b.policy), f"{what}: policy vs banded sweep")
-            # equal to the oracle, or a near-tie certified by the oracle's
-            # own residual: the two actions' Q under its h differ by less
-            # than its final span, at a state of negligible stationary mass
-            # (the reference's sweep_bank shows the same ties against its
-            # own solve())
-            states, gaps = tie_gaps(o, r.policy)
-            mass = np.asarray(o.eval.mu)[states]
-            check(len(states) <= MAX_TIES_PER_SPEC and bool(np.all(gaps <= o.rvi.span))
-                  and bool(np.all(mass <= TIE_MASS)),
-                  f"{what}: policy vs oracle at states {states}, Q-gaps {gaps}, "
-                  f"stationary mass {mass}")
-            ties += [(what, int(st), int(r.policy[st]), int(o.policy[st]), float(gp),
-                      float(m)) for st, gp, m in zip(states, gaps, mass)]
-            for f in ("g", "w_bar", "p_bar"):
-                want = getattr(o.eval, f)
-                check(abs(getattr(r.eval, f) - want) <= 1e-9 * abs(want),
-                      f"{what}: eval.{f} vs oracle")
+            hold_to_oracle(torch, np, what, sp, r, oracles, ties)
             n_checked += 1
     check(len(ties) <= MAX_TIES, f"{len(ties)} near-tie states against the oracle: {ties}")
-    grown = sorted({(round(o.spec.rho, 2), key[2], o.spec.s_max)
-                    for key, o in oracles.items() if o.spec.s_max != key[2]})
+    grown = sorted({(round(o.spec.rho, 2), s_max, o.spec.s_max)
+                    for (_, s_max), o in oracles.items() if o.spec.s_max != s_max})
     log(f"sweep oracle: {n_checked} specs ({len(oracles)} distinct) against the scalar f64 "
         f"solve() on the card: s_max equal, g / W / P within rtol 1e-9, policies equal to "
         f"the banded sweep's and to the oracle's except {len(ties)} certified near-tie "
@@ -1133,6 +1183,409 @@ def poisoned_grid_phase(np, kernels, rows):
         f"{rep.quarantined}, failed {rep.failed}; the other rows equal the grid without it")
     rows["bellman_banded_batched"]["poisoned_grid"] = dict(
         rungs=rep.rungs, quarantined=rep.quarantined, failed=rep.failed, launches=launched)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4k: the paper's own figures and tables (launch/paper_figures.py) at
+# the benchmarks' full size, every solve and sweep on the Bellman kernels
+# ---------------------------------------------------------------------------
+
+#: the reference's numbers at the benchmarks' full size, unrounded: the JAX
+#: package's own library calls on the benchmarks' grids, on a CPU
+#: (tools/paper_figures_ref.py; `python -m benchmarks.run --only NAME` prints
+#: the same, rounded).  Fig. 10: c_o -> (smallest acceptable s_max, RVI
+#: iterations there, evaluated g) and the search's solves that stop at
+#: max_iter = 10 000 unconverged (their policies are rejected); Fig. 3:
+#: (control-limit, specs, Prop. 4 matches, exponential specs), the specs
+#: that regrew past s_max 100 and every spec's threshold q (rho-major over
+#: the w2s); App. E: (non-control-limit specs, specs) per case and the
+#: (rho, w2) of the specs that break the structure (all at s_max 100) and
+#: the specs that regrew;
+#: Table III: the four
+#: baselines' g on the c_o = 0 chain and their iterations, the accel
+#: ladder's iterations.
+FIG_REF = dict(
+    fig10={10000.0: (92, 1825, 66.13121950662794), 1000.0: (84, 1673, 66.13097234951249),
+           100.0: (76, 1531, 66.13079748945181), 10.0: (164, 8303, 66.13072376693728),
+           0.0: (196, 8870, 66.13072376693998)},
+    fig10_cuts=(0.6091370558375635, 0.9740482521609983),
+    fig10_unconverged={10.0: (156,), 0.0: (180, 188)},  # stopped at max_iter, rejected
+    fig3=(60, 60, 40, 40),
+    fig3_grown={(case, rho, w2): s for case in ("case2_expo", "case3_expo")
+                for rho, w2, s in ((0.7, 0.0, 150), (0.7, 0.5, 150), (0.7, 1.0, 150),
+                                   (0.7, 100.0, 225), (0.9, 0.0, 507), (0.9, 0.5, 507),
+                                   (0.9, 1.0, 507), (0.9, 100.0, 761))},
+    fig3_q={"case1_det": (1, 2, 2, 8, 2, 4, 6, 8, 3, 7, 8, 8, 4, 8, 8, 8, 7, 8, 8, 8),
+            "case2_expo": (1, 2, 2, 8, 3, 5, 6, 8, 5, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8),
+            "case3_expo": (1, 2, 3, 8, 3, 6, 8, 8, 5, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8)},
+    appE={"case4_bmin5": (3, 15), "case5_log_energy": (1, 15), "case6_size_dep": (9, 15),
+          "case7_general": (3, 15)},
+    appE_broken={"case4_bmin5": {(0.1, 0.0), (0.1, 0.5), (0.1, 1.0)},
+                 "case5_log_energy": {(0.1, 1.0)},
+                 "case6_size_dep": {(r, w) for r in (0.1, 0.3, 0.5) for w in (0.0, 0.5, 1.0)},
+                 "case7_general": {(0.1, 0.0), (0.3, 0.0), (0.5, 0.0)}},
+    appE_grown={("case7_general", rho, w2): s for rho, s in ((0.7, 150), (0.9, 507))
+                for w2 in (0.0, 0.5, 1.0)},
+    fig8_power_range={0.3: 41.368950795103316, 0.7: 53.10788094077978},
+    fig9_w={0.3: dict(det=4.064510760728661, erlang=4.4220003444521865,
+                      expo=4.855422581879129, hyperexpo=5.820393200737132),
+            0.7: dict(det=6.0861281964682235, erlang=9.244644036779633,
+                      expo=13.168274882315332, hyperexpo=20.53436293792295)},
+    table3=dict(rvi_co0=(38.859947548547915, 406), rvi_co100=(38.85994754854793, 408),
+                avi_schemeI=(38.859947548547915, 400), api_schemeIV=(38.85994754854792, 720)),
+    accel_iters={0.3: dict(none=171, mpi=37, anderson=79),
+                 0.7: dict(none=703, mpi=36, anderson=378),
+                 0.85: dict(none=1474, mpi=22, anderson=889)},
+)
+#: the paper's Table II claim (its abstract): c_o ~ 100 against c_o = 0
+#: saves 63.5% of the space and 98% of the time
+PAPER_CUTS = (0.635, 0.98)
+
+
+def paper_figures_phase(torch, np, kernels, rows):
+    """Phase 4k: every figure of launch/paper_figures.py at its full size with
+    backup="pallas" on the card, counters zeroed just before and read just
+    after; held against the reference's numbers (FIG_REF)."""
+    import collections
+    from unittest import mock
+
+    from repro_torch.core import build_smdp, evaluate_policy, rvi, tradeoff
+    from repro_torch.core import sweep as sw
+    from repro_torch.kernels import bellman
+    from repro_torch.launch import paper_figures as pf
+
+    solve_mod = sys.modules["repro_torch.core.solve"]
+    card = CARD[0]
+    current = [None]  # the figure being run
+    scalar, batched, sweeps = [], [], []
+
+    def delta_of(name, fn):
+        before = kernels.launch_counts()[name]
+        out = fn()
+        return out, kernels.launch_counts()[name] - before
+
+    def count_scalar(fn, via):
+        def wrapped(mdp, *a, **kw):
+            out, n = delta_of("bellman_banded", lambda: fn(mdp, *a, **kw))
+            T = mdp.spec.s_max + 1
+            scalar.append(dict(fig=current[0], via=via, backup=kw.get("backup", "banded"),
+                               shape=(T, mdp.n_actions, T), iterations=out.iterations,
+                               converged=out.converged, launches=n))
+            return out
+        return wrapped
+
+    def count_batched(fn):
+        def wrapped(batch, *a, **kw):
+            out, n = delta_of("bellman_banded_batched", lambda: fn(batch, *a, **kw))
+            batched.append(dict(
+                fig=current[0], backup=kw.get("backup", "banded"), accel=kw.get("accel"),
+                launches=n, shape=(batch.n_specs, batch.specs[0].s_max + 1,
+                                   batch.n_actions,
+                                   rvi.trimmed_band(batch.pmfs_banded, tol=1e-8))))
+            return out
+        return wrapped
+
+    def keep_sweep(fn):
+        def wrapped(specs, *a, **kw):
+            kw.setdefault("report_sink", [])
+            out, n = delta_of("bellman_banded_batched", lambda: fn(specs, *a, **kw))
+            sweeps.append(dict(fig=current[0], specs=list(specs), res=out, launches=n,
+                               report=kw["report_sink"][0], backup=kw.get("backup")))
+            return out
+        return wrapped
+
+    patches = [
+        mock.patch.object(solve_mod, "relative_value_iteration",
+                          count_scalar(solve_mod.relative_value_iteration, "solve")),
+        mock.patch.object(rvi, "relative_value_iteration",
+                          count_scalar(rvi.relative_value_iteration, "rvi")),
+        mock.patch.object(rvi, "relative_value_iteration_batched",
+                          count_batched(rvi.relative_value_iteration_batched)),
+        mock.patch.object(sw, "relative_value_iteration_batched",
+                          count_batched(sw.relative_value_iteration_batched)),
+        mock.patch.object(sw, "sweep_solve", keep_sweep(sw.sweep_solve)),
+        mock.patch.object(tradeoff, "sweep_solve", keep_sweep(tradeoff.sweep_solve)),
+    ]
+    out, walls = {}, {}
+    for p in patches:
+        p.start()
+    try:
+        kernels.reset_launch_counts()
+        t_phase = time.perf_counter()
+        for name, fn in pf.FIGURES.items():
+            current[0] = name
+            t0 = time.perf_counter()
+            out[name] = fn(backup="pallas", device="cuda")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            log(f"paper figure {name} (full size, backup=pallas, {card}): wall "
+                f"{walls[name]:.2f} s; " + " | ".join(pf.rows(name, out[name])))
+        counts = kernels.launch_counts()
+        phase_s = time.perf_counter() - t_phase
+    finally:
+        for p in patches:
+            p.stop()
+
+    # --- launches: one a backup of every kernel solve, one a lockstep step --
+    kern = [c for c in scalar if c["backup"] == "pallas"]
+    want = sum(c["iterations"] + 1 for c in kern)
+    bad = [c for c in kern if c["launches"] != c["iterations"] + 1]
+    check(not bad, f"kernel RVI calls whose launches are not their backups + 1: {bad[:5]}")
+    check(not any(c["launches"] for c in scalar if c["backup"] != "pallas"),
+          "a float64 banded RVI call launched the Bellman kernel")
+    # the only float64 scalar solves are Table III's oracles, one a rho
+    oracle = [c for c in scalar if c["backup"] != "pallas"]
+    check(len(oracle) == len(out["table3_iteration_algos"]["accel"]) and all(
+        c["fig"] == "table3_iteration_algos" and c["via"] == "solve" for c in oracle),
+          f"scalar RVI calls that did not pass backup='pallas' through: "
+          f"{[(c['fig'], c['via'], c['shape']) for c in oracle]}")
+    check(counts["bellman_banded"] == want,
+          f"bellman_banded launched {counts['bellman_banded']} times for {want} backups "
+          f"(+1 a call) of {len(kern)} kernel RVI calls")
+    check(sweeps and all(s["launches"] >= 1 and s["backup"] == "pallas" for s in sweeps),
+          f"sweeps without a batched kernel launch: "
+          f"{[(s['fig'], s['launches']) for s in sweeps if s['launches'] < 1]}")
+    ladder = [c for c in batched if c["fig"] == "table3_iteration_algos"
+              and c["backup"] == "pallas"]
+    check(ladder and all(c["launches"] >= 1 for c in ladder),
+          "Table III's accel ladder: a batched call without a kernel launch")
+    for s in sweeps:
+        rep = s["report"]
+        check(rep.healthy.all() and not rep.any_fired and not rep.quarantined,
+              f"{s['fig']}: guard ladder fired {rep.rungs}, quarantined {rep.quarantined}")
+    by_fig = {name: dict(
+        bellman_banded=sum(c["launches"] for c in kern if c["fig"] == name),
+        rvi_calls=sum(1 for c in kern if c["fig"] == name),
+        bellman_banded_batched=sum(c["launches"] for c in batched if c["fig"] == name),
+        sweeps=sum(1 for s in sweeps if s["fig"] == name)) for name in pf.FIGURES}
+    for name in ("fig3_policies", "appE_structure_breaks", "fig10_abstract_cost",
+                 "table3_iteration_algos"):
+        check(by_fig[name]["rvi_calls"] > 0 and by_fig[name]["bellman_banded"] > 0,
+              f"{name}: no scalar RVI call on the Bellman kernel ({by_fig[name]})")
+    for name in ("fig4_cost", "fig7_ideal_parallel", "fig8_log_energy", "fig9_cov"):
+        check(by_fig[name]["sweeps"] > 0 and by_fig[name]["bellman_banded_batched"] > 0,
+              f"{name}: no sweep on the spec-batched kernel ({by_fig[name]})")
+    check(by_fig["table3_iteration_algos"]["bellman_banded_batched"] > 0,
+          "Table III's accel ladder launched no spec-batched kernel")
+    log(f"paper figures launches: {counts} ({phase_s:.2f} s of wall on {card}); by figure "
+        f"{json.dumps(by_fig)}; {len(kern)} kernel RVI calls, every one launched its "
+        f"backups + 1, {len(sweeps)} sweeps each on the batched kernel, no guard rung fired")
+
+    # --- Fig. 10 / Table II ---------------------------------------------------
+    f10 = out["fig10_abstract_cost"]
+    for c_o, (s_ref, it_ref, g_ref) in FIG_REF["fig10"].items():
+        r = f10["c_o"][c_o]
+        ref_unconv = FIG_REF["fig10_unconverged"].get(c_o, ())
+        unconv = [x for x in r["searched"] if not x["converged"]]
+        if any(x["s_max"] not in ref_unconv or x["s_max"] == r["min_smax"] for x in unconv):
+            raise AssertionError(
+                f"Fig. 10 c_o={c_o:g}: kernel solves stopped unconverged at max_iter where "
+                f"the reference converged, which corrupts the search: {unconv} (the "
+                f"reference's unconverged s_max: {ref_unconv})")
+        check(r["min_smax"] == s_ref,
+              f"Fig. 10 c_o={c_o:g}: min s_max {r['min_smax']} on the kernel, {s_ref} in the "
+              "reference")
+    pins, t0 = {}, time.perf_counter()
+    for c_o in FIG_REF["fig10"]:
+        s_min = f10["c_o"][c_o]["min_smax"]
+        for s in (s_min, s_min - (pf.FIG10_S_GRID[1] - pf.FIG10_S_GRID[0])):
+            mdp = build_smdp(pf.paper_spec(rho=0.9, w2=1.0, s_max=s, c_o=c_o))
+            res = rvi.relative_value_iteration(mdp, eps=1e-2, max_iter=10_000, device="cuda")
+            pins[c_o, s] = (res, evaluate_policy(mdp, res.policy))
+        (r0, e0), (r1, e1) = pins[c_o, s_min], pins[c_o, s_min - 8]
+        check(e0.delta < pf.FIG10_DELTA and r0.converged,
+              f"Fig. 10 c_o={c_o:g}: s_min {s_min} is not acceptable on the f64 banded path "
+              f"(delta {e0.delta}, converged {r0.converged})")
+        check(not e1.delta < pf.FIG10_DELTA,
+              f"Fig. 10 c_o={c_o:g}: s_min - 8 = {s_min - 8} is acceptable on the f64 path")
+    pin_s = time.perf_counter() - t0
+
+    def cuts(s0, i0, s1, i1):  # c_o = 0 -> c_o = 100, the benchmark's formulas
+        space = 1 - ((s1 + 1) * (pf.BMAX + 1) * 2) / ((s0 + 1) * (pf.BMAX + 1) * 2)
+        return space, 1 - (i1 * (pf.BMAX + 1) * s1 ** 2) / (i0 * (pf.BMAX + 1) * s0 ** 2)
+
+    s0, s1 = f10["c_o"][0.0]["min_smax"], f10["c_o"][100.0]["min_smax"]
+    kern_cuts = (f10["reduction"]["space_saved"], f10["reduction"]["time_saved"])
+    f64_cuts = cuts(s0, pins[0.0, s0][0].iterations, s1, pins[100.0, s1][0].iterations)
+    check(all(abs(a - b) <= 1e-12 for a, b in zip(f64_cuts, FIG_REF["fig10_cuts"])),
+          f"Table II: the f64 banded cuts {f64_cuts} vs the reference's {FIG_REF['fig10_cuts']}")
+    log(f"Fig. 10 / Table II at rho 0.9, w2 1, Delta < 1e-3 (kernel search, then s_min and "
+        f"s_min - 8 re-solved on the f64 banded path, {pin_s:.2f} s): " + "; ".join(
+            f"c_o {c_o:g}: min s_max {f10['c_o'][c_o]['min_smax']} (reference {s_ref}), "
+            f"iterations kernel {f10['c_o'][c_o]['iterations']} / f64 "
+            f"{pins[c_o, f10['c_o'][c_o]['min_smax']][0].iterations} / reference {it_ref}, "
+            f"g {f10['c_o'][c_o]['g']:.6f} (reference {g_ref:.6f}), f64 delta at s_min "
+            f"{pins[c_o, f10['c_o'][c_o]['min_smax']][1].delta:.3e} and at s_min - 8 "
+            f"{pins[c_o, f10['c_o'][c_o]['min_smax'] - 8][1].delta:.3e}"
+            for c_o, (s_ref, it_ref, g_ref) in FIG_REF["fig10"].items()))
+    log(f"Table II cuts, c_o 100 against c_o 0 (s_max {s0} -> {s1}): space / time saved "
+        f"from the kernel path's iterations {kern_cuts[0]:.4%} / {kern_cuts[1]:.4%}; from "
+        f"the f64 banded path's {f64_cuts[0]:.4%} / {f64_cuts[1]:.4%} (equal to the "
+        f"reference's {FIG_REF['fig10_cuts'][0]:.4%} / {FIG_REF['fig10_cuts'][1]:.4%}); the "
+        f"paper's {PAPER_CUTS[0]:.1%} / {PAPER_CUTS[1]:.0%}")
+    one = pf.paper_spec(rho=0.9, w2=1.0, s_max=s1, c_o=100.0)
+    mdp = build_smdp(one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rvi.relative_value_iteration(mdp, backup="pallas", device="cuda")
+    wall = time.perf_counter() - t0
+    busy_ms, n_k, by_name = profile_busy(
+        torch, lambda: rvi.relative_value_iteration(mdp, backup="pallas", device="cuda"))
+    if busy_ms is None:
+        log("profile Fig. 10 solve: the profiler recorded no device time (not measured)")
+        fig10_busy = None
+    else:
+        fig10_busy = busy_ms / 1e3 / wall
+        log(f"profile Fig. 10 solve (c_o 100, s_max {s1}, {res.iterations + 1} backups, "
+            f"{card}): unprofiled wall {wall:.3f} s = {1e3 * wall / (res.iterations + 1):.4f} "
+            f"ms a backup; device busy {busy_ms:.3f} ms in {n_k} kernels, busy share "
+            f"{fig10_busy:.4f}")
+        for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            log(f"  {ms:9.3f} ms  {cnt:6d} calls  {key[:80]}")
+
+    # --- Fig. 3 and App. E --------------------------------------------------
+    f3 = out["fig3_policies"]
+    got = (f3["control_limit"], f3["total"], f3["prop4_match"], f3["prop4_applicable"])
+    check(got == FIG_REF["fig3"], f"Fig. 3: {got} vs the reference's {FIG_REF['fig3']}")
+    grown = {(r["case"], r["rho"], r["w2"]): r["s_max"] for r in f3["specs"]}
+    moved = {k: (v, FIG_REF["fig3_grown"].get(k, 100)) for k, v in grown.items()
+             if v != FIG_REF["fig3_grown"].get(k, 100)}
+    check(not moved, f"Fig. 3: final s_max (kernel, reference) differ: {moved}")
+    q_got = {case: tuple(r["q"] for r in f3["specs"] if r["case"] == case)
+             for case in FIG_REF["fig3_q"]}
+    check(q_got == FIG_REF["fig3_q"],
+          f"Fig. 3: thresholds q per spec {q_got} vs the reference's {FIG_REF['fig3_q']}")
+    log(f"Fig. 3: {f3['control_limit']}/{f3['total']} control-limit, {f3['prop4_match']}/"
+        f"{f3['prop4_applicable']} Q equal to Prop. 4's closed form (the reference's "
+        f"{FIG_REF['fig3']}); final s_max and q per (case, rho, w2): " + ", ".join(
+            f"{r['case'][:5]} {r['rho']} {r['w2']:g}: {r['s_max']} q={r['q']}"
+            for r in f3["specs"])
+        + "; every spec's final s_max and q equal to the reference's")
+    e = out["appE_structure_breaks"]
+    held = []
+    for case, want in FIG_REF["appE"].items():
+        check((e[case]["non_control_limit"], e[case]["total"]) == want,
+              f"App. E {case}: {e[case]['non_control_limit']}/{e[case]['total']} vs "
+              f"the reference's {want}")
+        broken = {(r["rho"], r["w2"]) for r in e[case]["specs"] if not r["control_limit"]}
+        moved = [(r["rho"], r["w2"], r["s_max"]) for r in e[case]["specs"]
+                 if r["s_max"] != FIG_REF["appE_grown"].get((case, r["rho"], r["w2"]), 100)]
+        check(broken == FIG_REF["appE_broken"][case] and not moved,
+              f"App. E {case}: breaking (rho, w2) {sorted(broken)} vs the reference's "
+              f"{sorted(FIG_REF['appE_broken'][case])}; final s_max off the reference's: "
+              f"{moved}")
+        for r in e[case]["specs"]:
+            if r["control_limit"]:
+                continue
+            f64 = rvi.relative_value_iteration(build_smdp(r["spec"]), device="cuda")
+            check(np.array_equal(f64.policy, r["policy"]),
+                  f"App. E {case} rho={r['rho']} w2={r['w2']}: the kernel's policy vs one f64 "
+                  f"banded RVI at s_max {r['s_max']}")
+            held.append((case, r["rho"], r["w2"], r["s_max"]))
+    log("App. E: non-control-limit " + ", ".join(
+        f"{c} {e[c]['non_control_limit']}/{e[c]['total']}" for c in e)
+        + f" (equal to the reference's, and so are each case's set of breaking (rho, w2) "
+        f"and every spec's final s_max); the kernel's policy equal to one f64 banded RVI "
+        f"on the card at the final truncation for every breaking spec (case, rho, w2, "
+        f"s_max): {held}")
+
+    # --- Figs. 4, 7, 8, 9: every spec against the scalar f64 solve() ----------
+    oracles, ties = ORACLES, []
+    n_before = len(oracles)
+    t0 = time.perf_counter()
+    n_held = 0
+    for sweep in sweeps:
+        for sp, r in zip(sweep["specs"], sweep["res"]):
+            hold_to_oracle(torch, np, f"{sweep['fig']} rho={sp.rho:.2f} w2={sp.w2} "
+                           f"{sp.service.family}", sp, r, oracles, ties)
+            n_held += 1
+    check(len(ties) <= MAX_TIES, f"{len(ties)} near-tie states against the oracle: {ties}")
+    f4, f7, f8, f9 = (out[n] for n in ("fig4_cost", "fig7_ideal_parallel",
+                                       "fig8_log_energy", "fig9_cov"))
+    check(all(r["smdp_always_best"] for r in f4.values()), "Fig. 4: SMDP beaten")
+    check(all(r["dominated"] == 0 for r in list(f7.values()) + list(f8.values())),
+          "Figs. 7-8: an SMDP point is dominated")
+    for rho, want in FIG_REF["fig8_power_range"].items():
+        check(abs(f8[rho]["power_range"] - want) <= 1e-6 * want,
+              f"Fig. 8 rho={rho}: power range {f8[rho]['power_range']} vs {want}")
+    for rho, want in FIG_REF["fig9_w"].items():
+        check(f9[rho]["monotone"], f"Fig. 9 rho={rho}: W not monotone in CoV")
+        for fam, w in want.items():
+            check(abs(f9[rho]["w"][fam] - w) <= 1e-6 * w,
+                  f"Fig. 9 rho={rho} {fam}: W {f9[rho]['w'][fam]} vs {w}")
+    log(f"Figs. 4, 7, 8, 9: {n_held} sweep specs against the scalar f64 solve() on the card "
+        f"({len(oracles) - n_before} solved here, the rest the sweep phase's, "
+        f"{time.perf_counter() - t0:.2f} s): s_max equal, g / W / "
+        f"P within rtol 1e-9, policies equal except {len(ties)} certified near-tie state(s) "
+        f"{ties}; Fig. 4 smdp_always_best at rho {list(f4)}; dominated 0 in Figs. 7-8; Fig. 8 "
+        f"power range " + ", ".join(
+            f"rho {rho}: {f8[rho]['power_range']:.6f} W (reference {w:.6f})"
+            for rho, w in FIG_REF["fig8_power_range"].items())
+        + "; Fig. 9 W monotone in CoV, " + "; ".join(
+            f"rho {rho}: " + ", ".join(f"{fam} {f9[rho]['w'][fam]:.6f} ({w:.6f})"
+                                       for fam, w in want.items())
+            for rho, want in FIG_REF["fig9_w"].items())
+        + " ms (kernel, reference; rtol 1e-6); regrown s_max "
+        + str({rho: f9[rho]["s_max"] for rho in f9}))
+
+    # --- Table III ------------------------------------------------------------
+    t3 = out["table3_iteration_algos"]
+    for name, r in t3["baselines"].items():
+        g_ref = FIG_REF["table3"][name][0]
+        check(f"{r['g']:.4f}" == f"{g_ref:.4f}",
+              f"Table III {name}: g {r['g']} vs the reference's {g_ref}")
+    for rho, modes in t3["accel"].items():
+        for mode in pf.ACCEL_MODES:
+            check(modes[mode]["policy_match"], f"Table III rho={rho} {mode}: policy vs oracle")
+    log("Table III baselines (g on the c_o = 0 chain, iterations; the reference's in "
+        "brackets): " + ", ".join(
+            f"{n} g={r['g']:.4f} ({FIG_REF['table3'][n][0]:.4f}) iters={r['iterations']} "
+            f"({FIG_REF['table3'][n][1]}) wall={r['wall_s']:.2f} s"
+            for n, r in t3["baselines"].items())
+        + f"; accel ladder ({card}; iterations kernel (reference), g_gap, policy_match): "
+        + "; ".join(f"rho {rho} " + ", ".join(
+            f"{m} {modes[m]['iterations']} ({FIG_REF['accel_iters'][rho][m]}) "
+            f"{modes[m]['g_gap_vs_oracle']:.2e} {modes[m]['policy_match']}"
+            for m in pf.ACCEL_MODES) for rho, modes in t3["accel"].items()))
+
+    # --- the Bellman kernels at the phase's shapes ----------------------------
+    by_shape = collections.Counter()
+    for c in kern:
+        by_shape[c["shape"]] += c["launches"]
+    a9 = max((sh for sh in by_shape if sh[1] == pf.STRUCTURE_B + 1), key=by_shape.get)
+    shapes = [a9, (s0 + 1, pf.BMAX + 1, s0 + 1)]
+    rng = np.random.default_rng(11)
+    err = 0.0
+    for T, A, K in shapes:
+        args = bellman_inputs(torch, np, rng, T, A, K)
+        got_g = bellman.bellman_banded(*args)
+        want_g = bellman.bellman_banded_ref(*args)
+        torch.cuda.synchronize()
+        e_ = (got_g - want_g).abs().max().item()
+        check(torch.allclose(got_g, want_g, atol=1e-4, rtol=1e-5),
+              f"bellman_banded {T, A, K}: max abs err {e_}")
+        err = max(err, e_)
+    shape_rows = [dict(bellman_row(torch, np, rng, *sh, reps=200), launches=by_shape[sh])
+                  for sh in shapes]
+    b_shapes = sorted({c["shape"] for c in batched if c["backup"] == "pallas"})
+    err_b = max(batched_check(torch, np, rng, *sh) for sh in b_shapes)
+    rows["bellman_banded"]["paper_figures"] = dict(
+        launches=counts["bellman_banded"], rvi_calls=len(kern), max_abs_err=err,
+        shapes=shape_rows, launches_by_shape={"x".join(map(str, sh)): n
+                                              for sh, n in by_shape.most_common()},
+        fig10_busy_share=fig10_busy, wall_s=phase_s)
+    rows["bellman_banded_batched"]["paper_figures"] = dict(
+        launches=counts["bellman_banded_batched"], sweeps=len(sweeps),
+        ladder_calls=len(ladder), max_abs_err=err_b,
+        shapes_checked=[list(sh) for sh in b_shapes])
+    rows["bellman_banded"]["max_abs_err"] = max(rows["bellman_banded"]["max_abs_err"], err)
+    rows["bellman_banded_batched"]["max_abs_err"] = max(
+        rows["bellman_banded_batched"]["max_abs_err"], err_b)
+    by_fig_s = json.dumps({k: round(v, 3) for k, v in walls.items()})
+    log(f"paper figures phase: wall by figure {by_fig_s} s on {card}; bellman_banded at the phase's most-launched A = 9 shape {a9} "
+        f"({by_shape[a9]} launches) and at Fig. 10's {shapes[1]} held against its plain "
+        f"version (max abs err {err:.3e}); bellman_banded_batched at its {len(b_shapes)} "
+        f"shapes (max abs err {err_b:.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -2118,6 +2571,66 @@ def _fleet_summary(np, out, i, hq):
     return w, p95, power, mb
 
 
+#: belief-mode streams against one-shot: tests/test_torch_faults.py's case
+#: (M = 3, jsq, faults, room 24, slo 2.0) on a longer MMPP2 trace
+BELIEF_STREAM = dict(n=20_000, chunk=997)
+
+
+def belief_stream_one_shot(np):
+    """A chunked FleetStream in each belief mode against simulate_fleet with
+    the beliefs of one belief_forward call, on the card: every aggregate
+    equal, energy and lat_sum at rtol 1e-12 (the reference's bar for a
+    chunked stream against its one-shot run).  The chunked belief rows
+    agree with the one-shot call's only to rounding (the belief kernel's
+    time-parallel passes), so this is what shows no decision splits."""
+    from repro_torch.core import GOOGLENET_P4_ENERGY, GOOGLENET_P4_LATENCY, ServiceModel
+    from repro_torch.core.policies import q_policy
+    from repro_torch.serving import FaultModel, FleetStream, PhaseBeliefFilter, simulate_fleet
+    from repro_torch.serving.arrivals import MMPP2, belief_forward
+
+    bm = 16
+    svc = ServiceModel(latency=GOOGLENET_P4_LATENCY, family="det")
+    means = np.array([0.0] + [float(svc.mean(b)) for b in range(1, bm + 1)])
+    zeta = np.array([0.0] + [float(GOOGLENET_P4_ENERGY(b)) for b in range(1, bm + 1)])
+    lam = 3 * 0.7 * bm / float(svc.mean(bm))
+    m = MMPP2(lam1=0.3 * lam, lam2=1.3 * lam, dwell1=60.0, dwell2=30.0)
+    tr, _ = m.sample_arrivals(BELIEF_STREAM["n"] / m.mean_rate, np.random.default_rng(0))
+    sch = FaultModel(mtbf=40.0, mttr=6.0, p_straggle=0.1, straggle_mult=3.0).materialize(
+        3, float(tr[-1]) + 50.0, seed=1)
+    lo, hi = q_policy(4, 96, bm), q_policy(10, 96, bm)
+    stacks = np.stack([np.stack([lo, hi]), np.stack([hi, lo]), np.stack([lo, lo])])
+    kw = dict(router="jsq", means=means, zeta=zeta, b_max=bm, slo=2.0, buffer=24,
+              faults=sch, device="cuda")
+
+    def filt():
+        return PhaseBeliefFilter(rates=[0.3 * lam, 1.3 * lam],
+                                 gen=[[-1 / 60, 1 / 60], [1 / 30, -1 / 30]])
+
+    ch = BELIEF_STREAM["chunk"]
+    for mode in ("belief_argmax", "belief_mix"):
+        st = FleetStream(stacks, phase_mode=mode, belief_filter=filt(), **kw)
+        for lo_ in range(0, len(tr), ch):
+            st.push(tr[lo_:lo_ + ch])
+        got = st.finish()
+        bel, _ = belief_forward(tr, filt(), device="cuda")
+        one = simulate_fleet(stacks, tr, phase_mode=mode, beliefs=bel.cpu().numpy(), **kw)
+        for f in ("n_served", "n_batches", "n_epochs", "slo_miss", "n_crashes", "n_dropped",
+                  "n_shed", "t_final"):
+            check(getattr(got, f) == getattr(one, f),
+                  f"FleetStream {mode} vs one-shot: {f} {getattr(got, f)} vs {getattr(one, f)}")
+        for f in ("hist", "qlen"):
+            check(np.array_equal(getattr(got, f), getattr(one, f)),
+                  f"FleetStream {mode} vs one-shot: {f} differs")
+        e_lat = abs(got.lat_sum - one.lat_sum) / one.lat_sum
+        e_en = abs(got.energy - one.energy) / one.energy
+        check(e_lat <= 1e-12 and e_en <= 1e-12,
+              f"FleetStream {mode} vs one-shot: lat_sum {e_lat}, energy {e_en}")
+        log(f"FleetStream {mode} ({len(tr)} MMPP2 arrivals in chunks of {ch}, M=3, jsq, "
+            f"faults, room 24) == simulate_fleet with one belief_forward call's beliefs on "
+            f"the card, every aggregate (n_epochs {got.n_epochs}, n_crashes {got.n_crashes}, "
+            f"n_shed {got.n_shed}; lat_sum rel err {e_lat:.3e}, energy {e_en:.3e})")
+
+
 def fleet_phase(torch, np, kernels, rows):
     """The routed fleet and degraded mode (fleet_frontier.py, serve_fleet.py,
     degraded_frontier.py), counters zeroed just before and read just after."""
@@ -2388,6 +2901,7 @@ def fleet_phase(torch, np, kernels, rows):
     check(counts.get("fleet_scan:mix", 0) == 2, "the mix lane did not launch twice")
     check(counts.get("fleet_scan:plain", 0) > 0, "no one-lane fleet launch")
     check(counts.get("belief_forward", 0) == 1, "the posterior skipped the belief kernel")
+    belief_stream_one_shot(np)  # after the phase's launch counts: it launches many chunks
 
     # --- the kernel rows: the instances on the inputs of the path ----------
     tr = dtrace("mmpp2", lam_m, DEGRADED_N, 200)
@@ -3372,14 +3886,15 @@ def llm_path(torch, np, kernels, rows):
     from repro_torch.launch import serve_llm
     from repro_torch.models import model as M
 
-    cfg = ARCHS[LLM_ARCH]
+    cfg = dataclasses.replace(ARCHS[LLM_ARCH], n_layers=LLM_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            torch.bfloat16, "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"{LLM_ARCH} (published config: d={cfg.d_model} L={cfg.n_layers} "
+    log(f"{LLM_ARCH} (published width, {cfg.n_layers} of its "
+        f"{ARCHS[LLM_ARCH].n_layers} layers: d={cfg.d_model} L={cfg.n_layers} "
         f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
         f"V={cfg.vocab_size}) bf16 random weights: {n_params / 1e9:.3f} B parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init {time.perf_counter() - t0:.2f} s")
@@ -3456,6 +3971,9 @@ SSD_HEADS = [(64, 64, 64), (8, 16, 16)]  # Zamba2's (H, P, N) and the reduced co
 SSD_EARLIER_MS = {(128, "bfloat16"): 0.512904, (1, "bfloat16"): 0.014864,
                   (128, "float32"): 0.520782, (1, "float32"): 0.014720}
 HYBRID_DEPTH = 7  # six Mamba2 layers, the shared block, one more layer
+#: the hybrid's serving depth: Zamba2-1.2B at its published width with 19 of
+#: its 38 layers (the shared block 3 times; a cut for the time limit)
+HYBRID_SERVE_LAYERS = 19
 
 
 def _ssd_inputs(torch, np, rng, B, S, H, P, N, dtype, zero_state):
@@ -3709,13 +4227,13 @@ def hybrid_model_checks(torch, np):
 
 
 def hybrid_path(torch, np, kernels, rows):
-    """Zamba2-1.2B at its published config (38 layers, bf16) through
-    serve_llm.run_pipeline, launch counts exact."""
+    """Zamba2-1.2B at its published width, HYBRID_SERVE_LAYERS of its 38
+    layers (bf16), through serve_llm.run_pipeline, launch counts exact."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve_llm
     from repro_torch.models import model as M
 
-    cfg = ARCHS[HYBRID_ARCH]
+    cfg = dataclasses.replace(ARCHS[HYBRID_ARCH], n_layers=HYBRID_SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -3723,7 +4241,8 @@ def hybrid_path(torch, np, kernels, rows):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     n_occ = M.n_shared_occurrences(cfg)
-    log(f"{HYBRID_ARCH} (published config: d={cfg.d_model} L={cfg.n_layers} Mamba2 "
+    log(f"{HYBRID_ARCH} (published width, {cfg.n_layers} of its "
+        f"{ARCHS[HYBRID_ARCH].n_layers} layers: d={cfg.d_model} L={cfg.n_layers} Mamba2 "
         f"(d_inner {cfg.d_inner_ssm} = {cfg.n_ssm_heads} heads x {cfg.ssm_head_dim}, state "
         f"{cfg.ssm_state}, conv {cfg.ssm_conv}), shared attention + MLP every "
         f"{cfg.shared_attn_every} layers ({n_occ} occurrences, H={cfg.n_heads}/"
@@ -3815,7 +4334,11 @@ BWD_EDGE_G, BWD_EDGE_D, BWD_EDGE_CAP = (1, 2, 5, 8), (64, 128), (None, 30.0)
 #: measured in this run): an earlier run of this script on an NVIDIA H100
 #: 80GB HBM3 at 700.00 W, as PERF.md records it
 BWD_EARLIER_MS = {BWD_PATH: 0.194490, BWD_OTHER[0]: 1.474691, BWD_OTHER[1]: 0.471499}
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_HALF = 300, 60, 150
+#: the resume drill resumes the run's own step-TRAIN_RESUME checkpoint (a copy
+#: of its directory without the later steps) and trains on to TRAIN_STEPS
+#: (150 of the example's 300 steps, a cut for the time limit; a save every
+#: 30 steps, the example's steps / 5)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME = 150, 30, 120
 TRAIN_PARITY = dict(layers=2, batch=2)  # full width, cut depth and batch (CPU side)
 TRAIN_PROFILE_STEPS = 3
 
@@ -4048,15 +4571,20 @@ def train_run(torch, np, kernels, rows, workdir):
             log(f"  {msg}")
     del lines[:]
 
-    # --- the resume drill: 150 steps, a fresh Trainer on the same directory --
+    # --- the resume drill: a fresh Trainer on the run's step-120 checkpoint --
     t0 = time.perf_counter()
-    trainer(TRAIN_HALF, "b").run(seed=0)
+    src, dst = os.path.join(workdir, "a"), os.path.join(workdir, "b")
+    later = [d for d in os.listdir(src) if d.startswith("step_") and not d.endswith(".tmp")
+             and int(d[5:]) > TRAIN_RESUME]
+    check(f"step_{TRAIN_RESUME:010d}" in os.listdir(src),
+          f"the run kept no step-{TRAIN_RESUME} checkpoint: {sorted(os.listdir(src))}")
+    shutil.copytree(src, dst, ignore=lambda _, names: [n for n in names if n in later])
     t_res = trainer(TRAIN_STEPS, "b")
     p_b, opt_b, losses_b = t_res.run(seed=0)
     torch.cuda.synchronize()
-    check(len(losses_b) == TRAIN_STEPS - TRAIN_HALF and int(opt_b["step"]) == TRAIN_STEPS,
+    check(len(losses_b) == TRAIN_STEPS - TRAIN_RESUME and int(opt_b["step"]) == TRAIN_STEPS,
           "the resumed run did not start at the checkpoint")
-    a, b = np.asarray(losses_a[TRAIN_HALF:]), np.asarray(losses_b)
+    a, b = np.asarray(losses_a[TRAIN_RESUME:]), np.asarray(losses_b)
     loss_rel = float(np.max(np.abs(a - b) / np.abs(a)))
     check(np.allclose(b, a, rtol=1e-6, atol=0), f"resumed losses differ: {loss_rel}")
     p_err, bitwise = 0.0, True
@@ -4065,9 +4593,10 @@ def train_run(torch, np, kernels, rows, workdir):
         bitwise &= bool(torch.equal(x, y))
     check(p_err <= 1e-6, f"resumed parameters differ by {p_err}")
     check(any("resumed from step" in m for m in lines), "the second Trainer did not resume")
-    log(f"resume drill: {TRAIN_HALF} steps, a fresh Trainer on the same directory resumed "
-        f"to {TRAIN_STEPS}: losses max rel diff {loss_rel:.3e} (bar 1e-6), parameters "
-        f"max abs diff {p_err:.3e} (bar 1e-6), bitwise equal {bitwise} "
+    log(f"resume drill: a fresh Trainer on a copy of the run's directory cut back to its "
+        f"step-{TRAIN_RESUME} checkpoint, resumed to {TRAIN_STEPS}: losses max rel diff "
+        f"{loss_rel:.3e} (bar 1e-6), parameters max abs diff {p_err:.3e} (bar 1e-6), "
+        f"bitwise equal {bitwise} "
         f"({time.perf_counter() - t0:.2f} s)")
 
     # --- where a step's time goes (after the comparisons) --------------------
@@ -4134,9 +4663,19 @@ def train_phase(torch, np, kernels, rows):
     log(f"phase 4j (training): {time.perf_counter() - t0:.2f} s")
 
 
+PHASE_WALLS = {}
+
+
+def mark(name, t0):
+    """Keep and log the wall time of the phase that started at ``t0``."""
+    PHASE_WALLS[name] = time.perf_counter() - t0
+    log(f"phase {name}: wall {PHASE_WALLS[name]:.2f} s on {CARD[0]}")
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4154,6 +4693,8 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mark("0 start-up", t_start)
+    t0 = time.perf_counter()
     empty = start_empty_build()
     build_s = _build.build_all()
     EMPTY_LAUNCH.append(finish_empty_build(empty))
@@ -4166,8 +4707,11 @@ def main():
         SASS[name] = sass_counts(name)
         for fn, n in sorted(SASS[name].items()):
             log(f"  {name}: {n} SASS instructions in {fn}")
+    mark("1 build", t0)
 
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, np)
+    mark("2 kernels", t0)
 
     # --- the main path, counters zeroed just before and read just after ---
     from repro_torch.core import GOOGLENET_P4_ENERGY
@@ -4177,6 +4721,7 @@ def main():
     spec = table1_spec(RHO)
     from repro_torch.core import solve
 
+    t_main = time.perf_counter()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = solve(spec, backup="pallas", device="cuda")
@@ -4210,8 +4755,10 @@ def main():
     check(abs(rep.power - res.eval.p_bar) < 0.05 * res.eval.p_bar,
           "served power far from the analytic P")
     serve_scan_row(torch, np, res.action_table(), energy, rows["serve_scan"])
+    mark("3 main path", t_main)
 
     # --- checks beside the main path ---------------------------------------
+    t_checks = time.perf_counter()
     warm, _ = solve_checked(np, kernels, RHO)
     profile_solve(torch, spec, warm.rvi.wall_time_s)
     solve_checked(np, kernels, 0.9)
@@ -4226,38 +4773,68 @@ def main():
     log(f"verify_backends ({out['n_decisions']} batches, Poisson trace, {N_EPOCHS} epochs): "
         f"python loop == event kernel, max latency err {out['max_latency_err']:.3e} "
         f"wall_s={time.perf_counter() - t0:.2f}")
+    mark("4 checks beside the main path", t_checks)
 
     # --- the sweep path: batched solves on the spec-batched kernel, a bank --
+    t0 = time.perf_counter()
     sweep_phase(torch, np, kernels, rows, res, energy)
+    mark("4b sweep", t0)
+    t0 = time.perf_counter()
     poisoned_grid_phase(np, kernels, rows)
+    mark("4c poisoned grid", t0)
+
+    # --- the paper's figures and tables at full size (4k) --------------------
+    t0 = time.perf_counter()
+    paper_figures_phase(torch, np, kernels, rows)
+    mark("4k paper figures", t0)
 
     # --- single-server serving: overload shedding, the adaptive bank --------
+    t0 = time.perf_counter()
     shedding_phase(torch, np, kernels, rows)
+    mark("4d shedding", t0)
+    t0 = time.perf_counter()
     adaptive_phase(torch, np, kernels, rows)
+    mark("4e adaptive", t0)
 
     # --- MMPP-aware serving: exact solve, belief kernel, belief lanes -------
+    t0 = time.perf_counter()
     mmpp_phase(torch, np, kernels, rows, res, energy)
     main_mix = mix_at_main_shape(torch, np, res.action_table(), energy)
     rows["serve_scan_mix"]["main_path_shape"] = dict(
         ms=main_mix["ms"], plain_ms=main_mix["plain_ms"], bound_ms=main_mix["bound_ms"],
         shape=main_mix["shape"], plain_lane_ms=rows["serve_scan"]["ms"])
+    mark("4f MMPP-aware serving", t0)
 
     # --- the routed fleet and degraded mode: the fleet kernel ---------------
+    t0 = time.perf_counter()
     fleet_phase(torch, np, kernels, rows)
+    mark("4g fleet", t0)
 
     # --- durable sweeps and streams, the samplers, the simulator (4h) --------
+    t0 = time.perf_counter()
     durable_phase(torch, np, kernels, rows)
+    mark("4h durability, samplers, simulator", t0)
 
     # --- the attention kernels, the model checks and the LLM serving path ---
+    t0 = time.perf_counter()
     attention_phase(torch, np, rows)
+    mark("5 attention", t0)
+    t0 = time.perf_counter()
     model_checks(torch, np)
+    mark("6 model checks", t0)
+    t0 = time.perf_counter()
     llm_path(torch, np, kernels, rows)
+    mark("7 LLM serving path", t0)
 
     # --- the Mamba2 hybrid (Zamba2-1.2B): SSD kernel, attention at D = 64 (4i)
+    t0 = time.perf_counter()
     hybrid_phase(torch, np, kernels, rows)
+    mark("4i hybrid", t0)
 
     # --- training: the backward kernel, qwen2.5-100m --full, the resume (4j)
+    t0 = time.perf_counter()
     train_phase(torch, np, kernels, rows)
+    mark("4j training", t0)
 
     order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
              "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",
@@ -4281,6 +4858,9 @@ def main():
             earlier_ms=EARLIER_MS, now_ms={name: rows[name]["ms"] for name in EARLIER_MS},
             floor_ms={name: rows[name].get("chain_ms", rows[name].get("floor_ms"))
                       for name in EARLIER_MS})))
+    walls = json.dumps({k: round(v, 2) for k, v in PHASE_WALLS.items()})
+    log(f"phase walls (s, {card}): {walls}; sum {sum(PHASE_WALLS.values()):.2f} of "
+        f"{time.perf_counter() - t_start:.2f} s since the script started")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernel_list}))
     print(json.dumps({"ok": True, "device": {

@@ -84,6 +84,7 @@ def average_cost_grid(
     eps: float = 1e-2,
     delta: float = 1e-3,
     *,
+    backup: str = "banded",
     device: DeviceLike = None,
 ) -> Dict[str, List[float]]:
     """Paper Fig. 4: average cost per unit time of each policy vs w2.
@@ -91,7 +92,8 @@ def average_cost_grid(
     Benchmark policies are weight-independent; their *cost* depends on the
     weights through the objective.  g(policy) = w1 * W_bar_term + w2 * P_bar
     where W_bar_term re-uses the evaluator's decomposition.  The SMDP column
-    solves the entire w2 grid in one batched call.
+    solves the entire w2 grid in one batched call; ``backup`` ("banded" |
+    "pallas") is forwarded to sweep_solve.
     """
     mdp = build_smdp(base)
     bench: Dict[str, Tuple[float, float]] = {}
@@ -107,7 +109,7 @@ def average_cost_grid(
             bench[f"static_{b}"] = (float("inf"), float("inf"))
 
     specs = [dataclasses.replace(base, w2=float(w2)) for w2 in w2_values]
-    results = sweep_solve(specs, eps=eps, delta=delta, device=device)
+    results = sweep_solve(specs, eps=eps, delta=delta, backup=backup, device=device)
 
     out: Dict[str, List[float]] = {k: [] for k in bench}
     out["smdp"] = []

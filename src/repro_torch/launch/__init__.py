@@ -1,2 +1,3 @@
-"""Entry points of the port (counterpart of repro.launch and examples/):
-``serve_llm`` and ``tradeoff_sweep``."""
+"""Entry points of the port (counterpart of repro.launch, examples/ and the
+paper's benchmarks): ``serve_llm``, ``tradeoff_sweep``, ``resume_sweep``,
+``train`` and ``paper_figures``."""

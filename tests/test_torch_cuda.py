@@ -1124,6 +1124,41 @@ def test_fleet_kernel_chunk_carry(cuda, phase_mode):
         np.testing.assert_array_equal(got.hist, one.hist)
 
 
+@pytest.mark.parametrize("mode", ["belief_argmax", "belief_mix"])
+def test_fleet_stream_belief_matches_one_shot(cuda, mode):
+    """tests/test_torch_faults.py's chunked belief stream on the card: the
+    rows of each chunk's belief_forward call agree with one call over the
+    whole trace only to rounding, and every aggregate still equals the
+    one-shot run's (energy and lat_sum at rtol 1e-12, the reference's bar)."""
+    lam = 3 * FLEET_LAM
+    m = pa.MMPP2(lam1=0.3 * lam, lam2=1.3 * lam, dwell1=60.0, dwell2=30.0)
+    tr, _ = m.sample_arrivals(1000 / m.mean_rate, np.random.default_rng(0))
+    sch = pfa.FaultModel(**FLEET_FAULTS).materialize(3, float(tr[-1]) + 50.0, seed=1)
+    lo, hi = q_policy(4, 96, FLEET_BMAX), q_policy(10, 96, FLEET_BMAX)
+    stacks = np.stack([np.stack([lo, hi]), np.stack([hi, lo]), np.stack([lo, lo])])
+    kw = dict(router="jsq", means=FLEET_MEANS, zeta=FLEET_ZETA, b_max=FLEET_BMAX, slo=2.0,
+              buffer=24, faults=sch, device="cuda")
+
+    def filt():
+        return pa.PhaseBeliefFilter(rates=[0.3 * lam, 1.3 * lam],
+                                    gen=[[-1 / 60, 1 / 60], [1 / 30, -1 / 30]])
+
+    st = pf.FleetStream(stacks, phase_mode=mode, belief_filter=filt(), **kw)
+    for i in range(0, len(tr), 97):
+        st.push(tr[i:i + 97])
+    got = st.finish()
+    bel, _ = pa.belief_forward(tr, filt(), device="cuda")
+    one = pf.simulate_fleet(stacks, tr, phase_mode=mode, beliefs=bel.cpu().numpy(), **kw)
+    for f in ("n_served", "n_batches", "n_epochs", "slo_miss", "n_crashes", "n_dropped",
+              "n_shed", "t_final"):
+        assert getattr(got, f) == getattr(one, f), (f, getattr(got, f), getattr(one, f))
+    np.testing.assert_allclose(got.energy, one.energy, rtol=1e-12)
+    np.testing.assert_allclose(got.lat_sum, one.lat_sum, rtol=1e-12)
+    np.testing.assert_array_equal(got.hist, one.hist)
+    np.testing.assert_array_equal(got.qlen, one.qlen)
+    assert got.n_crashes > 0
+
+
 @pytest.mark.parametrize("phase_mode", ["oracle", "belief_mix"])
 def test_fleet_kernel_grid(cuda, phase_mode):
     traces = [_fleet_trace(4, n=1500, seed=s) for s in range(3)]

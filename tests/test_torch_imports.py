@@ -37,7 +37,7 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve_llm, repro_torch.serving.kv_cache\n"
         "import repro_torch.core.sweep, repro_torch.core.tradeoff\n"
-        "import repro_torch.launch.tradeoff_sweep\n"
+        "import repro_torch.launch.tradeoff_sweep, repro_torch.launch.paper_figures\n"
         "import repro_torch.serving.fleet, repro_torch.serving.faults\n"
         "import repro_torch.kernels.fleet_scan\n"
         "import repro_torch.checkpoint, repro_torch.core.simulate\n"
@@ -84,7 +84,7 @@ def _entry_points():
         solve_modulated, sweep_bank, sweep_solve, sweep_solve_modulated,
     )
     from repro_torch.core.tradeoff import smdp_tradeoff_curve
-    from repro_torch.launch import tradeoff_sweep
+    from repro_torch.launch import paper_figures, tradeoff_sweep
     from repro_torch.configs import ARCHS
     from repro_torch.interop import params_from_reference
     from repro_torch.kernels import ops
@@ -138,6 +138,9 @@ def _entry_points():
             np.arange(5.0), PhaseBeliefFilter([0.5, 1.0], [[-1.0, 1.0], [1.0, -1.0]])),
         "smdp_tradeoff_curve": lambda: smdp_tradeoff_curve(spec, [0.0]),
         "tradeoff_sweep.main": lambda: tradeoff_sweep.main(["--w2", "0"]),
+        "paper_figures.main": lambda: paper_figures.main(["--only", "fig9_cov", "--smoke"]),
+        "fig10_abstract_cost": lambda: paper_figures.fig10_abstract_cost(
+            (100.0,), s_grid=(36,)),
         "ServingEngine": lambda: ServingEngine(
             SMDPScheduler.from_table(table), lam=0.5, b_max=4, service=svc),
         "simulate_compiled": lambda: simulate_compiled(
