@@ -176,13 +176,24 @@
    their designs (lengths off the 64-row tiles, causal rows that see no
    key, every head size, softcap, q / k / v as views of one fused qkv, a
    misaligned view refused; decode lengths 0, 1, S and inside a split,
-   4096-deep caches at b = 1 and 8, b x KV >= the SM count).
+   4096-deep caches at b = 1 and 8, b x KV >= the SM count).  Then both
+   under the local layers' masks: flash at Gemma2-9B's 16 / 8 x 256 and
+   -27B's 32 / 16 x 128 heads over a 6144-token prefill under the 4096
+   window (softcap 50), Llama-4's 40 / 8 x 128 over 9216 tokens under its
+   8192 chunk, an append of 512 rows onto a 4096-row cache under the
+   window; decode at Gemma2-9B's and Llama-4's heads over 8192- / 9216-deep
+   caches at ragged lengths below, at and past the window and the chunk
+   boundary; edge cases with windows and chunks below a 64-key block and
+   not multiples of one, rows that see no key, causal off.  Each held at
+   2e-5 (f32) and 2e-2 (bf16), the local shapes timed in bf16 beside the
+   plain version, SDPA with the equivalent boolean mask and the bound of
+   the masked work (the visible pairs; the keys the span holds).
 6. Whole-model checks in f32: the reduced Qwen2.5-32B on the card
    (kernels) against the CPU (plain versions) from the same weights, and
    Qwen2.5-32B at full width with 2 layers, decode path (decode kernel)
    against a fresh prefill (flash kernel), both at atol 3e-4.
 7. LLM serving path, counters zeroed just before and read just after:
-   Qwen2.5-32B at its published width with 32 of its 64 layers (bf16,
+   Qwen2.5-32B at its published width with 16 of its 64 layers (bf16,
    random weights from a seed) -- l(b) profile for b = 1..8 (prompt 128, 16 tokens),
    SMDP solve on it through the Bellman kernel, then 32 Poisson requests
    at rho = 0.6 served in wall-clock executor mode by the SMDP, greedy and
@@ -207,6 +218,21 @@
    3 x 15 x segments, SSD 19 x 16 x segments with the first pass 19 x
    segments, Bellman the solve's backups), peak memory, and a profiled
    b = 8 prefill and decode step with the SSD kernels' share.
+8b. Phase 4l, local masks and experts, counters zeroed just before and
+   read just after each model's serving run: Gemma2-9B at its published
+   size (42 layers, bf16, random weights) and Llama-4 Scout at its
+   published width with 4 of its 48 layers (3 chunked-local, 1 full; 16
+   experts top-1 plus the shared expert) through serve_llm.run_pipeline
+   with the Qwen path's constants, launch counts exact (flash one a layer
+   a segment, decode one a layer a step, Bellman the solve's backups),
+   peak memory, each model freed before the next.  Long contexts in f32 at full width, b = 1, each decode
+   path's logits held to a one-shot forward of the same tokens at 3e-4:
+   Gemma2-9B at 8 layers, a 6144-token prefill, a 512-token append (flash
+   over the cache's prefix) and 32 decode steps past the window; Llama-4
+   at 4 layers with drop-free experts, an 8176-token prefill and 32
+   decode steps across the 8192 chunk boundary against a 9216-token
+   forward.  Grok-1 at full width with 1 layer in f32 (8 experts top-2,
+   softcap 30): the kernel path against the plain path on the card.
 9. Phase 4j, training (examples/train_100m.py --full through the port):
    the attention backward kernel (csrc/flash_attention_bwd.cu) against
    autograd through the plain attention at the path's shape (b 8 x 256,
@@ -308,9 +334,10 @@ MAX_TIES_PER_SPEC, MAX_TIES, TIE_MASS = 1, 4, 1e-12
 
 # --- the LLM serving path (examples/serve_llm.py on Qwen2.5-32B) ---------
 LLM_ARCH = "qwen2.5-32b"
-#: the serving path's depth: Qwen2.5-32B at its published width with 32 of
-#: its 64 layers (a depth cut that keeps the script inside its time limit)
-LLM_LAYERS = 32
+#: the serving path's depth: Qwen2.5-32B at its published width with 16 of
+#: its 64 layers (a depth cut that keeps the script inside its time limit on
+#: a slow host, with phase 4l beside it)
+LLM_LAYERS = 16
 LLM_B_MAX, LLM_PROMPT, LLM_GEN, LLM_REQUESTS, LLM_RHO = 8, 128, 16, 32, 0.6
 #: tests/test_kernels.py's attention shapes
 FLASH_TEST_SHAPES = [(2, 64, 64, 4, 2, 16, True, None), (1, 33, 70, 4, 4, 8, False, None),
@@ -3716,9 +3743,173 @@ def attention_phase(torch, np, rows):
                      da.decode_attention_ref(q, kc, vc, ln, softcap=cap), dt,
                      f"edge {(B, S, H, KV, D)} splits={n_split} softcap={cap} "
                      f"lengths={list(map(int, lens))[:8]}")
+    masked_attention(torch, np, rows, held)
     for name in ("flash_attention", "decode_attention"):
         rows[name].update(max_abs_err=max(err[name].values()),
                           max_abs_err_by_dtype=err[name])
+
+
+# --- the local layers' masks: sliding window (Gemma2), chunk (Llama-4) ------
+
+#: (what, B, Sq, Sk, H, KV, D, softcap, window, chunk) at the local layers'
+#: own shapes: Gemma2-9B's 16 / 8 x 256 and -27B's 32 / 16 x 128 heads at a
+#: 6144-token prefill under their 4096 window (softcap 50), Llama-4's 40 / 8
+#: x 128 at 9216 tokens under its 8192 chunk, and an append of 512 rows onto
+#: a 4096-row cache under the window
+MASKED_FLASH = [("gemma2-9b local prefill", 1, 6144, 6144, 16, 8, 256, 50.0, 4096, None),
+                ("gemma2-27b local prefill", 1, 6144, 6144, 32, 16, 128, 50.0, 4096, None),
+                ("llama4 chunked prefill", 1, 9216, 9216, 40, 8, 128, None, None, 8192),
+                ("gemma2-9b append 512 onto 4096", 1, 512, 4608, 16, 8, 256, 50.0, 4096,
+                 None)]
+#: (what, B, S, H, KV, D, softcap, window, chunk, lengths): decode over
+#: caches at lengths below, at and past the window / the chunk boundary,
+#: ragged
+MASKED_DECODE = [
+    ("gemma2-9b local decode", 8, 8192, 16, 8, 256, 50.0, 4096, None,
+     [1000, 4095, 4096, 4097, 5000, 6144, 7000, 8192]),
+    ("llama4 chunked decode", 8, 9216, 40, 8, 128, None, None, 8192,
+     [1000, 8191, 8192, 8193, 8300, 8704, 9000, 9216]),
+]
+#: edges of the masked tile plan, (B, Sq, Sk, H, KV, D, causal, softcap,
+#: window, chunk): windows and chunks below a 64-key block and not
+#: multiples of one, spans that start mid-block, chunk boundaries inside a
+#: key block, an append, rows that see no key (Sq > Sk), causal off
+MASKED_FLASH_EDGES = [(2, 300, 300, 4, 2, 64, True, None, 1, None),
+                      (2, 300, 300, 4, 2, 64, True, 30.0, 5, None),
+                      (1, 300, 300, 8, 2, 128, True, None, 37, None),
+                      (1, 300, 300, 16, 8, 256, True, 50.0, 100, None),
+                      (2, 300, 300, 4, 1, 64, True, None, None, 7),
+                      (1, 300, 300, 8, 2, 128, True, None, None, 50),
+                      (1, 300, 300, 4, 4, 64, True, 50.0, None, 130),
+                      (1, 70, 330, 8, 2, 128, True, None, 100, None),
+                      (1, 70, 330, 8, 2, 128, True, None, None, 100),
+                      (2, 150, 90, 4, 1, 64, True, None, 37, None),
+                      (2, 150, 90, 4, 1, 64, True, None, None, 50),
+                      (1, 200, 200, 4, 2, 64, False, None, 37, None),
+                      (1, 200, 200, 4, 2, 64, False, None, None, 50)]
+#: (B, S, H, KV, D, window, chunk, lengths): windows and chunks below a
+#: split, lengths 0 and around the edges
+MASKED_DECODE_EDGES = [(4, 300, 8, 2, 64, 5, None, [0, 5, 6, 299]),
+                       (3, 300, 8, 2, 64, None, 7, [7, 8, 200]),
+                       (4, 2048, 16, 8, 256, 1000, None, [999, 1000, 1001, 2048]),
+                       (3, 2048, 40, 8, 128, None, 1024, [0, 1024, 1025])]
+
+
+def _sdpa_note(lib, cap):
+    """SDPA computes the same function only without a softcap: with one,
+    its time (the mask, no cap) is a yardstick, not the library_ms."""
+    if cap is None:
+        return lib, f"library_ms={lib:.6f} (SDPA, enable_gqa, boolean mask)"
+    return None, (f"library_ms=None (SDPA has no softcap; SDPA with the boolean mask and "
+                  f"no cap: {lib:.6f} ms)")
+
+
+def masked_flash_row(torch, np, held, what, B, Sq, Sk, H, KV, D, cap, window, chunk):
+    """Both dtypes held against the plain version; bf16 timed beside the
+    plain version, SDPA with the equivalent boolean mask and the bound of
+    the masked work."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + D)
+    mask = dict(causal=True, softcap=cap, window=window, chunk=chunk)
+    for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        held("flash_attention", fa.flash_attention(q, k, v, **mask),
+             fa.attention_ref(q, k, v, **mask), dt,
+             f"{what} {(B, Sq, Sk, H, KV, D)} window={window} chunk={chunk} softcap={cap}")
+    ms = call_ms(torch, lambda: fa.flash_attention(q, k, v, **mask), 10)
+    plain = call_ms(torch, lambda: fa.attention_ref(q, k, v, **mask), 2)
+    keep = fa.visible(torch.arange(Sq, device="cuda") + (Sk - Sq),
+                      torch.arange(Sk, device="cuda"), causal=True, window=window, chunk=chunk)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = call_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, enable_gqa=True), 3)
+    lib, note = _sdpa_note(sdpa, cap)
+    pairs = int(keep.sum().item())
+    del keep
+    item = q.element_size()
+    b_ms, b_by = bound(item * (2 * B * Sq * H * D + 2 * B * Sk * KV * D),
+                       4 * B * H * D * pairs, BF16_FLOPS)
+    log(f"flash_attention {what} {(B, Sq, Sk, H, KV, D)} window={window} chunk={chunk} "
+        f"softcap={cap} bfloat16: kernel_ms={ms:.6f} plain_ms={plain:.6f} {note} "
+        f"bound_ms={b_ms:.6f} ({b_by}; {pairs} visible pairs a head)")
+    return dict(what=what, ms=ms, plain_ms=plain, library_ms=lib, sdpa_mask_ms=sdpa,
+                bound_ms=b_ms, bound_by=b_by, shape=[B, Sq, Sk, H, KV, D], window=window,
+                chunk=chunk, softcap=cap, dtype="bfloat16", visible_pairs=pairs)
+
+
+def masked_decode_row(torch, np, held, n_sm, what, B, S, H, KV, D, cap, window, chunk,
+                      lengths):
+    from repro_torch.kernels import decode_attention as da
+
+    F = torch.nn.functional
+    mask = dict(softcap=cap, window=window, chunk=chunk)
+    for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        q, kc, vc, ln = _decode_inputs_card(torch, S + D, B, S, H, KV, D, dtype, lengths)
+        held("decode_attention", da.decode_attention(q, kc, vc, ln, **mask),
+             da.decode_attention_ref(q, kc, vc, ln, **mask), dt,
+             f"{what} {(B, S, H, KV, D)} window={window} chunk={chunk} softcap={cap} "
+             f"lengths={lengths}")
+    ms = device_ms(torch, lambda: da.decode_attention(q, kc, vc, ln, **mask), 100)
+    plain = call_ms(torch, lambda: da.decode_attention_ref(q, kc, vc, ln, **mask), 3)
+    lo, hi, _ = da.key_span(ln, S, window, chunk)
+    pos = torch.arange(S, device="cuda")
+    keep = ((pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None]))[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+    sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, enable_gqa=True), 20)
+    lib, note = _sdpa_note(sdpa, cap)
+    keys = int((hi - lo).sum().item())  # the rows this run's lengths need
+    item = q.element_size()
+    b_ms, b_by = bound(item * (2 * B * H * D + 2 * keys * KV * D) + 4 * B,
+                       4 * H * D * keys, BF16_FLOPS)
+    n_split = da._split_plan(B, da.span_cap(S, window, chunk), KV, n_sm)
+    log(f"decode_attention {what} b={B} S={S} {(H, KV, D)} window={window} chunk={chunk} "
+        f"softcap={cap} bfloat16 ({n_split} splits of the masked span, {keys} keys read of "
+        f"{int(ln.sum().item())} cached): kernel_ms={ms:.6f} plain_ms={plain:.6f} {note} "
+        f"bound_ms={b_ms:.6f} ({b_by})")
+    return dict(what=what, ms=ms, plain_ms=plain, library_ms=lib, sdpa_mask_ms=sdpa,
+                bound_ms=b_ms,
+                bound_by=b_by, shape=[B, S, H, KV, D], window=window, chunk=chunk,
+                softcap=cap, dtype="bfloat16", lengths=lengths, keys_read=keys,
+                n_split=n_split)
+
+
+def masked_attention(torch, np, rows, held):
+    """Phase 5's masked part: both kernels against their plain versions at
+    the local layers' shapes (2e-5 f32, 2e-2 bf16) and at the edges of the
+    tile plan, timed beside their bound and SDPA with the equivalent
+    boolean mask (where SDPA can express the call: no softcap)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(27)
+    for B, Sq, Sk, H, KV, D, causal, cap, window, chunk in MASKED_FLASH_EDGES:
+        mask = dict(causal=causal, softcap=cap, window=window, chunk=chunk)
+        for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v = _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype)
+            held("flash_attention", fa.flash_attention(q, k, v, **mask),
+                 fa.attention_ref(q, k, v, **mask), dt,
+                 f"masked edge {(B, Sq, Sk, H, KV, D)} causal={causal} window={window} "
+                 f"chunk={chunk} softcap={cap}")
+    for B, S, H, KV, D, window, chunk, lengths in MASKED_DECODE_EDGES:
+        mask = dict(window=window, chunk=chunk)
+        for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, kc, vc, ln = _decode_inputs_card(torch, S + H, B, S, H, KV, D, dtype, lengths)
+            held("decode_attention", da.decode_attention(q, kc, vc, ln, **mask),
+                 da.decode_attention_ref(q, kc, vc, ln, **mask), dt,
+                 f"masked edge {(B, S, H, KV, D)} window={window} chunk={chunk} "
+                 f"lengths={lengths}")
+    rows["flash_attention"]["masked_shapes"] = [
+        masked_flash_row(torch, np, held, *case) for case in MASKED_FLASH]
+    torch.cuda.empty_cache()
+    rows["decode_attention"]["masked_shapes"] = [
+        masked_decode_row(torch, np, held, n_sm, *case) for case in MASKED_DECODE]
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4313,6 +4504,232 @@ def hybrid_phase(torch, np, kernels, rows):
     log(f"phase 4i ({HYBRID_ARCH}): {time.perf_counter() - t0:.2f} s")
 
 # ---------------------------------------------------------------------------
+# Phase 4l: Gemma2-9B, Llama-4 Scout and Grok-1 (local masks, chunked
+# prefill, the MoE FFN)
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH, LLAMA4_ARCH, GROK_ARCH = "gemma2-9b", "llama4-scout-17b-a16e", "grok-1-314b"
+#: Llama-4 Scout at its published width with one pattern unit of its 48
+#: layers (3 chunked-local, 1 full): a depth cut for time
+LLAMA4_LAYERS = 4
+#: the long-context checks, f32 at full width (the decode-vs-forward bound
+#: is an f32 bound; bf16 rounding alone exceeds it): Gemma2-9B at 8 of its
+#: 42 layers (4 local / global pairs), a 6144-token prefill, a 512-token
+#: append, 32 decode steps past the window; Llama-4 at LLAMA4_LAYERS, an
+#: 8176-token prefill and 32 decode steps across the 8192 chunk boundary,
+#: held to a one-shot forward of 9216 tokens, with drop-free experts
+#: (capacity factor E / top_k, as the reference's decode-vs-forward test
+#: raises it: a one-shot forward groups its tokens otherwise than the steps)
+GEMMA_LONG = dict(layers=8, prefill=6144, append=512, steps=32, total=6688)
+LLAMA4_LONG = dict(prefill=8176, append=0, steps=32, total=9216)
+#: Grok-1 at full width, one layer, f32: the kernel path against the plain
+#: path on the card (prefill of 2 x 256, 8 decode steps)
+GROK_CHECK = dict(batch=2, prompt=256, steps=8)
+
+
+class _PlainOps:
+    """The attention entry points as layers.py calls them, on the kernels'
+    plain versions: the plain path on the card."""
+
+    @staticmethod
+    def flash_attention(q, k, v, *, causal=True, softcap=None, window=None, chunk=None,
+                        device=None):
+        from repro_torch.kernels import flash_attention as fa
+        return fa.attention_ref(q, k, v, causal=causal, softcap=softcap, window=window,
+                                chunk=chunk)
+
+    @staticmethod
+    def decode_attention(q, k_cache, v_cache, lengths, *, softcap=None, window=None,
+                         chunk=None, device=None):
+        from repro_torch.kernels import decode_attention as da
+        return da.decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap,
+                                       window=window, chunk=chunk)
+
+
+def _free(torch, what):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"{what} freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+
+
+def local_serve(torch, np, kernels, rows, arch, n_layers):
+    """``arch`` at its published width with ``n_layers`` layers (bf16, random
+    weights) through serve_llm.run_pipeline with the Qwen cell's traffic,
+    launch counts exact."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n_local = sum(M._layer_is_local(cfg, i) for i in range(cfg.n_layers))
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{arch} (published width, {cfg.n_layers} of its {ARCHS[arch].n_layers} layers, "
+        f"{n_local} local: d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"hd={cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} window={cfg.sliding_window} "
+        f"chunk={cfg.chunk_size} experts={cfg.n_experts} top_k={cfg.top_k} "
+        f"shared={cfg.n_shared_experts}) bf16 random weights: {n_params / 1e9:.3f} B "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def note(msg):
+        log(f"  {msg}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_llm.run_pipeline(
+        cfg, params, n_requests=LLM_REQUESTS, rho=LLM_RHO, gen_tokens=LLM_GEN,
+        prompt_len=LLM_PROMPT, b_max=LLM_B_MAX, cache_dtype=torch.bfloat16, seed=0,
+        log=note)
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    L, seg = cfg.n_layers, res.segments
+    want = {"flash_attention": L * seg, "decode_attention": L * (LLM_GEN - 1) * seg,
+            "bellman_banded": _backups_of(res.solution, "cuda")}
+    for name, n in want.items():
+        check(counts[name] == n, f"{arch}: {name} launched {counts[name]} times, not {n}")
+    log(f"{arch} path launches exact ({res.segments} segments, wall {wall:.2f} s): flash "
+        f"{L} x {seg}, decode {L} x {LLM_GEN - 1} x {seg}, Bellman "
+        f"{want['bellman_banded']} backups")
+    log(f"{arch} l(b) ms, b = 1..8 (non-decreasing): "
+        + " ".join(f"{x:.3f}" for x in res.lat_ms))
+    for name, rep in res.reports.items():
+        lat = rep.latencies
+        check(rep.n_served == LLM_REQUESTS and np.isfinite(lat).all(), f"{arch} {name} served")
+        log(f"{arch} serve {name}: W={lat.mean() * 1e3:.3f} ms "
+            f"P95={rep.percentile(95) * 1e3:.3f} ms mean_batch={rep.mean_batch:.3f} "
+            f"P_proxy={rep.power:.3f} W (60 W x service time, not measured) "
+            f"span={rep.span:.3f} s")
+    check(all(np.isfinite(res.lat_ms)) and res.lat_ms[0] > 0, f"{arch} l(b) profile")
+    log(f"{arch} peak memory (torch.cuda.max_memory_allocated): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name in ("flash_attention", "decode_attention"):
+        rows[name].setdefault("launches_local_path", {})[arch] = counts[name]
+    rows["bellman_banded"].setdefault("launches_local_path", {})[arch] = counts[
+        "bellman_banded"]
+    del params
+    _free(torch, arch)
+
+
+def long_context_check(torch, arch, layers, prefill, append, steps, total, **replace):
+    """f32, full width, b = 1: a prefill, an append (flash over the cache's
+    prefix), then greedy decode steps, each position's logits held to a
+    one-shot forward over the same tokens at LOGIT_ATOL."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=layers, **replace)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                           torch.float32, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, total), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+    start = prefill + append  # the first decode position
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, cache = M.prefill(cfg, params, {"tokens": toks[:, :prefill]}, start + steps,
+                              torch.float32)
+        got = {"prefill": lg[0]}
+        if append:
+            h, cache = M.forward(cfg, params, toks[:, prefill:start], cache=cache)
+            lg = M._unembed(cfg, params, h)
+            got["append"] = lg[0]
+        seq, dec = [toks[:, :start]], []
+        for _ in range(steps):
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+            seq.append(tok)
+            lg, cache = M.decode_step(cfg, params, cache, tok)
+            dec.append(lg[0])
+        got["decode"] = torch.cat(dec)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = torch.cat(seq + [toks[:, start + steps:]], dim=1)
+        h, _ = M.forward(cfg, params, full)
+        pos = {"prefill": [prefill - 1], "append": list(range(prefill, start)),
+               "decode": list(range(start, start + steps))}
+        errs = {}
+        for part, g in got.items():
+            want = M._unembed(cfg, params, h[:, pos[part]])[0]
+            errs[part] = (g - want).abs().max().item()
+        scale = want.abs().max().item()
+        torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    worst = max(errs.values())
+    check(worst <= LOGIT_ATOL, f"{arch} long context: decode path vs one-shot {errs}")
+    log(f"{arch} long context f32 (full width, {layers} layers, b=1, window="
+        f"{cfg.sliding_window} chunk={cfg.chunk_size}"
+        + (f", capacity factor {cfg.moe_capacity_factor}" if cfg.n_experts else "")
+        + f"): prefill {prefill}" + (f", append {append}" if append else "")
+        + f", {steps} decode steps (positions {start}..{start + steps - 1}) against a "
+        f"one-shot forward of {full.shape[1]} tokens: max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (atol {LOGIT_ATOL}; logit scale {scale:.3f}); path {path_s:.2f} s, one-shot "
+        f"{one_s:.2f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ok")
+    del params, cache, h
+    _free(torch, f"{arch} long-context model")
+
+
+def grok_check(torch, np, kernels):
+    """Grok-1 at full width, one layer, f32: prefill and greedy decode
+    through the kernels against the same weights through the plain path on
+    the card (top-2 routing at capacity factor 1.25, softcap 30)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(ARCHS[GROK_ARCH], n_layers=1)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           torch.float32, "cuda")
+    B, P, steps = GROK_CHECK["batch"], GROK_CHECK["prompt"], GROK_CHECK["steps"]
+    toks = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+    kernels.reset_launch_counts()
+    got, got_toks = _greedy_logits(torch, M, cfg, params, toks, steps, P + steps)
+    counts = kernels.launch_counts()
+    check(counts["flash_attention"] == 1 and counts["decode_attention"] == steps,
+          f"grok kernel path launches {counts}")
+    kernel_ops = L.ops
+    L.ops = _PlainOps
+    try:
+        want, want_toks = _greedy_logits(torch, M, cfg, params, toks, steps, P + steps)
+    finally:
+        L.ops = kernel_ops
+    check(kernels.launch_counts() == counts, "the plain path launched a kernel")
+    e = (got - want).abs().max().item()
+    check(e <= LOGIT_ATOL and all(torch.equal(a, b) for a, b in zip(got_toks, want_toks)),
+          f"grok kernel path vs plain path: max abs err {e}")
+    log(f"{GROK_ARCH} full width (d={cfg.d_model}, H={cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} ff={cfg.d_ff}, softcap "
+        f"{cfg.attn_softcap}, 1 layer) f32, {sum(p.numel() for p in params.parameters()) / 1e9:.3f}"
+        f" B parameters: prefill {B} x {P} + {steps} decode steps, kernel path vs plain "
+        f"path on the card: max_abs_err={e:.3e} (atol {LOGIT_ATOL}), greedy tokens equal; "
+        f"logit scale {got.abs().max().item():.3f}; kernel path launches flash 1, decode "
+        f"{steps}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ok")
+    del params
+    _free(torch, GROK_ARCH)
+
+
+def local_moe_phase(torch, np, kernels, rows):
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    local_serve(torch, np, kernels, rows, GEMMA_ARCH, ARCHS[GEMMA_ARCH].n_layers)
+    long_context_check(torch, GEMMA_ARCH, **GEMMA_LONG)
+    local_serve(torch, np, kernels, rows, LLAMA4_ARCH, LLAMA4_LAYERS)
+    scout = ARCHS[LLAMA4_ARCH]
+    long_context_check(torch, LLAMA4_ARCH, LLAMA4_LAYERS, **LLAMA4_LONG,
+                       moe_capacity_factor=scout.n_experts / scout.top_k)
+    grok_check(torch, np, kernels)
+    log(f"phase 4l (Gemma2-9B, Llama-4 Scout, Grok-1): {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4j: training on the card (examples/train_100m.py --full)
 # ---------------------------------------------------------------------------
 
@@ -4830,6 +5247,11 @@ def main():
     t0 = time.perf_counter()
     hybrid_phase(torch, np, kernels, rows)
     mark("4i hybrid", t0)
+
+    # --- Gemma2-9B, Llama-4 Scout, Grok-1: local masks, chunked prefill, MoE (4l)
+    t0 = time.perf_counter()
+    local_moe_phase(torch, np, kernels, rows)
+    mark("4l local masks and MoE", t0)
 
     # --- training: the backward kernel, qwen2.5-100m --full, the resume (4j)
     t0 = time.perf_counter()

@@ -16,8 +16,9 @@ it.
     port's ``DenseLM`` or, for the hybrid family, ``HybridLM``;
   * ``reference_tree(cfg, tensors)`` is the reverse of
     ``params_from_reference`` for any tensors in the port's layout
-    (gradients, optimizer moments): the reference's nested dict of numpy
-    arrays, leaf by leaf through ``models.model.leaf_map``.
+    (gradients, optimizer moments) of a dense or MoE decoder: the
+    reference's nested dict of numpy arrays, leaf by leaf through
+    ``models.model.leaf_map``.
 """
 from __future__ import annotations
 
@@ -99,7 +100,9 @@ def params_from_reference(cfg: ModelConfig, params, *,
     leaves.  The stacked leading L axis is split into per-layer tensors;
     wq / wk / wv (d, H|KV, hd) become the columns of ``wqkv`` (and their
     biases of ``bqkv``), wo (H, hd, d) becomes (H hd, d), w1 / w3 the two
-    halves of ``w13``; the hybrid's Mamba2 weights keep their names and its
+    halves of ``w13`` (an MoE layer's stacked (E, d, ff) experts on their
+    last axis, its shared expert's sw1 / sw3 of ``sw13``; ``router`` as
+    it is); the hybrid's Mamba2 weights keep their names and its
     ``shared_attn`` block gets the same attention / MLP layout; norms and
     the output matrix carry over, all in the arrays' own dtype.
     """
@@ -126,11 +129,19 @@ def params_from_reference(cfg: ModelConfig, params, *,
         if cfg.qkv_bias:
             b["bqkv"] = t(np.concatenate(
                 [np.asarray(get(n)).reshape(-1) for n in ("bq", "bk", "bv")]))
-        if cfg.act in ("swiglu", "geglu"):
-            b["w13"] = t(np.concatenate([get("w1"), get("w3")], axis=1))
-        else:
-            b["w1"] = t(get("w1"))
-        b["w2"] = t(get("w2"))
+        def ffn(prefix):
+            if cfg.act in ("swiglu", "geglu"):
+                b[prefix + "w13"] = t(np.concatenate(
+                    [get(prefix + "w1"), get(prefix + "w3")], axis=-1))
+            else:
+                b[prefix + "w1"] = t(get(prefix + "w1"))
+            b[prefix + "w2"] = t(get(prefix + "w2"))
+
+        ffn("")
+        if cfg.n_experts:
+            b["router"] = t(get("router"))
+            if cfg.n_shared_experts:
+                ffn("s")
         return b
 
     def layer_norm_of(tree, i, name):

@@ -1,9 +1,17 @@
 // One-token GQA flash-decode over an S-deep KV cache for Hopper (sm_90a),
 // f32 accumulation on CUDA cores, f32 or bf16 inputs, split-K over the
-// cache.
+// cache, optionally under a sliding window or a chunked-local mask.
 //
-//   out[b, h, :] = softmax_{s < lengths[b]}(softcap(q[b, h] . k[b, s, h/G] /
-//                  sqrt(D))) . v[b, s, h/G]
+//   out[b, h, :] = softmax_{lo_b <= s < lengths[b]}(softcap(q[b, h] .
+//                  k[b, s, h/G] / sqrt(D))) . v[b, s, h/G]
+//
+// The query sits at position lengths[b] - 1, so lo_b is 0 with no mask,
+// lengths[b] - window under a window (window > 0) and
+// floor((lengths[b] - 1) / chunk) * chunk under a chunk (chunk > 0): the
+// reference's masks (src/repro/models/layers.py:177-182).  Those are
+// exactly the keys that survive the mask, so the kernel reads [lo_b,
+// lengths[b]) and masks nothing: a 4096 window over an 8k cache reads
+// 4096 rows.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
 // (decode_attention / _kernel).  Semantics are the reference's
@@ -31,8 +39,10 @@
 //
 // Design (flash-decoding).  decode_attn_split splits the key axis across
 // blocks: grid (B * KV * head chunks, n_split); block (., i) takes keys
-// [i * S / n_split, (i + 1) * S / n_split).  The wrapper plans n_split from
-// S, B * KV and the SM count alone (kernels/decode_attention.py:
+// [lo_b + i * W / n_split, lo_b + (i + 1) * W / n_split), stopped at
+// lengths[b], where W = min(S, window, chunk) is the most keys a query can
+// see (S for a sequence that sees none).  The wrapper plans n_split from
+// W, B * KV and the SM count alone (kernels/decode_attention.py:
 // _split_plan), never from lengths, which live on the card.  Inside a
 // block of 128 threads, D / 8 threads share one key row, each loading 16
 // bytes of bf16 (32 of f32) of it, so 128 / (D / 8) key groups run side by
@@ -42,8 +52,8 @@
 // one step), forms the GT scores with shuffle reductions over its D / 8
 // lanes and keeps its own online-softmax state (m, l, acc[GT][8]); there is
 // no barrier in the key loop.  Groups merge once, at the end of the chunk,
-// through shared memory.  A block whose chunk starts at or past the valid
-// length writes an empty partial (m = -inf, l = 0).  With n_split == 1 the
+// through shared memory.  A block whose share of the span is empty (a
+// short sequence) writes an empty partial (m = -inf, l = 0).  With n_split == 1 the
 // block writes the output; otherwise it writes its partial (m, l, acc[D])
 // in f32 to the wrapper's scratch, and decode_attn_combine, launched next
 // from the same C entry point on the same stream as a programmatic
@@ -126,8 +136,8 @@ decode_attn_split(const T* __restrict__ q, const T* __restrict__ kc,
                   T* __restrict__ out, float* __restrict__ part, int B, int S,
                   int H, int KV, int G, int D, int n_split, long long qsb,
                   long long qsh, long long ksb, long long kss, long long ksh,
-                  long long vsb, long long vss, long long vsh, int has_cap,
-                  float softcap, float scale) {
+                  long long vsb, long long vss, long long vsh, int window,
+                  int chunk, int has_cap, float softcap, float scale) {
   // the combine's blocks may start now; they wait for this grid's results
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   // keys a group takes per step: all their loads are in flight together
@@ -152,17 +162,30 @@ decode_attn_split(const T* __restrict__ q, const T* __restrict__ kc,
   const int split = blockIdx.y;
   const long long BH = static_cast<long long>(B) * H;
 
+  // this sequence's keys [lo, n_keys) and the planned span W (see header)
   const int len = lengths[b];
-  const bool none = len <= 0;  // no visible key: all S take part, masked
+  int lo = 0, W = S;
+  if (window > 0) {
+    lo = max(lo, len - window);
+    W = min(W, window);
+  }
+  if (chunk > 0) {
+    if (len > 0) lo = max(lo, (len - 1) / chunk * chunk);
+    W = min(W, chunk);
+  }
+  // no visible key: all S take part, masked
+  const bool none = len <= 0 || lo >= min(len, S);
+  if (none) lo = 0, W = S;
   const int n_keys = none ? S : min(len, S);
-  const int c0 = static_cast<int>(static_cast<long long>(split) * S / n_split);
+  const int c0 =
+      lo + static_cast<int>(static_cast<long long>(split) * W / n_split);
   const int c1 =
-      static_cast<int>(static_cast<long long>(split + 1) * S / n_split);
+      lo + static_cast<int>(static_cast<long long>(split + 1) * W / n_split);
   const int c_end = min(c1, n_keys);
   float* part_ml = part;
   float* part_acc = part + n_split * BH * 2;
 
-  if (c0 >= n_keys) {  // an empty partial (never split 0: n_keys >= 1)
+  if (c0 >= c_end) {  // an empty partial (never split 0: W >= n_split)
     if (static_cast<int>(threadIdx.x) < n_g) {
       float* ml = part_ml + (split * BH + b * H + h0 + threadIdx.x) * 2;
       ml[0] = -CUDART_INF_F;
@@ -360,8 +383,8 @@ decode_attn_combine(const float* __restrict__ part, T* __restrict__ out,
 template <typename T, int GT>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, float* part, int B, int S, int H, int KV, int D,
-           int n_split, const long long* st, int has_cap, float softcap,
-           cudaStream_t stream) {
+           int n_split, const long long* st, int window, int chunk,
+           int has_cap, float softcap, cudaStream_t stream) {
   const int G = H / KV;
   const dim3 grid(B * KV * ((G + GT - 1) / GT), n_split);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -369,7 +392,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), part, B, S, H,
       KV, G, D, n_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], has_cap, softcap, scale);
+      st[7], window, chunk, has_cap, softcap, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
 
@@ -393,11 +416,11 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 template <typename T>
 int dispatch_g(const void* q, const void* k, const void* v, const int* lengths,
                void* out, float* part, int B, int S, int H, int KV, int D,
-               int n_split, const long long* st, int has_cap, float softcap,
-               cudaStream_t s) {
+               int n_split, const long long* st, int window, int chunk,
+               int has_cap, float softcap, cudaStream_t s) {
   const int G = H / KV;
-#define ARGS q, k, v, lengths, out, part, B, S, H, KV, D, n_split, st, has_cap, \
-             softcap, s
+#define ARGS q, k, v, lengths, out, part, B, S, H, KV, D, n_split, st, window, \
+             chunk, has_cap, softcap, s
   if (G <= 1) return launch<T, 1>(ARGS);
   if (G <= 2) return launch<T, 2>(ARGS);
   if (G <= 4) return launch<T, 4>(ARGS);
@@ -412,29 +435,31 @@ int dispatch_g(const void* q, const void* k, const void* v, const int* lengths,
 // strides in elements for the batch, sequence and head axes (the last axis
 // contiguous; base pointers and strides 16-byte aligned); lengths: (B,)
 // int32; out: (B, H, D) contiguous; part: n_split * B * H * (D + 2) floats
-// of scratch (unused when n_split == 1); dtype 0 = float32, 1 = bfloat16.
+// of scratch (unused when n_split == 1); window / chunk: the masks' widths,
+// 0 for none; dtype 0 = float32, 1 = bfloat16.
 // Returns 0 on success, -1 for an unsupported head size (a power of two,
-// 8 .. 256), dtype or split count (1 .. min(S, 16)), else the launches'
-// CUDA error.
+// 8 .. 256), dtype, mask width or split count (1 .. min(S, 16)), else the
+// launches' CUDA error.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const int* lengths,
     void* out, void* part, int B, int S, int H, int KV, int D, int n_split,
     long long qsb, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int has_cap, float softcap,
-    int dtype, void* stream) {
+    long long vsb, long long vss, long long vsh, int window, int chunk,
+    int has_cap, float softcap, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   // D / 8 threads share a key row: a power of two, at most one warp
   if (D < 8 || D > 256 || (D & (D - 1)) || n_split < 1 || n_split > S ||
-      n_split > MAX_SPLITS)
+      n_split > MAX_SPLITS || window < 0 || chunk < 0)
     return -1;
   const long long st[8] = {qsb, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if (dtype == 0)
     return dispatch_g<float>(q, k, v, lengths, out, p, B, S, H, KV, D,
-                             n_split, st, has_cap, softcap, s);
+                             n_split, st, window, chunk, has_cap, softcap, s);
   if (dtype == 1)
     return dispatch_g<__nv_bfloat16>(q, k, v, lengths, out, p, B, S, H, KV, D,
-                                     n_split, st, has_cap, softcap, s);
+                                     n_split, st, window, chunk, has_cap,
+                                     softcap, s);
   return -1;
 }

@@ -1,12 +1,17 @@
-// Blockwise causal / full GQA attention forward for Hopper (sm_90a).
+// Blockwise GQA attention forward for Hopper (sm_90a): causal or full,
+// optionally under a sliding window or a chunked-local mask.
 //
 //   out[b, q, h, :] = softmax_k(mask(softcap(q . k / sqrt(D)))) . v
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention / _kernel).  Semantics are the reference's
-// (src/repro/kernels/ref.py: attention_ref): bottom-right causal alignment
-// k <= q + (Sk - Sq), masked scores set to -1e30 (so a row with no visible
-// key averages all Sk values, as the reference's softmax does), optional
+// (src/repro/kernels/ref.py: attention_ref; the window and chunk masks of
+// src/repro/models/layers.py:177-182): query row i sits at the absolute
+// position p = i + (Sk - Sq) (bottom-right alignment) and sees key k when
+// k <= p (causal), p - k < window (window > 0) and floor(p / chunk) ==
+// floor(k / chunk) (chunk > 0); masked scores are set to -1e30 (so a row
+// with no visible key averages all Sk values, as the reference's softmax
+// does), optional
 // softcap * tanh(s / softcap), p rounded to v's dtype before P.V, output
 // acc / max(l, 1e-30) in q's dtype.  q head h reads kv head h / G.  Inputs
 // are read through their strides (last dim contiguous); the output is
@@ -64,6 +69,18 @@
 //   * Base pointers and the batch / sequence / head strides must be 16-byte
 //     aligned (the wrapper checks and raises; it never copies).
 //
+// Masks (both kernels).  A row's visible keys are one span [lo(p), hi(p))
+// (KeySpan), and lo and hi never decrease with p, so a q tile's keys are
+// [lo(first row), hi(last row)): the tile walks only the key tiles that
+// meet that span -- for a window, [q_lo - window + 1, q_hi]; for a chunk,
+// the chunks its rows are in -- and skips the rest without loading them.
+// A key tile inside every row's span ([lo(last row), hi(first row))) is
+// taken whole; only the tiles at the span's edges (the diagonal, the
+// window's trailing edge, a chunk boundary inside the tile, keys past Sk)
+// are masked element by element against each row's own span.  If a row
+// of the tile sees no key (p < 0 under causal or chunk: Sq > Sk), the tile
+// walks and masks every key, as before.
+//
 // f32: flash_fwd_f32, the first port's kernel on the CUDA cores: the tensor
 // cores would take f32 as TF32, which breaks the 2e-5 tolerance.  One block
 // of 256 threads owns 64 query rows and streams 64-key tiles through shared
@@ -83,6 +100,57 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr float MASKED = -1e30f;  // the reference's NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
+
+// floor(a / b) for b > 0 (C++ division truncates toward zero)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// The keys [lo(p), hi(p)) a query at absolute position p sees; window and
+// chunk are 0 for none.  Empty (lo >= hi) for a row that sees no key.
+struct KeySpan {
+  int Sk, causal, window, chunk;
+
+  __device__ __forceinline__ int lo(int p) const {
+    int l = 0;
+    if (window > 0) l = max(l, p - window + 1);
+    if (chunk > 0) l = max(l, floor_div(p, chunk) * chunk);
+    return l;
+  }
+  __device__ __forceinline__ int hi(int p) const {
+    long long h = Sk;
+    if (causal) h = min(h, static_cast<long long>(p) + 1);
+    if (chunk > 0)
+      h = min(h, (static_cast<long long>(floor_div(p, chunk)) + 1) * chunk);
+    return static_cast<int>(max(h, 0LL));
+  }
+};
+
+// The key tiles [t_begin, t_end) a q tile with rows at positions [p0, p1]
+// walks, and the keys [full_lo, full_hi) every one of its rows sees (a key
+// tile inside them needs no mask).
+struct TilePlan {
+  int t_begin, t_end, full_lo, full_hi;
+
+  __device__ TilePlan(const KeySpan& sp, int p0, int p1) {
+    // a row that sees no key: every key takes part, masked
+    if (p0 < 0 && (sp.causal || sp.chunk > 0)) {
+      t_begin = 0;
+      t_end = (sp.Sk + BK - 1) / BK;
+      full_lo = 1;
+      full_hi = 0;
+    } else {
+      t_begin = sp.lo(p0) / BK;
+      t_end = (sp.hi(p1) + BK - 1) / BK;
+      full_lo = sp.lo(p1);
+      full_hi = sp.hi(p0);
+    }
+  }
+  __device__ __forceinline__ bool full(int k0) const {
+    return k0 >= full_lo && k0 + BK <= full_hi;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma)
@@ -105,7 +173,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 int Sk, int H, int G, long long qsb, long long qss,
                 long long qsh, long long ksb, long long kss, long long ksh,
                 long long vsb, long long vss, long long vsh, int causal,
-                int has_cap, float softcap, float scale) {
+                int window, int chunk, int has_cap, float softcap, float scale) {
   constexpr int DB = (D + 63) / 64;     // 64-column blocks of a row
   constexpr int KS = (D + 15) / 16;     // k-steps of Q K^T
   constexpr int QK_CH = 2 * KS;         // staged chunks of a Q / K row
@@ -130,16 +198,13 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
   const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
 
-  // Keys any row of this tile can see.  If some row sees none (causal with
-  // Sq > Sk), every key takes part with the masked score, as in the
-  // reference, so no tile is skipped.
-  int k_end = Sk;
-  if (causal && q0 + off >= 0) k_end = min(Sk, min(q0 + BQ, Sq) + off);
-  const int n_tiles = (k_end + BK - 1) / BK;
+  // the key tiles this q tile walks (see the header)
+  const KeySpan sp{Sk, causal, window, chunk};
+  const TilePlan plan(sp, q0 + off, min(q0 + BQ, Sq) - 1 + off);
 
   stage_rows<D, QK_CH>(sq, qb, qss, q0, Sq, tid);
-  stage_rows<D, QK_CH>(sk, kb, kss, 0, Sk, tid);
-  stage_rows<D, V_CH>(sv, vb, vss, 0, Sk, tid);
+  stage_rows<D, QK_CH>(sk, kb, kss, plan.t_begin * BK, Sk, tid);
+  stage_rows<D, V_CH>(sv, vb, vss, plan.t_begin * BK, Sk, tid);
   cp_commit();
 
   // this thread's rows of the 64-row tile (wgmma accumulator layout):
@@ -148,6 +213,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const int r0 = 16 * warp + (lane >> 2);
   const int qpos[2] = {q0 + r0, q0 + r0 + 8};
   const int col = 2 * (lane & 3);
+  // each row's visible keys, for the masked tiles
+  const int row_lo[2] = {sp.lo(qpos[0] + off), sp.lo(qpos[1] + off)};
+  const int row_hi[2] = {sp.hi(qpos[0] + off), sp.hi(qpos[1] + off)};
 
   float o[DB][32];
 #pragma unroll
@@ -157,8 +225,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   float m[2] = {MASKED, MASKED};
   float l[2] = {0.0f, 0.0f};
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = plan.t_begin; t < plan.t_end; ++t) {
     const int k0 = t * BK;
+    const bool full = plan.full(k0);
     cp_wait_all();
     fence_async_smem();
     __syncthreads();  // tile t is in, from every thread's copies
@@ -186,10 +255,12 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
         const int key = k0 + 8 * i + col + (e & 1);
         float x = s[4 * i + e] * scale;
         if (has_cap) x = softcap * tanhf(x / softcap);
-        if (key >= Sk) {
-          x = -CUDART_INF_F;  // no such key: p = 0
-        } else if (causal && key > qpos[e >> 1] + off) {
-          x = MASKED;
+        if (!full) {
+          if (key >= Sk) {
+            x = -CUDART_INF_F;  // no such key: p = 0
+          } else if (key < row_lo[e >> 1] || key >= row_hi[e >> 1]) {
+            x = MASKED;
+          }
         }
         s[4 * i + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -243,7 +314,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wgmma_wait_all();
 #pragma unroll
     for (int j = 0; j < DB; ++j) fence_regs(o[j]);
-    if (t + 1 < n_tiles) {
+    if (t + 1 < plan.t_end) {
       __syncthreads();  // every warp is done with tile t
       stage_rows<D, QK_CH>(sk, kb, kss, k0 + BK, Sk, tid);
       stage_rows<D, V_CH>(sv, vb, vss, k0 + BK, Sk, tid);
@@ -314,7 +385,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               long long qsb, long long qss,
               long long qsh, long long ksb, long long kss, long long ksh,
               long long vsb, long long vss, long long vsh, int causal,
-              int has_cap, float softcap, float scale) {
+              int window, int chunk, int has_cap, float softcap, float scale) {
   constexpr int DP = D + 1;
   constexpr int DJ = (D + 15) / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -350,9 +421,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     row_l[tid] = 0.0f;
   }
 
-  // as in the bf16 kernel: a tile with a row that sees no key walks them all
-  int k_end = Sk;
-  if (causal && q0 + off >= 0) k_end = min(Sk, min(q0 + BQ, Sq) + off);
+  // the key tiles this q tile walks, as in the bf16 kernel
+  const KeySpan sp{Sk, causal, window, chunk};
+  const TilePlan plan(sp, q0 + off, min(q0 + BQ, Sq) - 1 + off);
 
   float acc[RI][DJ];
 #pragma unroll
@@ -360,7 +431,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = plan.t_begin * BK; k0 < plan.t_end * BK; k0 += BK) {
+    const bool full = plan.full(k0);
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BK * D; e += F32_THREADS) {
       const int c = e / D;
@@ -392,7 +464,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
-      const int qpos = q0 + r;
+      const int p = q0 + r + off;
+      const int lo = full ? 0 : sp.lo(p);
+      const int hi = full ? Sk : sp.hi(p);
 #pragma unroll
       for (int j = 0; j < RJ; ++j) {
         const int c = tx + 16 * j;
@@ -403,7 +477,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         } else {
           x = s[i][j] * scale;
           if (has_cap) x = softcap * tanhf(x / softcap);
-          if (causal && key > qpos + off) x = MASKED;
+          if (key < lo || key >= hi) x = MASKED;
         }
         ps[r * PS + c] = x;
       }
@@ -492,7 +566,7 @@ struct Args {
   float* lse;
   int B, Sq, Sk, H, KV;
   const long long* st;  // qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh
-  int causal, has_cap;
+  int causal, window, chunk, has_cap;
   float softcap;
   cudaStream_t stream;
 };
@@ -513,7 +587,7 @@ int launch_kernel(Kernel kernel, bool& configured, size_t smem, int threads,
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.Sq, a.Sk, a.H,
       a.H / a.KV, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
-      a.causal, a.has_cap, a.softcap, scale);
+      a.causal, a.window, a.chunk, a.has_cap, a.softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,21 +609,22 @@ int launch_d(int dtype, const Args& a) {
 // q: (B, Sq, H, D), k / v: (B, Sk, KV, D), strides in elements for the
 // batch, sequence and head axes (the last axis contiguous; for bf16 every
 // base pointer and stride 16-byte aligned); out: (B, Sq, H, D) contiguous;
-// dtype 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel);
-// lse: (B, H, Sq) f32 contiguous, or null for none.
-// Returns 0 on success, -1 for an unsupported head size or dtype, else
-// cudaGetLastError() after the launch.
+// window / chunk: the masks' widths, 0 for none; dtype 0 = float32
+// (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel); lse: (B, H, Sq)
+// f32 contiguous, or null for none.
+// Returns 0 on success, -1 for an unsupported head size, dtype or mask
+// width, else cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Sk, int H, int KV, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, int causal, int has_cap, float softcap, int dtype,
-    float* lse, void* stream) {
+    long long vsh, int causal, int window, int chunk, int has_cap,
+    float softcap, int dtype, float* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return -1;
+  if ((dtype != 0 && dtype != 1) || window < 0 || chunk < 0) return -1;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  const Args a{q, k, v, out, lse, B, Sq, Sk, H, KV, st, causal, has_cap, softcap,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, out, lse, B, Sq, Sk, H, KV, st, causal, window, chunk,
+               has_cap, softcap, static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 8: return launch_d<8>(dtype, a);
     case 16: return launch_d<16>(dtype, a);

@@ -12,9 +12,10 @@ Gradients.  On the CPU the plain versions are differentiable by autograd.
 On a CUDA device, under grad mode, ``flash_attention`` sends a tensor that
 requires grad through ``FlashAttentionFn``: the forward kernel with its
 log-sum-exp saved, then the hand backward kernel
-(``kernels/flash_attention_bwd.py``).  Every other kernel has no backward
-and its wrapper raises on such a tensor, so no gradient is dropped in
-silence.
+(``kernels/flash_attention_bwd.py``), which has no window or chunk mask
+yet: a masked call there raises ``NotImplementedError``.  Every other
+kernel has no backward and its wrapper raises on such a tensor, so no
+gradient is dropped in silence.
 """
 from __future__ import annotations
 
@@ -84,35 +85,46 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None, block_q: int = 128,
-                    block_k: int = 128, device: DeviceLike = None):
+                    block_k: int = 128, window: Optional[int] = None,
+                    chunk: Optional[int] = None, device: DeviceLike = None):
     """Blockwise GQA attention (see kernels/flash_attention.py).
 
     q (B, Sq, H, D), k / v (B, Sk, KV, D); returns (B, Sq, H, D) in q's dtype.
-    On a CUDA device, under grad mode, inputs that require grad go through
-    ``FlashAttentionFn`` (forward and backward kernels).
+    ``window`` / ``chunk``: a sliding-window or chunked-local mask (None
+    for none).  On a CUDA device, under grad mode, inputs that require grad
+    go through ``FlashAttentionFn`` (forward and backward kernels); a masked
+    call there raises ``NotImplementedError``.
     """
     dev = resolve_device(device)
     q, k, v = _on(q, dev), _on(k, dev), _on(v, dev)
     if (dev.type == "cuda" and torch.is_grad_enabled()
             and any(x.requires_grad for x in (q, k, v))):
+        if window is not None or chunk is not None:
+            raise NotImplementedError(
+                "the attention backward kernel (csrc/flash_attention_bwd.cu) has no "
+                "window or chunk mask yet (ROADMAP.md queue 1, training with local "
+                "masks and experts)")
         return FlashAttentionFn.apply(q, k, v, causal, softcap)
     return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                                  block_q=block_q, block_k=block_k)
+                                  block_q=block_q, block_k=block_k,
+                                  window=window, chunk=chunk)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
                      softcap: Optional[float] = None, block_k: int = 256,
+                     window: Optional[int] = None, chunk: Optional[int] = None,
                      device: DeviceLike = None):
     """One-token GQA flash-decode (see kernels/decode_attention.py).
 
     q (B, H, D), caches (B, S, KV, D) read in place, lengths (B,) valid
-    prefix per sequence; returns (B, H, D) in q's dtype.
+    prefix per sequence, ``window`` / ``chunk`` masks as in flash_attention;
+    returns (B, H, D) in q's dtype.
     """
     dev = resolve_device(device)
     return _decode.decode_attention(
         _on(q, dev), _on(k_cache, dev), _on(v_cache, dev),
         torch.as_tensor(lengths, dtype=torch.int32, device=dev),
-        softcap=softcap, block_k=block_k,
+        softcap=softcap, block_k=block_k, window=window, chunk=chunk,
     )
 
 

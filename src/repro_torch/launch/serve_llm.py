@@ -16,15 +16,18 @@ Pipeline:
 On the card every prefill goes through the flash-attention kernel and
 every decode step through the decode-attention kernel, once per attention
 layer (for the Mamba2 hybrid, once per occurrence of its shared block),
-and every step of a hybrid through the SSD scan kernel once per Mamba2
-layer.
+each with its layer's sliding window (Gemma2's local layers) or
+chunked-local mask (Llama-4's), and every step of a hybrid through the SSD
+scan kernel once per Mamba2 layer.  An MoE layer's experts are batched
+matmuls (``layers.moe_ffn``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cpu
-        [--arch qwen2.5-32b | zamba2-1.2b] [--n-requests 120] [--rho 0.6]
-        [--gen-tokens 8]
+        [--arch qwen2.5-32b | command-r-plus-104b | gemma2-9b | gemma2-27b
+         | llama4-scout-17b-a16e | grok-1-314b | zamba2-1.2b]
+        [--n-requests 120] [--rho 0.6] [--gen-tokens 8]
 
 The CLI runs the arch's ``reduced()`` config in float32, as the example
-does; ``run_pipeline`` takes any dense or hybrid config, weights and
+does; ``run_pipeline`` takes any dense, MoE or hybrid config, weights and
 dtypes.
 """
 from __future__ import annotations
@@ -188,7 +191,8 @@ def run_pipeline(cfg: ModelConfig, params: M.LM, *, n_requests: int,
 
 def main(argv: Optional[List[str]] = None) -> PipelineResult:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen2.5-32b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen2.5-32b",
+                    choices=sorted(n for n, c in ARCHS.items() if M.supported(c)))
     ap.add_argument("--b-max", type=int, default=8)
     ap.add_argument("--n-requests", type=int, default=120)
     ap.add_argument("--rho", type=float, default=0.6)

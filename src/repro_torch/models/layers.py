@@ -1,35 +1,46 @@
 """Model building blocks (counterpart of repro.models.layers): the dense
-decoder's and the Mamba2 hybrid's.
+and MoE decoders' and the Mamba2 hybrid's.
 
-Norms, rotary embeddings, the attention block, the MLPs and the Mamba2
-block.  Projections are plain ``torch.matmul``, as the reference leaves
-them to XLA; attention and the SSD scan go to the hand-written kernels
-through ``kernels.ops``:
+Norms, rotary embeddings, the attention block, the MLPs, the MoE FFN and
+the Mamba2 block.  Projections (the experts' included) are plain
+``torch.matmul`` / ``torch.bmm``, as the reference leaves them to XLA;
+attention and the SSD scan go to the hand-written kernels through
+``kernels.ops``, each with the layer's sliding window or chunked-local
+mask (chosen per layer as the reference does):
 
   * a fresh-cache prefill (or a cache-free forward) is causal attention
     over the segment's own k, v -- ``ops.flash_attention``;
+  * a multi-token append of S rows to a cache of ``length`` rows is causal
+    attention from the new rows over the cache's prefix view ``kbuf[:,
+    :length + S]`` -- ``ops.flash_attention`` reads it in place, and its
+    bottom-right alignment puts row i at position ``length + i``;
   * a one-token decode attends over the layer's cache with
     ``lengths = length + 1`` -- ``ops.decode_attention``, which reads the
     cache in place;
   * the Mamba2 block's chunked SSD scan -- ``ops.ssd_scan`` (its plain
     version on CPU tensors).
 
-Every other case (sliding-window or chunked-local masks, a multi-token
-append to a non-empty cache) raises ``NotImplementedError`` on both
-devices: there is no plain fallback on the card.
+The caches stay full length, as the reference's: a window or a chunk
+limits the keys read, not the rows kept.  M-RoPE (qwen2-vl) raises
+``NotImplementedError`` on both devices: there is no plain fallback on the
+card.
 
 Weight layout of one attention block (``p``): ``wqkv`` (d, (H + 2 KV) hd)
 -- the reference's wq, wk, wv (d, H|KV, hd) side by side -- with
 ``bqkv``; ``wo`` (H hd, d); ``w13`` (d, 2 ff) = [w1 | w3] for gated MLPs,
 else ``w1`` (d, ff); ``w2`` (ff, d); norm scales ``ln1`` / ``ln2`` (and
 ``ln1_b`` / ``ln2_b`` for LayerNorm, ``ln1_post`` / ``ln2_post`` for
-post-block norms).  A Mamba2 block keeps the reference's names:
+post-block norms).  An MoE layer has ``router`` (d, E) and the experts
+stacked as ``w13`` (E, d, 2 ff) (``w1`` (E, d, ff) ungated) and ``w2`` (E,
+ff, d), and its shared expert, if any, as ``sw13`` (d, 2 ff) (``sw1``) and
+``sw2`` (ff, d).  A Mamba2 block keeps the reference's names:
 ``in_proj`` (d, 2 di + 2 N + H), ``out_proj`` (di, d), ``conv_w`` (K, di +
 2 N), ``dt_bias`` / ``a_log`` / ``d_skip`` (H,).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,8 +113,19 @@ def apply_rope(x, positions, theta: float, tables=None):
 def _unsupported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue 1, the model stack's "
-        "remaining item); the port runs dense full attention only"
+        "remaining item)"
     )
+
+
+def layer_masks(cfg: ModelConfig, layer_is_local: bool):
+    """(window, chunk) of a layer, as the reference picks them: Gemma2's
+    local layers take the sliding window, Llama-4's the chunk and no window;
+    global layers neither."""
+    if not layer_is_local:
+        return None, None
+    if cfg.layer_pattern == "chunked_full":
+        return None, cfg.chunk_size
+    return cfg.sliding_window, None
 
 
 def attention(
@@ -123,8 +145,7 @@ def attention(
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.mrope_sections is not None:
         raise _unsupported("M-RoPE (qwen2-vl)")
-    if layer_is_local and (cfg.sliding_window is not None or cfg.chunk_size is not None):
-        raise _unsupported("sliding-window / chunked-local attention")
+    window, chunk = layer_masks(cfg, layer_is_local)
 
     qkv = torch.matmul(x, p["wqkv"])
     if cfg.qkv_bias:
@@ -140,10 +161,9 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta, rope)
         k = apply_rope(k, positions, cfg.rope_theta, rope)
 
-    softcap = cfg.attn_softcap
+    mask = dict(softcap=cfg.attn_softcap, window=window, chunk=chunk, device=x.device)
     if kv_cache is None:
-        out = ops.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                                  device=x.device)
+        out = ops.flash_attention(q, k, v, causal=causal, **mask)
         new_cache = None
     else:
         kbuf, vbuf = kv_cache["k"], kv_cache["v"]
@@ -158,17 +178,18 @@ def attention(
         if length == 0:
             # fresh cache: attention over the buffer is attention over the
             # segment itself
-            out = ops.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                                      device=x.device)
+            out = ops.flash_attention(q, k, v, causal=causal, **mask)
         elif S == 1:
             lengths = kv_cache.get("lengths")
             if lengths is None:
                 lengths = torch.full((B,), length + 1, dtype=torch.int32,
                                      device=x.device)
-            out = ops.decode_attention(q[:, 0], kbuf, vbuf, lengths,
-                                       softcap=softcap, device=x.device)[:, None]
+            out = ops.decode_attention(q[:, 0], kbuf, vbuf, lengths, **mask)[:, None]
         else:
-            raise _unsupported("a multi-token append to a non-empty cache")
+            # an append: the new rows over the cache's prefix, in place
+            end = length + S
+            out = ops.flash_attention(q, kbuf[:, :end], vbuf[:, :end], causal=causal,
+                                      **mask)
         new_cache = {"k": kbuf, "v": vbuf, "length": length + S}
     out = torch.matmul(out.reshape(B, S, H * hd), p["wo"])
     return out, new_cache
@@ -179,14 +200,107 @@ def attention(
 # ---------------------------------------------------------------------------
 
 
+def _gated(cfg: ModelConfig, h):
+    """The activation of x [w1 | w3] (gated) or of x w1 (plain gelu)."""
+    if cfg.act not in ("swiglu", "geglu"):
+        return F.gelu(h, approximate="tanh")
+    gate, up = torch.chunk(h, 2, dim=-1)
+    return (F.silu(gate) if cfg.act == "swiglu" else F.gelu(gate, approximate="tanh")) * up
+
+
 def mlp(cfg: ModelConfig, p, x):
-    if cfg.act in ("swiglu", "geglu"):
-        gate, up = torch.chunk(torch.matmul(x, p["w13"]), 2, dim=-1)
-        act = F.silu(gate) if cfg.act == "swiglu" else F.gelu(gate, approximate="tanh")
-        h = act * up
-    else:  # plain gelu MLP
-        h = F.gelu(torch.matmul(x, p["w1"]), approximate="tanh")
-    return torch.matmul(h, p["w2"])
+    w1 = p["w13"] if cfg.act in ("swiglu", "geglu") else p["w1"]
+    return torch.matmul(_gated(cfg, torch.matmul(x, w1)), p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts -- grouped dispatch with capacity (GShard-style)
+# ---------------------------------------------------------------------------
+
+
+class MoERound(NamedTuple):
+    """One of the top_k routing rounds, per (group, token): the chosen
+    expert, its gate, the slot it takes in that expert's buffer, and
+    whether the slot is within capacity (False: the token is dropped in
+    this round)."""
+
+    expert: torch.Tensor  # (G, g) int64
+    gate: torch.Tensor  # (G, g) f32
+    slot: torch.Tensor  # (G, g) int64
+    kept: torch.Tensor  # (G, g) bool
+
+
+def moe_capacity(cfg: ModelConfig, g: int) -> int:
+    """Slots per expert and group: max(4, ceil(g k / E * capacity_factor))."""
+    return int(max(4, math.ceil(g * cfg.top_k / cfg.n_experts * cfg.moe_capacity_factor)))
+
+
+def moe_route(cfg: ModelConfig, router, xg) -> List[MoERound]:
+    """The reference's routing for tokens xg (G, g, d): an f32 softmax
+    router, then top_k argmax rounds, each masking the expert it chose;
+    a token's slot in its expert is the count of earlier claims on that
+    expert in its group -- tokens before it in this round plus every claim
+    of the earlier rounds (the cumulative sum carried as ``base``) -- and
+    slots past ``moe_capacity`` are dropped."""
+    E = cfg.n_experts
+    cap = moe_capacity(cfg, xg.shape[1])
+    gates_left = torch.softmax(torch.matmul(xg, router).float(), dim=-1)  # (G, g, E)
+    base = torch.zeros((xg.shape[0], 1, E), dtype=torch.float32, device=xg.device)
+    rounds = []
+    for _ in range(cfg.top_k):
+        idx = torch.argmax(gates_left, dim=-1)  # the first of equal maxima, as jnp
+        gate = torch.gather(gates_left, -1, idx[..., None])[..., 0]
+        onehot = F.one_hot(idx, E).float()
+        pos = torch.cumsum(onehot, dim=1) - 1.0 + base  # (G, g, E)
+        slot = torch.gather(pos, -1, idx[..., None])[..., 0]
+        rounds.append(MoERound(idx, gate, slot.long(), slot < cap))
+        base = base + onehot.sum(dim=1, keepdim=True)
+        gates_left = gates_left * (1.0 - onehot)
+    return rounds
+
+
+def moe_ffn(cfg: ModelConfig, p, x):
+    """x: (B, S, d) -> (B, S, d): the reference's ``moe_ffn``.
+
+    Tokens go in groups of ``moe_group_size`` (the last padded), are routed
+    by ``moe_route`` and copied into their experts' buffers (E, G cap, d) by
+    index -- equal to the reference's 0/1 dispatch einsum, without its (G,
+    g, E, cap) tensors; a dropped token's copy lands in one spare row that
+    is never read, so nothing waits on the host.  The experts run as two
+    batched products over E; each token gathers its kept slots' outputs
+    back, weighted by its gates (cast to x's dtype, as the reference's
+    combine), summed in f32.  A shared expert adds ``mlp`` of x.
+    """
+    B, S, d = x.shape
+    E = cfg.n_experts
+    T = B * S
+    g = min(cfg.moe_group_size, T)
+    G = -(-T // g)
+    xt = x.reshape(T, d)
+    if G * g > T:
+        xt = F.pad(xt, (0, 0, 0, G * g - T))
+    xg = xt.reshape(G, g, d)
+    rounds = moe_route(cfg, p["router"], xg)
+    cap = moe_capacity(cfg, g)
+
+    n = E * G * cap  # buffer rows; row n is the spare
+    grp = torch.arange(G, device=x.device)[:, None]
+    rows = [torch.where(r.kept, (r.expert * G + grp) * cap + r.slot, n) for r in rounds]
+    xe = torch.zeros((n + 1, d), dtype=x.dtype, device=x.device)
+    for r in rows:
+        xe[r.reshape(-1)] = xg.reshape(-1, d)
+    w1 = p["w13"] if cfg.act in ("swiglu", "geglu") else p["w1"]
+    ye = torch.bmm(_gated(cfg, torch.bmm(xe[:n].view(E, G * cap, d), w1)), p["w2"])
+    ye = ye.reshape(n, d)
+    y = torch.zeros((G, g, d), dtype=torch.float32, device=x.device)
+    for r, row in zip(rounds, rows):
+        w = torch.where(r.kept, r.gate, 0.0).to(x.dtype).float()
+        y = y + w[..., None] * ye[row.clamp(max=n - 1)].float()
+    y = y.to(x.dtype).reshape(G * g, d)[:T].reshape(B, S, d)
+    if cfg.n_shared_experts:
+        w1 = "w13" if cfg.act in ("swiglu", "geglu") else "w1"
+        y = y + mlp(cfg, {w1: p["s" + w1], "w2": p["sw2"]}, x)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The decoder stacks: init / forward / train loss / prefill / decode
-(counterpart of repro.models.model, dense and hybrid families).
+(counterpart of repro.models.model: the dense, MoE and hybrid families).
 
 The parameters are an ``nn.Module``: ``DenseLM`` (the embedding, the final
-norm, the untied output matrix and one ``nn.ParameterDict`` per layer) or
+norm, the untied output matrix and one ``nn.ParameterDict`` per layer; an
+MoE layer holds its router and stacked experts in place of the MLP) or
 ``HybridLM`` (the same top, one ``nn.ParameterDict`` of Mamba2 weights per
 layer and one ``shared`` attention + MLP block); layouts in ``layers``.
 The reference stacks layers on a leading axis and scans them; here a
@@ -10,7 +11,7 @@ Python loop walks the per-layer dicts.
 
 Cache conventions (``init_cache``):
 
-  dense  : {"k": (L, B, S, KV, hd), "v": ..., "length": int}
+  dense, moe : {"k": (L, B, S, KV, hd), "v": ..., "length": int}
   hybrid : {"ssm": (L, B, H, P, N) float32, "conv": (L, B, K-1, C),
             "attn": one {"k", "v": (B, S, KV, hd)} per occurrence of the
             shared block, "length": int}
@@ -31,11 +32,13 @@ reference's stacked leaves (a layer's ``wq`` is the first H hd columns of
 its ``wqkv``); ``gather_leaf`` / ``scatter_leaf`` read and write a leaf
 through it (Adafactor factors and clips those leaves).
 
-The dense and the Mamba2 hybrid families run.  The others (MoE, RWKV,
-encoder-decoder, VLM) raise ``NotImplementedError`` at ``init_params`` and
-at the forward passes; sliding-window and chunked-local layers raise in
-``layers.attention``.  ``lm_loss`` on the hybrid raises: the SSD scan has no
-backward kernel yet.  ROADMAP.md queue 1 lists them.
+The dense (Gemma2's local / global layers included), MoE (Llama-4 Scout's
+chunked-local layers, Grok-1) and Mamba2 hybrid families run.  The others
+(RWKV, encoder-decoder, VLM) raise ``NotImplementedError`` at
+``init_params`` and at the forward passes.  ``lm_loss`` raises on the
+hybrid (the SSD scan has no backward kernel yet) and on a configuration
+with local layers or experts (the attention backward kernel has no masks
+yet).  ROADMAP.md queue 1 lists them.
 """
 from __future__ import annotations
 
@@ -60,15 +63,20 @@ def _is_hybrid(cfg: ModelConfig) -> bool:
     return cfg.family == "hybrid"
 
 
+def supported(cfg: ModelConfig) -> bool:
+    """Whether this port runs the configuration's family."""
+    decoder = cfg.family in ("dense", "moe") and not cfg.mrope_sections
+    hybrid = _is_hybrid(cfg) and cfg.shared_attn_every > 0
+    return not cfg.rwkv and (decoder or hybrid)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a family this port cannot run yet."""
-    dense = cfg.family == "dense" and not cfg.mrope_sections
-    hybrid = _is_hybrid(cfg) and cfg.shared_attn_every > 0
-    if cfg.rwkv or cfg.n_experts or not (dense or hybrid):
+    if not supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md "
-            "queue 1, the model stack's remaining item); the port runs dense "
-            "decoders and the Mamba2 hybrid"
+            "queue 1, the model stack's remaining item); the port runs dense and "
+            "MoE decoders and the Mamba2 hybrid"
         )
 
 
@@ -85,18 +93,32 @@ def _norm_shapes(cfg: ModelConfig, norms: List[str]) -> Dict[str, tuple]:
     return {name: (cfg.d_model,) for n in norms for name in _norm_names(cfg, n)}
 
 
+def _is_gated(cfg: ModelConfig) -> bool:
+    return cfg.act in ("swiglu", "geglu")
+
+
+def _ffn_shapes(cfg: ModelConfig, prefix: str = "", lead: tuple = ()) -> Dict[str, tuple]:
+    """An MLP's weights, [w1 | w3] fused as ``w13`` when gated, each with
+    the leading axes ``lead`` (the experts' (E,))."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if _is_gated(cfg):
+        return {prefix + "w13": lead + (d, 2 * ff), prefix + "w2": lead + (ff, d)}
+    return {prefix + "w1": lead + (d, ff), prefix + "w2": lead + (ff, d)}
+
+
 def attn_mlp_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Shapes of an attention + MLP block's weights in the port's layout."""
-    d, H, KV, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                        cfg.d_ff)
+    """Shapes of an attention + MLP (or MoE) block's weights in the port's
+    layout."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shapes = {"wqkv": (d, (H + 2 * KV) * hd), "wo": (H * hd, d)}
     if cfg.qkv_bias:
         shapes["bqkv"] = ((H + 2 * KV) * hd,)
-    if cfg.act in ("swiglu", "geglu"):
-        shapes["w13"] = (d, 2 * ff)
-    else:
-        shapes["w1"] = (d, ff)
-    shapes["w2"] = (ff, d)
+    if not cfg.n_experts:
+        return {**shapes, **_ffn_shapes(cfg)}
+    shapes["router"] = (d, cfg.n_experts)
+    shapes.update(_ffn_shapes(cfg, lead=(cfg.n_experts,)))
+    if cfg.n_shared_experts:
+        shapes.update(_ffn_shapes(cfg, prefix="s"))
     return shapes
 
 
@@ -210,14 +232,15 @@ class Leaf(NamedTuple):
 
 
 def leaf_map(cfg: ModelConfig) -> Dict[str, Leaf]:
-    """The reference ``init_params`` leaves of a dense decoder, by their
+    """The reference ``init_params`` leaves of a dense or MoE decoder, by their
     ``/``-joined paths in ``jax.tree.leaves`` order (sorted keys), each
     with the port tensors that hold it."""
     check_supported(cfg)
     if cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: the leaf map covers the dense family")
-    d, H, KV, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                        cfg.d_ff)
+        raise NotImplementedError(f"{cfg.name}: the leaf map covers the dense and MoE "
+                                  "families")
+    d, H, KV, hd, ff, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           cfg.d_ff, cfg.n_experts)
     qkv = {"q": (0, H * hd, H), "k": (H * hd, (H + KV) * hd, KV),
            "v": ((H + KV) * hd, (H + 2 * KV) * hd, KV)}
     per_layer: Dict[str, Tuple[str, Optional[int], Optional[int], tuple]] = {}
@@ -226,12 +249,20 @@ def leaf_map(cfg: ModelConfig) -> Dict[str, Leaf]:
         if cfg.qkv_bias:
             per_layer[f"b{x}"] = ("bqkv", lo, hi, (n, hd))
     per_layer["wo"] = ("wo", None, None, (H, hd, d))
-    if cfg.act in ("swiglu", "geglu"):
-        per_layer["w1"] = ("w13", 0, ff, (d, ff))
-        per_layer["w3"] = ("w13", ff, 2 * ff, (d, ff))
-    else:
-        per_layer["w1"] = ("w1", None, None, (d, ff))
-    per_layer["w2"] = ("w2", None, None, (ff, d))
+
+    def ffn(prefix, lead):
+        if _is_gated(cfg):
+            per_layer[prefix + "w1"] = (prefix + "w13", 0, ff, lead + (d, ff))
+            per_layer[prefix + "w3"] = (prefix + "w13", ff, 2 * ff, lead + (d, ff))
+        else:
+            per_layer[prefix + "w1"] = (prefix + "w1", None, None, lead + (d, ff))
+        per_layer[prefix + "w2"] = (prefix + "w2", None, None, lead + (ff, d))
+
+    ffn("", (E,) if E else ())
+    if E:
+        per_layer["router"] = ("router", None, None, (d, E))
+        if cfg.n_shared_experts:
+            ffn("s", ())
     for n in block_norms(cfg):
         per_layer[f"{n}/s"] = (n, None, None, (d,))
         if cfg.norm != "rmsnorm":
@@ -288,8 +319,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def init(name, shape):
         if name in _MAMBA_CONST:
             return torch.full(shape, _MAMBA_CONST[name], dtype=dtype, device=dev)
-        if name.startswith("w") or name in ("embed", "out", "in_proj", "out_proj",
-                                            "conv_w"):
+        if name.startswith(("w", "sw")) or name in ("embed", "out", "router", "in_proj",
+                                                     "out_proj", "conv_w"):
             return torch.randn(shape, generator=generator, dtype=dtype,
                                device=dev).mul_(std)
         if cfg.norm != "rmsnorm" and name.startswith(("ln", "final_norm")) \
@@ -353,7 +384,7 @@ def _block(cfg: ModelConfig, p, h, is_local: bool, kv_cache=None, rope=None):
         a_out = L.apply_norm(cfg, a_out, p["ln1_post"], p.get("ln1_post_b"))
     h = h + a_out
     m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
-    m_out = L.mlp(cfg, p, m_in)
+    m_out = L.moe_ffn(cfg, p, m_in) if cfg.n_experts else L.mlp(cfg, p, m_in)
     if cfg.post_block_norm:
         m_out = L.apply_norm(cfg, m_out, p["ln2_post"], p.get("ln2_post_b"))
     return h + m_out, new_cache
@@ -481,6 +512,11 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
             f"{cfg.name}: training the hybrid needs a backward kernel for the SSD "
             "scan (csrc/ssd_scan.cu), which is not written yet (ROADMAP.md queue 1, "
             "hybrid training)")
+    if cfg.n_experts or cfg.layer_pattern != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: training with local masks or experts needs masks in the "
+            "attention backward kernel (csrc/flash_attention_bwd.cu), which it has "
+            "not yet (ROADMAP.md queue 1, training with local masks and experts)")
     tokens = batch["tokens"]
     h, _ = forward_lm(cfg, params, tokens, remat=remat)
     logits = _unembed(cfg, params, h[:, :-1, :]).float()

@@ -12,6 +12,7 @@ attention with ``q_offset`` / ``kv_len`` set as its ``attention`` sets them.
 The CUDA kernels themselves are held against the plain versions in
 test_torch_cuda.py.
 """
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -191,16 +192,18 @@ def test_attention_block_routes_prefill_and_decode_to_the_kernels(monkeypatch):
 
 
 def test_unported_attention_cases_raise():
+    """M-RoPE (qwen2-vl) is the attention case still unported; a multi-token
+    append and the window / chunk masks run (tests/test_torch_local_moe.py)."""
     cfg = PARCHS["qwen2.5-32b"].reduced()
     p = params_from_reference(cfg, _tree(cfg), device="cpu").blocks[0]
     x = torch.zeros(1, 3, cfg.d_model)
+    vlm = dataclasses.replace(cfg, mrope_sections=(2, 3, 3))
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        PL.attention(vlm, p, x)
     kv = {"k": torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim), "length": 2}
     kv["v"] = torch.zeros_like(kv["k"])
-    with pytest.raises(NotImplementedError, match="multi-token append"):
-        PL.attention(cfg, p, x, kv_cache=kv)
-    gemma = PARCHS["gemma2-9b"].reduced()
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        PL.attention(gemma, p, x, layer_is_local=True)
+    out, kv = PL.attention(cfg, p, x, kv_cache=kv)
+    assert out.shape == x.shape and kv["length"] == 5
 
 
 def _tree(cfg):

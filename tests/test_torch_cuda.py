@@ -992,6 +992,138 @@ def test_reduced_model_card_matches_cpu(cuda):
     assert counts["decode_attention"] == cfg.n_layers * 4
 
 
+# --- window and chunk masks (Gemma2, Llama-4) ---------------------------------
+
+#: (B, Sq, Sk, H, KV, D, causal, softcap, window, chunk): the reduced
+#: configs' masks (window 32, chunk 32), then the edges of the kernel's
+#: tile plan: a window or chunk smaller than a 64-key block and not a
+#: multiple of one (1, 5, 7, 37, 50, 100, 130), a q tile whose span starts
+#: mid-block, chunk boundaries inside key blocks, an append (Sq < Sk: rows
+#: at Sk - Sq + i), rows that see no key (Sq > Sk), a window with causal
+#: off, softcap, and Gemma2-9B's and -27B's heads (16 / 8 x 256, 32 / 16 x
+#: 128) at a window over several blocks
+MASK_FLASH_CASES = [
+    (2, 80, 80, 4, 2, 16, True, None, 32, None),
+    (2, 80, 80, 4, 2, 16, True, None, None, 32),
+    (2, 300, 300, 4, 2, 64, True, None, 1, None),
+    (2, 300, 300, 4, 2, 64, True, 30.0, 5, None),
+    (1, 300, 300, 8, 2, 128, True, None, 37, None),
+    (1, 300, 300, 8, 2, 128, True, None, 100, None),
+    (2, 300, 300, 4, 1, 64, True, None, None, 7),
+    (1, 300, 300, 8, 2, 128, True, None, None, 50),
+    (1, 300, 300, 4, 4, 64, True, 50.0, None, 130),
+    (1, 70, 330, 8, 2, 128, True, None, 100, None),
+    (1, 70, 330, 8, 2, 128, True, None, None, 100),
+    (2, 150, 90, 4, 1, 64, True, None, 37, None),
+    (2, 150, 90, 4, 1, 64, True, None, None, 50),
+    (1, 200, 200, 4, 2, 64, False, None, 37, None),
+    (1, 200, 200, 4, 2, 64, False, None, None, 50),
+    (1, 700, 700, 16, 8, 256, True, 50.0, 300, None),
+    (1, 700, 700, 32, 16, 128, True, 50.0, 300, None),
+    (1, 700, 700, 40, 8, 128, True, None, None, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,cap,window,chunk", MASK_FLASH_CASES)
+def test_flash_kernel_masks(cuda, B, Sq, Sk, H, KV, D, causal, cap, window, chunk, dtype):
+    rng = np.random.default_rng(Sq * Sk + D + (window or 0) + 7 * (chunk or 0))
+    q = _normal(rng, (B, Sq, H, D), dtype, cuda)
+    k, v = (_normal(rng, (B, Sk, KV, D), dtype, cuda) for _ in range(2))
+    mask = dict(causal=causal, softcap=cap, window=window, chunk=chunk)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.attention_ref(q, k, v, **mask)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.float32 and causal:  # the lse the backward would read
+        _, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+        torch.testing.assert_close(lse, fa.lse_ref(q, k, **mask), atol=1e-5, rtol=1e-5)
+
+
+#: (B, S, H, KV, D, window, chunk, lengths): lengths below, at and past the
+#: window or the chunk boundary, ragged, 0 (a uniform average), a window
+#: smaller than a split, Gemma2-9B's heads (16 / 8 x 256) and Llama-4's
+#: (40 / 8 x 128) over caches deep enough to split
+MASK_DECODE_CASES = [
+    (4, 300, 8, 2, 64, 32, None, [0, 20, 32, 300]),
+    (4, 300, 8, 2, 64, None, 32, [1, 32, 33, 300]),
+    (4, 300, 8, 2, 64, 5, None, [3, 5, 6, 299]),
+    (3, 300, 8, 2, 64, None, 7, [7, 8, 200]),
+    (4, 2048, 16, 8, 256, 1000, None, [999, 1000, 1001, 2048]),
+    (3, 2048, 40, 8, 128, None, 1024, [1023, 1024, 1025]),
+    (1, 4096, 40, 8, 128, None, 1000, [3001]),
+    (2, 4096, 16, 8, 256, 3000, None, [4096, 2999]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,window,chunk,lengths", MASK_DECODE_CASES)
+def test_decode_kernel_masks(cuda, B, S, H, KV, D, window, chunk, lengths, dtype):
+    rng = np.random.default_rng(S + D + (window or 0))
+    q = _normal(rng, (B, H, D), dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(B * S)
+    cache = torch.randn((2, 2, B, S, KV, D), generator=gen, device=cuda).to(dtype)
+    kc, vc = cache[0, 1], cache[1, 0]
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    mask = dict(window=window, chunk=chunk)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, kc, vc, lens, **mask)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), da.decode_attention_ref(q, kc, vc, lens, **mask)
+                               .float(), **ATTN_TOL[dtype])
+    if dtype == torch.float32:  # the split arithmetic over the masked span
+        n = da._split_plan(B, da.span_cap(S, window, chunk), KV, da._sm_count(cuda))
+        want = da.decode_attention_split_ref(q, kc, vc, lens, n, **mask)
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
+
+
+def test_masked_flash_under_grad_raises(cuda):
+    """The backward kernel has no masks: a masked call on tensors that
+    require grad raises instead of dropping the mask."""
+    q, k, v, _ = _bwd_inputs(5, 1, 64, 64, 4, 2, 64, torch.float32, cuda)
+    q.requires_grad_(True)
+    for mask in (dict(window=16), dict(chunk=32)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ops.flash_attention(q, k, v, **mask)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "llama4-scout-17b-a16e", "grok-1-314b"])
+def test_chunked_prefill_on_the_card(cuda, arch):
+    """Reduced configs in f32 on the card: a 40-token prefill then a
+    16-token append (flash over the cache's prefix) equal the one-shot
+    56-token prefill in logits and cache, and the CPU's plain path; each
+    append launches flash once a layer.  The experts are drop-free here
+    (capacity factor E / top_k), as the groups of the two paths differ."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 56)))
+    out = {}
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        t = toks.to(p.device)
+        _, cache = M.prefill(cfg, p, {"tokens": t[:, :40]}, 64, torch.float32)
+        before = fa.flash_attention.launches
+        with torch.inference_mode():
+            h, cache = M.forward(cfg, p, t[:, 40:], cache=cache)
+        if name == "cuda":
+            assert fa.flash_attention.launches == before + cfg.n_layers
+        one, cache1 = M.prefill(cfg, p, {"tokens": t}, 64, torch.float32)
+        out[name] = (M._unembed(cfg, p, h).cpu(), cache, one.cpu(), cache1)
+    lg, cache, one, cache1 = out["cuda"]
+    torch.testing.assert_close(lg[:, -1:], one, atol=3e-4, rtol=0)
+    for key in ("k", "v"):
+        torch.testing.assert_close(cache[key], cache1[key], atol=3e-5, rtol=0)
+    torch.testing.assert_close(lg, out["cpu"][0], atol=3e-4, rtol=0)
+
+
 # --- the fleet event kernel ---------------------------------------------------
 
 FLEET_BMAX = 16

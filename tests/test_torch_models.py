@@ -128,15 +128,23 @@ def test_greedy_segment_tokens_match_reference(qwen):
     assert ex.segments == 1
 
 
-def test_unported_families_raise():
+@pytest.mark.parametrize("name,what", [
+    ("rwkv6-3b", "init_params"), ("whisper-small", "init_params"),
+    ("qwen2-vl-7b", "init_params"),
+    # training with local masks or experts: the backward kernel has no masks
+    ("gemma2-9b", "lm_loss"), ("llama4-scout-17b-a16e", "lm_loss"),
+])
+def test_unported_families_raise(name, what):
+    cfg = PARCHS[name].reduced()
     gen = torch.Generator().manual_seed(0)
-    for name in ("grok-1-314b", "rwkv6-3b", "whisper-small", "qwen2-vl-7b"):
+    if what == "init_params":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(PARCHS[name].reduced(), gen, device="cpu")
-    gemma = PARCHS["gemma2-9b"].reduced()
-    params = M.init_params(gemma, gen, device="cpu")  # dense: the weights build
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        M.prefill(gemma, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8)
+            M.init_params(cfg, gen, device="cpu")
+        return
+    params = M.init_params(cfg, gen, device="cpu")  # the weights build; serving runs
+    M.prefill(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.lm_loss(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
 
 
 def test_init_params_dtype_device_and_seed():
