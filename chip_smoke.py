@@ -212,17 +212,18 @@
    attention at Zamba2's 32 / 32 heads of 64, held and timed beside SDPA;
    the reduced Zamba2 in f32 on the card against the CPU (launch counts
    exact), full width at depth 7 (decode path against fresh prefills);
-   then Zamba2-1.2B at its published width with 19 of its 38 layers (the
-   shared block 3 times, bf16) through serve_llm.run_pipeline with the
-   Qwen path's constants, launch counts exact (flash 3 x segments, decode
-   3 x 15 x segments, SSD 19 x 16 x segments with the first pass 19 x
+   then Zamba2-1.2B at its published width with 12 of its 38 layers (the
+   shared block twice, bf16) through serve_llm.run_pipeline with the
+   Qwen path's constants, launch counts exact (flash 2 x segments, decode
+   2 x 15 x segments, SSD 12 x 16 x segments with the first pass 12 x
    segments, Bellman the solve's backups), peak memory, and a profiled
    b = 8 prefill and decode step with the SSD kernels' share.
 8b. Phase 4l, local masks and experts, counters zeroed just before and
    read just after each model's serving run: Gemma2-9B at its published
-   size (42 layers, bf16, random weights) and Llama-4 Scout at its
-   published width with 4 of its 48 layers (3 chunked-local, 1 full; 16
-   experts top-1 plus the shared expert) through serve_llm.run_pipeline
+   width with 14 of its 42 layers (7 local / global pairs, bf16, random
+   weights) and Llama-4 Scout at its published width with 4 of its 48
+   layers (3 chunked-local, 1 full; 16 experts top-1 plus the shared
+   expert) through serve_llm.run_pipeline
    with the Qwen path's constants, launch counts exact (flash one a layer
    a segment, decode one a layer a step, Bellman the solve's backups),
    peak memory, each model freed before the next.  Long contexts in f32 at full width, b = 1, each decode
@@ -233,6 +234,22 @@
    decode steps across the 8192 chunk boundary against a 9216-token
    forward.  Grok-1 at full width with 1 layer in f32 (8 experts top-2,
    softcap 30): the kernel path against the plain path on the card.
+8c. Phase 4m, RWKV6 (Finch): the WKV6 scan kernel against its plain
+   version at 2e-5 of the largest |entry| of y and of the final state (S 1
+   / 2 / 63 / 64 / 65 / 1000 x P 16 / 32 / 64 x B H 1 / 680, decays 0.9999
+   to 6e-4, a nonzero bonus, zero and random incoming state, f32 and bf16
+   r / k / v; in place) and at the serving path's prefill (8 x 128, 40
+   heads of 64) and decode (8 x 1), timed there beside its plain version
+   and its bound.  Then RWKV6-3B at its published width with 16 of its 32
+   layers (bf16, random weights) through serve_llm.run_pipeline with the
+   Qwen path's constants, counters zeroed just before and read just after:
+   one WKV6 launch a layer a step (16 x 16 a segment), Bellman the solve's
+   backups, peak memory.  Long context in f32 at full width, 4 layers, b =
+   1: a 2048-token prefill, a 128-token continuation from the cache and 32
+   decode steps, each position's logits held to a one-shot forward of the
+   2208 tokens at 3e-4.  Last, 2 layers in f32 with the bonus, the decay
+   base and ln_x drawn from a seed: the kernel path against the plain path
+   on the card (b 2, prompt 256, 8 steps), logits at 3e-4, tokens equal.
 9. Phase 4j, training (examples/train_100m.py --full through the port):
    the attention backward kernel (csrc/flash_attention_bwd.cu) against
    autograd through the plain attention at the path's shape (b 8 x 256,
@@ -4162,9 +4179,10 @@ SSD_HEADS = [(64, 64, 64), (8, 16, 16)]  # Zamba2's (H, P, N) and the reduced co
 SSD_EARLIER_MS = {(128, "bfloat16"): 0.512904, (1, "bfloat16"): 0.014864,
                   (128, "float32"): 0.520782, (1, "float32"): 0.014720}
 HYBRID_DEPTH = 7  # six Mamba2 layers, the shared block, one more layer
-#: the hybrid's serving depth: Zamba2-1.2B at its published width with 19 of
-#: its 38 layers (the shared block 3 times; a cut for the time limit)
-HYBRID_SERVE_LAYERS = 19
+#: the hybrid's serving depth: Zamba2-1.2B at its published width with 12 of
+#: its 38 layers (the shared block twice; a cut for the time limit: 19 until
+#: the script took 1122 s with phase 4m on an H100 80GB HBM3)
+HYBRID_SERVE_LAYERS = 12
 
 
 def _ssd_inputs(torch, np, rng, B, S, H, P, N, dtype, zero_state):
@@ -4509,8 +4527,10 @@ def hybrid_phase(torch, np, kernels, rows):
 # ---------------------------------------------------------------------------
 
 GEMMA_ARCH, LLAMA4_ARCH, GROK_ARCH = "gemma2-9b", "llama4-scout-17b-a16e", "grok-1-314b"
-#: Llama-4 Scout at its published width with one pattern unit of its 48
-#: layers (3 chunked-local, 1 full): a depth cut for time
+#: Gemma2-9B at its published width with 14 of its 42 layers (7 local /
+#: global pairs), and Llama-4 Scout with one pattern unit of its 48 layers
+#: (3 chunked-local, 1 full): depth cuts for time
+GEMMA_SERVE_LAYERS = 14
 LLAMA4_LAYERS = 4
 #: the long-context checks, f32 at full width (the decode-vs-forward bound
 #: is an f32 bound; bf16 rounding alone exceeds it): Gemma2-9B at 8 of its
@@ -4528,8 +4548,8 @@ GROK_CHECK = dict(batch=2, prompt=256, steps=8)
 
 
 class _PlainOps:
-    """The attention entry points as layers.py calls them, on the kernels'
-    plain versions: the plain path on the card."""
+    """The attention and WKV6 entry points as layers.py calls them, on the
+    kernels' plain versions: the plain path on the card."""
 
     @staticmethod
     def flash_attention(q, k, v, *, causal=True, softcap=None, window=None, chunk=None,
@@ -4545,6 +4565,11 @@ class _PlainOps:
         return da.decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap,
                                        window=window, chunk=chunk)
 
+    @staticmethod
+    def wkv6_scan(r, k, v, w, u, state=None, *, state_out=None, device=None):
+        from repro_torch.kernels import wkv6_scan as wk
+        return wk.wkv6_scan_ref(r, k, v, w, u, state, state_out=state_out)
+
 
 def _free(torch, what):
     torch.cuda.synchronize()
@@ -4552,28 +4577,23 @@ def _free(torch, what):
     log(f"{what} freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
 
 
-def local_serve(torch, np, kernels, rows, arch, n_layers):
-    """``arch`` at its published width with ``n_layers`` layers (bf16, random
-    weights) through serve_llm.run_pipeline with the Qwen cell's traffic,
-    launch counts exact."""
-    from repro_torch.configs import ARCHS
+def serve_model(torch, np, kernels, arch, cfg, describe, want):
+    """``cfg`` (bf16, random weights) through serve_llm.run_pipeline with the
+    Qwen cell's traffic, counters zeroed just before and read just after;
+    ``want(L, segments)`` gives the exact launch counts by wrapper (the
+    Bellman backups are added).  Logs l(b), each scheduler's serve and the
+    peak memory, frees the model and returns the counts."""
     from repro_torch.launch import serve_llm
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    n_local = sum(M._layer_is_local(cfg, i) for i in range(cfg.n_layers))
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"{arch} (published width, {cfg.n_layers} of its {ARCHS[arch].n_layers} layers, "
-        f"{n_local} local: d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
-        f"hd={cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} window={cfg.sliding_window} "
-        f"chunk={cfg.chunk_size} experts={cfg.n_experts} top_k={cfg.top_k} "
-        f"shared={cfg.n_shared_experts}) bf16 random weights: {n_params / 1e9:.3f} B "
-        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+    log(f"{arch} ({describe}) bf16 random weights: {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
         f"{time.perf_counter() - t0:.2f} s")
 
     def note(msg):
@@ -4587,14 +4607,12 @@ def local_serve(torch, np, kernels, rows, arch, n_layers):
         log=note)
     counts = kernels.launch_counts()
     wall = time.perf_counter() - t0
-    L, seg = cfg.n_layers, res.segments
-    want = {"flash_attention": L * seg, "decode_attention": L * (LLM_GEN - 1) * seg,
-            "bellman_banded": _backups_of(res.solution, "cuda")}
-    for name, n in want.items():
+    seg = res.segments
+    exact = {**want(cfg.n_layers, seg), "bellman_banded": _backups_of(res.solution, "cuda")}
+    for name, n in exact.items():
         check(counts[name] == n, f"{arch}: {name} launched {counts[name]} times, not {n}")
-    log(f"{arch} path launches exact ({res.segments} segments, wall {wall:.2f} s): flash "
-        f"{L} x {seg}, decode {L} x {LLM_GEN - 1} x {seg}, Bellman "
-        f"{want['bellman_banded']} backups")
+    log(f"{arch} path launches exact ({seg} segments, {cfg.n_layers} layers, wall "
+        f"{wall:.2f} s): " + ", ".join(f"{k} {v}" for k, v in exact.items()))
     log(f"{arch} l(b) ms, b = 1..8 (non-decreasing): "
         + " ".join(f"{x:.3f}" for x in res.lat_ms))
     for name, rep in res.reports.items():
@@ -4607,12 +4625,33 @@ def local_serve(torch, np, kernels, rows, arch, n_layers):
     check(all(np.isfinite(res.lat_ms)) and res.lat_ms[0] > 0, f"{arch} l(b) profile")
     log(f"{arch} peak memory (torch.cuda.max_memory_allocated): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del params
+    _free(torch, arch)
+    return counts
+
+
+def local_serve(torch, np, kernels, rows, arch, n_layers):
+    """``arch`` at its published width with ``n_layers`` layers through
+    serve_model: one flash launch a layer a segment, one decode launch a
+    layer a decode step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
+    n_local = sum(M._layer_is_local(cfg, i) for i in range(cfg.n_layers))
+    counts = serve_model(
+        torch, np, kernels, arch, cfg,
+        f"published width, {cfg.n_layers} of its {ARCHS[arch].n_layers} layers, "
+        f"{n_local} local: d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"hd={cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} window={cfg.sliding_window} "
+        f"chunk={cfg.chunk_size} experts={cfg.n_experts} top_k={cfg.top_k} "
+        f"shared={cfg.n_shared_experts}",
+        lambda L, seg: {"flash_attention": L * seg,
+                        "decode_attention": L * (LLM_GEN - 1) * seg})
     for name in ("flash_attention", "decode_attention"):
         rows[name].setdefault("launches_local_path", {})[arch] = counts[name]
     rows["bellman_banded"].setdefault("launches_local_path", {})[arch] = counts[
         "bellman_banded"]
-    del params
-    _free(torch, arch)
 
 
 def long_context_check(torch, arch, layers, prefill, append, steps, total, **replace):
@@ -4719,7 +4758,7 @@ def local_moe_phase(torch, np, kernels, rows):
     from repro_torch.configs import ARCHS
 
     t0 = time.perf_counter()
-    local_serve(torch, np, kernels, rows, GEMMA_ARCH, ARCHS[GEMMA_ARCH].n_layers)
+    local_serve(torch, np, kernels, rows, GEMMA_ARCH, GEMMA_SERVE_LAYERS)
     long_context_check(torch, GEMMA_ARCH, **GEMMA_LONG)
     local_serve(torch, np, kernels, rows, LLAMA4_ARCH, LLAMA4_LAYERS)
     scout = ARCHS[LLAMA4_ARCH]
@@ -4727,6 +4766,211 @@ def local_moe_phase(torch, np, kernels, rows):
                        moe_capacity_factor=scout.n_experts / scout.top_k)
     grok_check(torch, np, kernels)
     log(f"phase 4l (Gemma2-9B, Llama-4 Scout, Grok-1): {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: RWKV6 (Finch) -- the WKV6 scan kernel and RWKV6-3B served
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-3b"
+WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv6_scan.cu"
+WKV_REPLACES = ("src/repro/models/layers.py:599-627 (the lax.scan of rwkv6_time_mix's "
+                "step; a scan, not a Pallas kernel)")
+#: of the largest |entry| of y and of the final state: both versions compute
+#: in f32 from the same rounded inputs, the sums in another order
+WKV_TOL = 2e-5
+#: the kernel's edges: one step (decode), two, around and past its 32-step
+#: staging tile, a long walk; every head size it is built for; one block and
+#: 680 (B, H) blocks (over two waves)
+WKV_EDGE_S, WKV_EDGE_P, WKV_EDGE_BH = (1, 2, 63, 64, 65, 1000), (16, 32, 64), ((1, 1),
+                                                                               (17, 40))
+#: RWKV6-3B's serving depth: 16 of its 32 layers at its published width (a
+#: cut for time: with all 32 the script took 963 s on an H100 80GB HBM3,
+#: over the 950 s it aims at)
+RWKV_SERVE_LAYERS = 16
+#: f32 at full width, b = 1: a prefill, a continuation from the cache and
+#: decode steps, held to a one-shot forward of all the tokens
+RWKV_LONG = dict(layers=4, prefill=2048, append=128, steps=32, total=2208)
+#: the kernel path against the plain path on the card: 2 layers, f32, with
+#: the bonus, the decay base and ln_x drawn from a seed
+RWKV_CHECK = dict(layers=2, batch=2, prompt=256, steps=8)
+
+
+def _wkv_inputs(torch, gen, B, S, H, P, dtype, zero_state):
+    """r, k, v at 0.5 in ``dtype``; decays exp(-exp(w_log)), w_log uniform on
+    [-9, 2] (w from 0.9999 down to 6e-4); a nonzero bonus; the incoming
+    state random or None: tests/test_torch_cuda.py's law, drawn on the card
+    from ``gen`` (cheaper than numpy on the host for the S = 1000 cases)."""
+    f = dict(dtype=torch.float32, device="cuda", generator=gen)
+    r, k, v = (torch.randn((B, S, H, P), **f).mul_(0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((B, S, H, P), **f).mul_(11.0).sub_(9.0)))
+    u = torch.randn((H, P), **f).mul_(0.5)
+    state = None if zero_state else torch.randn((B, H, P, P), **f).mul_(0.5)
+    return r, k, v, w, u, state
+
+
+def wkv_work(B, S, H, P, item, with_state):
+    """(operations, bytes) of the WKV6 scan: 5 flops a state entry a step
+    (r^T S into y, w S + k v^T), and 5 a channel for the rank-1 bonus,
+    y += v (sum_i r_i u_i k_i); bytes: r, k, v in their dtype, w and y in
+    f32, u, the state read (when given) and written once."""
+    ops = 5 * B * S * H * P * P + 5 * B * S * H * P
+    nbytes = (3 * item * B * S * H * P + 4 * 2 * B * S * H * P + 4 * H * P
+              + 4 * B * H * P * P * (2 if with_state else 1))
+    return ops, nbytes
+
+
+def _wkv_err(torch, got, want):
+    """max abs error, and its bar: WKV_TOL of the largest |entry|."""
+    return (got - want).abs().max().item(), WKV_TOL * want.abs().max().item()
+
+
+def wkv_row(torch, gen, B, S, dtype, reps):
+    """The WKV6 kernel and its plain version timed at RWKV6-3B's heads (CUDA
+    graphs of back-to-back calls), beside the bound; the state as the cache
+    hands it in."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import wkv6_scan as wk
+
+    H, P = ARCHS[RWKV_ARCH].n_heads, ARCHS[RWKV_ARCH].head_dim
+    args = _wkv_inputs(torch, gen, B, S, H, P, dtype, False)
+    ms = device_ms(torch, lambda: wk.wkv6_scan(*args), reps)
+    plain = device_ms(torch, lambda: wk.wkv6_scan_ref(*args), max(2, reps // S))
+    ops, nbytes = wkv_work(B, S, H, P, args[0].element_size(), True)
+    b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+    dt = str(dtype).replace("torch.", "")
+    log(f"wkv6_scan b={B} S={S} (H, P)={(H, P)} {dt}: kernel_ms={ms:.6f} "
+        f"plain_ms={plain:.6f} library_ms=null (no PyTorch call computes it) "
+        f"bound_ms={b_ms:.6f} ({b_by}; {ops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB; "
+        f"{ms / b_ms:.2f}x the bound)")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=[B, S, H, P], dtype=dt)
+
+
+def wkv_checks(torch, rows):
+    """The WKV6 kernel against wkv6_scan_ref at the edges of its design and
+    at the serving path's shapes, in place, then timed at the path's prefill
+    and decode."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import wkv6_scan as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    H, P = ARCHS[RWKV_ARCH].n_heads, ARCHS[RWKV_ARCH].head_dim
+    cases = [(B, S, Hc, Pc) for S in WKV_EDGE_S for Pc in WKV_EDGE_P
+             for B, Hc in WKV_EDGE_BH]
+    cases += [(LLM_B_MAX, LLM_PROMPT, H, P), (LLM_B_MAX, 1, H, P)]
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst, n = dict.fromkeys(dts, 0.0), 0
+    for B, S, Hc, Pc in cases:
+        for zero in (True, False):
+            for dt, dtype in dts.items():
+                args = _wkv_inputs(torch, gen, B, S, Hc, Pc, dtype, zero)
+                y, st = wk.wkv6_scan(*args)
+                y_ref, st_ref = wk.wkv6_scan_ref(*args)
+                torch.cuda.synchronize()
+                for what, g, w in (("y", y, y_ref), ("state", st, st_ref)):
+                    e, bar = _wkv_err(torch, g, w)
+                    check(e <= bar, f"wkv6_scan {(B, S, Hc, Pc)} zero_state={zero} {dt} "
+                                    f"{what}: max abs err {e}, bar {bar}")
+                    worst[dt] = max(worst[dt], e)
+                n += 1
+    log(f"wkv6_scan against wkv6_scan_ref on the card: {n} cases (S {WKV_EDGE_S} x P "
+        f"{WKV_EDGE_P} x (B, H) {WKV_EDGE_BH}, and the path's 8 x 128 / 8 x 1 at (H, P) "
+        f"{(H, P)}; zero / random state x f32 / bf16): max_abs_err f32 "
+        f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e} (each within {WKV_TOL} of "
+        f"its output's largest |entry|) ok")
+    for S in (1, LLM_PROMPT):
+        r, k, v, w, u, st = _wkv_inputs(torch, gen, LLM_B_MAX, S, H, P, torch.bfloat16, False)
+        y_ref, st_ref = wk.wkv6_scan_ref(r, k, v, w, u, st)
+        y, out = wk.wkv6_scan(r, k, v, w, u, st, state_out=st)
+        torch.cuda.synchronize()
+        errs = [_wkv_err(torch, y, y_ref), _wkv_err(torch, out, st_ref)]
+        check(out.data_ptr() == st.data_ptr() and all(e <= bar for e, bar in errs),
+              f"wkv6_scan in place at S={S}: {errs}")
+    log("wkv6_scan with state_out = the incoming state (the cache updated in place), "
+        "prefill and decode, ok")
+    main = wkv_row(torch, gen, LLM_B_MAX, LLM_PROMPT, torch.bfloat16, 50)
+    others = [wkv_row(torch, gen, LLM_B_MAX, 1, torch.bfloat16, 200),
+              wkv_row(torch, gen, LLM_B_MAX, LLM_PROMPT, torch.float32, 50),
+              wkv_row(torch, gen, LLM_B_MAX, 1, torch.float32, 200)]
+    rows["wkv6_scan"] = dict(route="cuda", source=WKV_SOURCE, replaces=WKV_REPLACES,
+                             max_abs_err=max(worst.values()), **main,
+                             max_abs_err_by_dtype=worst, other_shapes=others)
+
+
+def rwkv_serve(torch, np, kernels, rows):
+    """RWKV6-3B at its published width, RWKV_SERVE_LAYERS layers, through
+    serve_model: one WKV6 launch a layer a step, no attention."""
+    from repro_torch.configs import ARCHS
+
+    full = ARCHS[RWKV_ARCH]
+    cfg = dataclasses.replace(full, n_layers=RWKV_SERVE_LAYERS)
+    counts = serve_model(
+        torch, np, kernels, RWKV_ARCH, cfg,
+        f"published width, {cfg.n_layers} of its {full.n_layers} layers: d={cfg.d_model} "
+        f"{cfg.n_heads} heads x {cfg.head_dim}, channel mix {cfg.d_ff}, "
+        f"V={cfg.vocab_size}, {cfg.norm}, untied",
+        lambda L, seg: {"wkv6_scan": L * LLM_GEN * seg, "flash_attention": 0,
+                        "decode_attention": 0})
+    rows["wkv6_scan"]["launches"] = counts["wkv6_scan"]
+    rows["bellman_banded"]["launches_rwkv_path"] = counts["bellman_banded"]
+
+
+def rwkv_kernel_vs_plain(torch, np, kernels):
+    """RWKV6-3B at full width, 2 layers, f32, with u_bonus, w_base and ln_x
+    drawn from a numpy seed: prefill and greedy decode through the kernel
+    against the same weights through the plain path on the card."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    c = RWKV_CHECK
+    cfg = dataclasses.replace(ARCHS[RWKV_ARCH], n_layers=c["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           torch.float32, "cuda")
+    rng = np.random.default_rng(33)
+    with torch.no_grad():
+        for p in params.blocks:
+            for name, draw in (("u_bonus", lambda s: rng.normal(0.0, 0.5, s)),
+                               ("w_base", lambda s: rng.uniform(-9.0, 2.0, s)),
+                               ("ln_x", lambda s: rng.normal(0.0, 0.3, s))):
+                p[name].copy_(torch.as_tensor(draw(tuple(p[name].shape))))
+    B, P, steps = c["batch"], c["prompt"], c["steps"]
+    toks = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+    kernels.reset_launch_counts()
+    got, got_toks = _greedy_logits(torch, M, cfg, params, toks, steps, P + steps)
+    counts = kernels.launch_counts()
+    check(counts["wkv6_scan"] == cfg.n_layers * (steps + 1),
+          f"rwkv kernel path launches {counts}")
+    kernel_ops = L.ops
+    L.ops = _PlainOps
+    try:
+        want, want_toks = _greedy_logits(torch, M, cfg, params, toks, steps, P + steps)
+    finally:
+        L.ops = kernel_ops
+    check(kernels.launch_counts() == counts, "the plain path launched a kernel")
+    e = (got - want).abs().max().item()
+    check(e <= LOGIT_ATOL and all(torch.equal(a, b) for a, b in zip(got_toks, want_toks)),
+          f"rwkv kernel path vs plain path: max abs err {e}")
+    log(f"{RWKV_ARCH} full width (d={cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, "
+        f"{cfg.n_layers} layers) f32, u_bonus / w_base / ln_x drawn from a seed: prefill "
+        f"{B} x {P} + {steps} decode steps, kernel path vs plain path on the card: "
+        f"max_abs_err={e:.3e} (atol {LOGIT_ATOL}), greedy tokens equal; logit scale "
+        f"{got.abs().max().item():.3f}; kernel path launches wkv6_scan "
+        f"{counts['wkv6_scan']}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ok")
+    del params
+    _free(torch, f"{RWKV_ARCH} check model")
+
+
+def rwkv_phase(torch, np, kernels, rows):
+    t0 = time.perf_counter()
+    wkv_checks(torch, rows)
+    rwkv_serve(torch, np, kernels, rows)
+    long_context_check(torch, RWKV_ARCH, **RWKV_LONG)
+    rwkv_kernel_vs_plain(torch, np, kernels)
+    log(f"phase 4m (RWKV6-3B): {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5253,6 +5497,11 @@ def main():
     local_moe_phase(torch, np, kernels, rows)
     mark("4l local masks and MoE", t0)
 
+    # --- RWKV6-3B: the WKV6 scan kernel, served, long context (4m) ----------
+    t0 = time.perf_counter()
+    rwkv_phase(torch, np, kernels, rows)
+    mark("4m RWKV6", t0)
+
     # --- training: the backward kernel, qwen2.5-100m --full, the resume (4j)
     t0 = time.perf_counter()
     train_phase(torch, np, kernels, rows)
@@ -5264,7 +5513,7 @@ def main():
              "serve_scan_mix", "serve_scan_grid_mix", "belief_forward",
              "fleet_scan", "fleet_scan_grid", "fleet_scan_mix",
              "mmpp_sample", "sim_scan", "flash_attention", "decode_attention",
-             "ssd_scan", "flash_attention_bwd")
+             "ssd_scan", "flash_attention_bwd", "wkv6_scan")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_list = []

@@ -13,7 +13,8 @@ it.
     policy into the port's ``SMDPScheduler``;
   * ``params_from_reference(cfg, params)`` turns the reference's
     ``init_params`` tree (layers stacked on a leading axis) into the
-    port's ``DenseLM`` or, for the hybrid family, ``HybridLM``;
+    port's ``DenseLM`` or, for the hybrid family, ``HybridLM`` and, for
+    RWKV6, ``RwkvLM``;
   * ``reference_tree(cfg, tensors)`` is the reverse of
     ``params_from_reference`` for any tensors in the port's layout
     (gradients, optimizer moments) of a dense or MoE decoder: the
@@ -36,11 +37,13 @@ from .models.model import (
     LM,
     DenseLM,
     HybridLM,
+    RwkvLM,
     block_norms,
     check_supported,
     gather_leaf,
     leaf_map,
     mamba_shapes,
+    rwkv_shapes,
 )
 from .serving.scheduler import SMDPScheduler
 
@@ -93,8 +96,8 @@ def table_from_reference(result) -> SMDPScheduler:
 
 def params_from_reference(cfg: ModelConfig, params, *,
                           device: DeviceLike = None) -> LM:
-    """The port's DenseLM (HybridLM for the hybrid family) holding a
-    reference ``init_params`` tree.
+    """The port's DenseLM (HybridLM for the hybrid family, RwkvLM for
+    RWKV6) holding a reference ``init_params`` tree.
 
     ``params`` is the reference's nested dict with numpy (or array-like)
     leaves.  The stacked leading L axis is split into per-layer tensors;
@@ -103,8 +106,10 @@ def params_from_reference(cfg: ModelConfig, params, *,
     halves of ``w13`` (an MoE layer's stacked (E, d, ff) experts on their
     last axis, its shared expert's sw1 / sw3 of ``sw13``; ``router`` as
     it is); the hybrid's Mamba2 weights keep their names and its
-    ``shared_attn`` block gets the same attention / MLP layout; norms and
-    the output matrix carry over, all in the arrays' own dtype.
+    ``shared_attn`` block gets the same attention / MLP layout; an RWKV6
+    layer keeps its names, wr / wk / wv / wg (d, H, P) becoming (d, H P)
+    and wo (H, P, d) becoming (H P, d), every other leaf as it is; norms
+    and the output matrix carry over, all in the arrays' own dtype.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -154,7 +159,13 @@ def params_from_reference(cfg: ModelConfig, params, *,
     blocks = []
     for i in range(cfg.n_layers):
         layer = lambda name: np.asarray(blk[name])[i]  # noqa: E731
-        if cfg.family == "hybrid":
+        if cfg.rwkv:
+            shapes = rwkv_shapes(cfg)
+            b = {n: t(layer(n).reshape(shapes[n]))
+                 for n in shapes if n not in ("ln1", "ln1_b", "ln2", "ln2_b")}
+            for n in ("ln1", "ln2"):
+                b.update(layer_norm_of(blk[n], i, n))
+        elif cfg.family == "hybrid":
             b = {n: t(layer(n)) for n in mamba_shapes(cfg) if not n.startswith("ln")}
             b.update(layer_norm_of(blk["ln1"], i, "ln1"))
         else:
@@ -162,6 +173,8 @@ def params_from_reference(cfg: ModelConfig, params, *,
             for n in block_norms(cfg):
                 b.update(layer_norm_of(blk[n], i, n))
         blocks.append(b)
+    if cfg.rwkv:
+        return RwkvLM(cfg, top, blocks)
     if cfg.family != "hybrid":
         return DenseLM(cfg, top, blocks)
     sa = params["shared_attn"]

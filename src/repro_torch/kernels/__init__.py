@@ -19,6 +19,7 @@ from . import mmpp_sample as _mmpp_sample
 from . import serve_scan as _serve_scan
 from . import sim_scan as _sim_scan
 from . import ssd_scan as _ssd_scan
+from . import wkv6_scan as _wkv6_scan
 
 WRAPPERS = {
     "bellman_banded": _bellman.bellman_banded,
@@ -32,6 +33,7 @@ WRAPPERS = {
     "flash_attention_bwd": _flash_bwd.flash_attention_bwd,
     "decode_attention": _decode.decode_attention,
     "ssd_scan": _ssd_scan.ssd_scan,
+    "wkv6_scan": _wkv6_scan.wkv6_scan,
 }
 
 

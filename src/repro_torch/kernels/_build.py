@@ -43,7 +43,8 @@ BASE_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: their plain walks do.  chain_floor (the fleet and simulator walks' chains
 #: alone, launched only by chip_smoke.py) takes the walks' flags.  ssd_scan
 #: is held to tolerances, not bit for bit, and keeps nvcc's default
-#: contraction.
+#: contraction, as does wkv6_scan (the same; it takes w as given and is
+#: built without --use_fast_math).
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "belief_forward": ["-fmad=false"],
     "bellman": [],
@@ -56,6 +57,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "flash_attention_bwd": [],
     "decode_attention": [],
     "ssd_scan": [],
+    "wkv6_scan": [],
 }
 
 _lock = threading.Lock()

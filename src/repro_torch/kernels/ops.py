@@ -29,6 +29,7 @@ from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import flash_attention_bwd as _flash_bwd
 from . import ssd_scan as _ssd
+from . import wkv6_scan as _wkv6
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -141,4 +142,20 @@ def ssd_scan(xs, Bm, Cm, dt, dA, state=None, *, chunk: int = 128,
     return _ssd.ssd_scan(
         _on(xs, dev), _on(Bm, dev), _on(Cm, dev), _on(dt, dev), _on(dA, dev),
         None if state is None else _on(state, dev), chunk=chunk, state_out=state_out,
+    )
+
+
+def wkv6_scan(r, k, v, w, u, state=None, *, state_out: Optional[torch.Tensor] = None,
+              device: DeviceLike = None):
+    """WKV6 recurrence of an RWKV6 time-mix block (see kernels/wkv6_scan.py).
+
+    r / k / v (B, S, H, P) in the activation dtype, w (B, S, H, P) and u
+    (H, P) float32, state (B, H, P, P) float32 or None; returns (y (B, S,
+    H, P) float32 before ln_x, final state), the state written into
+    ``state_out`` when one is given.
+    """
+    dev = resolve_device(device)
+    return _wkv6.wkv6_scan(
+        _on(r, dev), _on(k, dev), _on(v, dev), _on(w, dev), _on(u, dev),
+        None if state is None else _on(state, dev), state_out=state_out,
     )

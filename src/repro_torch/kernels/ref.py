@@ -10,3 +10,4 @@ from .flash_attention import attention_ref, lse_ref  # noqa: F401
 from .flash_attention_bwd import flash_attention_bwd_ref  # noqa: F401
 from .serve_scan import serve_scan_ref  # noqa: F401
 from .ssd_scan import ssd_scan_ref  # noqa: F401
+from .wkv6_scan import wkv6_scan_ref  # noqa: F401

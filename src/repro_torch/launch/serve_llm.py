@@ -17,18 +17,19 @@ On the card every prefill goes through the flash-attention kernel and
 every decode step through the decode-attention kernel, once per attention
 layer (for the Mamba2 hybrid, once per occurrence of its shared block),
 each with its layer's sliding window (Gemma2's local layers) or
-chunked-local mask (Llama-4's), and every step of a hybrid through the SSD
-scan kernel once per Mamba2 layer.  An MoE layer's experts are batched
-matmuls (``layers.moe_ffn``).
+chunked-local mask (Llama-4's), every step of a hybrid through the SSD
+scan kernel once per Mamba2 layer, and every step of an RWKV6 model (it
+has no attention) through the WKV6 scan kernel once per layer.  An MoE
+layer's experts are batched matmuls (``layers.moe_ffn``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cpu
         [--arch qwen2.5-32b | command-r-plus-104b | gemma2-9b | gemma2-27b
-         | llama4-scout-17b-a16e | grok-1-314b | zamba2-1.2b]
+         | llama4-scout-17b-a16e | grok-1-314b | zamba2-1.2b | rwkv6-3b]
         [--n-requests 120] [--rho 0.6] [--gen-tokens 8]
 
 The CLI runs the arch's ``reduced()`` config in float32, as the example
-does; ``run_pipeline`` takes any dense, MoE or hybrid config, weights and
-dtypes.
+does; ``run_pipeline`` takes any dense, MoE, hybrid or RWKV6 config,
+weights and dtypes.
 """
 from __future__ import annotations
 

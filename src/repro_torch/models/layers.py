@@ -1,12 +1,13 @@
 """Model building blocks (counterpart of repro.models.layers): the dense
-and MoE decoders' and the Mamba2 hybrid's.
+and MoE decoders', the Mamba2 hybrid's and RWKV6's.
 
-Norms, rotary embeddings, the attention block, the MLPs, the MoE FFN and
-the Mamba2 block.  Projections (the experts' included) are plain
-``torch.matmul`` / ``torch.bmm``, as the reference leaves them to XLA;
-attention and the SSD scan go to the hand-written kernels through
-``kernels.ops``, each with the layer's sliding window or chunked-local
-mask (chosen per layer as the reference does):
+Norms, rotary embeddings, the attention block, the MLPs, the MoE FFN, the
+Mamba2 block and RWKV6's time mix and channel mix.  Projections (the
+experts' included) are plain ``torch.matmul`` / ``torch.bmm``, as the
+reference leaves them to XLA; attention and the two scans go to the
+hand-written kernels through ``kernels.ops``, attention with the layer's
+sliding window or chunked-local mask (chosen per layer as the reference
+does):
 
   * a fresh-cache prefill (or a cache-free forward) is causal attention
     over the segment's own k, v -- ``ops.flash_attention``;
@@ -18,7 +19,8 @@ mask (chosen per layer as the reference does):
     ``lengths = length + 1`` -- ``ops.decode_attention``, which reads the
     cache in place;
   * the Mamba2 block's chunked SSD scan -- ``ops.ssd_scan`` (its plain
-    version on CPU tensors).
+    version on CPU tensors);
+  * RWKV6's WKV6 recurrence -- ``ops.wkv6_scan`` (likewise).
 
 The caches stay full length, as the reference's: a window or a chunk
 limits the keys read, not the rows kept.  M-RoPE (qwen2-vl) raises
@@ -35,7 +37,13 @@ stacked as ``w13`` (E, d, 2 ff) (``w1`` (E, d, ff) ungated) and ``w2`` (E,
 ff, d), and its shared expert, if any, as ``sw13`` (d, 2 ff) (``sw1``) and
 ``sw2`` (ff, d).  A Mamba2 block keeps the reference's names:
 ``in_proj`` (d, 2 di + 2 N + H), ``out_proj`` (di, d), ``conv_w`` (K, di +
-2 N), ``dt_bias`` / ``a_log`` / ``d_skip`` (H,).
+2 N), ``dt_bias`` / ``a_log`` / ``d_skip`` (H,).  An RWKV6 layer keeps the
+reference's names too, its head axes flattened: ``wr`` / ``wk`` / ``wv`` /
+``wg`` (d, H P), ``wo`` (H P, d), ``w_lora_a`` (d, R), ``w_lora_b`` (R, H
+P), ``w_base`` / ``u_bonus`` (H, P), ``ln_x`` (P,) (an RMSNorm offset),
+``ck`` (d, ff), ``cv`` (ff, d), ``cr`` (d, d), the token-shift lerps
+``mu_r`` / ``mu_k`` / ``mu_v`` / ``mu_g`` / ``mu_w`` / ``mu_ck`` /
+``mu_cr`` (d,).
 """
 from __future__ import annotations
 
@@ -358,3 +366,64 @@ def mamba2_block(cfg: ModelConfig, p, x, *, ssm_state=None, conv_state=None,
     y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
     out = torch.matmul(y, p["out_proj"].to(x.dtype))
     return out, ssm_state, conv_state
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) -- time mix (the WKV6 recurrence) + channel mix
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x, shift_state):
+    """(x_prev, new_shift): the previous token of each position (the first
+    from ``shift_state`` (B, 1, d), zeros when None) and the last row."""
+    if shift_state is None:
+        shift_state = torch.zeros_like(x[:, :1])
+    return torch.cat([shift_state, x[:, :-1]], dim=1), x[:, -1:]
+
+
+def rwkv6_time_mix(cfg: ModelConfig, p, x, *, state=None, shift_state=None,
+                   state_out=None):
+    """x: (B, S, d) -> (y, new_state, new_shift), the reference's
+    ``rwkv6_time_mix``.
+
+    state: (B, H, P, P) float32 WKV state; shift_state: (B, 1, d), the last
+    token of the previous segment.  The five lerps and the r / k / v / g
+    projections run in x's dtype, the Finch decay w = exp(-exp(w_base +
+    tanh(x_w w_lora_a) w_lora_b)) in float32; the recurrence is
+    ``ops.wkv6_scan`` (written into ``state_out`` when given, e.g. the
+    cache's slice, which may be ``state`` itself); then ``ln_x`` (an RMSNorm
+    over each head's P channels, float32), the gate and ``wo``.
+    """
+    B, S, d = x.shape
+    H, P = cfg.n_heads, cfg.head_dim
+    x_prev, new_shift = _token_shift(x, shift_state)
+    dx = x_prev - x
+
+    def lerp(name):
+        return x + p[f"mu_{name}"].to(x.dtype) * dx
+
+    def proj(name, wname):
+        return torch.matmul(lerp(name), p[wname].to(x.dtype)).reshape(B, S, H, P)
+
+    r, k, v = proj("r", "wr"), proj("k", "wk"), proj("v", "wv")
+    g = F.silu(torch.matmul(lerp("g"), p["wg"].to(x.dtype)))
+    wx = torch.tanh(torch.matmul(lerp("w"), p["w_lora_a"].to(x.dtype)))
+    w_log = p["w_base"].float() + torch.matmul(
+        wx.float(), p["w_lora_b"].float()).reshape(B, S, H, P)
+    w = torch.exp(-torch.exp(w_log))  # (B, S, H, P) in (0, 1), float32
+    y, state = ops.wkv6_scan(r, k, v, w, p["u_bonus"].float(), state,
+                             state_out=state_out, device=x.device)
+    y = rms_norm(y, p["ln_x"].float()).to(x.dtype).reshape(B, S, H * P) * g
+    return torch.matmul(y, p["wo"].to(x.dtype)), state, new_shift
+
+
+def rwkv6_channel_mix(cfg: ModelConfig, p, x, *, shift_state=None):
+    """x: (B, S, d) -> (y, new_shift): sigmoid(x_r cr) * (relu(x_k ck)^2 cv)."""
+    x_prev, new_shift = _token_shift(x, shift_state)
+    dx = x_prev - x
+    xk = x + p["mu_ck"].to(x.dtype) * dx
+    xr = x + p["mu_cr"].to(x.dtype) * dx
+    kk = torch.square(F.relu(torch.matmul(xk, p["ck"].to(x.dtype))))
+    kv = torch.matmul(kk, p["cv"].to(x.dtype))
+    rr = torch.sigmoid(torch.matmul(xr, p["cr"].to(x.dtype)))
+    return rr * kv, new_shift

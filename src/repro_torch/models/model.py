@@ -1,13 +1,16 @@
 """The decoder stacks: init / forward / train loss / prefill / decode
-(counterpart of repro.models.model: the dense, MoE and hybrid families).
+(counterpart of repro.models.model: the dense, MoE, hybrid and RWKV6
+families).
 
 The parameters are an ``nn.Module``: ``DenseLM`` (the embedding, the final
 norm, the untied output matrix and one ``nn.ParameterDict`` per layer; an
-MoE layer holds its router and stacked experts in place of the MLP) or
+MoE layer holds its router and stacked experts in place of the MLP),
 ``HybridLM`` (the same top, one ``nn.ParameterDict`` of Mamba2 weights per
-layer and one ``shared`` attention + MLP block); layouts in ``layers``.
-The reference stacks layers on a leading axis and scans them; here a
-Python loop walks the per-layer dicts.
+layer and one ``shared`` attention + MLP block) or ``RwkvLM`` (the same
+top, one ``nn.ParameterDict`` of time-mix and channel-mix weights per
+layer, under the reference's leaf names); layouts in ``layers``.  The
+reference stacks layers on a leading axis and scans them; here a Python
+loop walks the per-layer dicts.
 
 Cache conventions (``init_cache``):
 
@@ -15,11 +18,13 @@ Cache conventions (``init_cache``):
   hybrid : {"ssm": (L, B, H, P, N) float32, "conv": (L, B, K-1, C),
             "attn": one {"k", "v": (B, S, KV, hd)} per occurrence of the
             shared block, "length": int}
+  rwkv : {"wkv": (L, B, H, P, P) float32, "tshift": (L, B, 1, d),
+          "cshift": (L, B, 1, d), "length": int}
 
-Caches are updated in place (K/V by slice assignment, the SSM state by the
-scan writing into its slice, the conv tail by a copy) and ``length`` is a
-Python int on the host, so a decode step never waits on the card to read
-it.
+Caches are updated in place (K/V by slice assignment, the SSM and WKV
+states by the scans writing into their slices, the conv tail and the
+token shifts by a copy) and ``length`` is a Python int on the host, so a
+decode step never waits on the card to read it.
 
 Training (dense family): the tensors are built frozen; ``params.trainable()``
 turns ``requires_grad`` on in place (the same storage).  ``lm_loss`` is the
@@ -33,12 +38,12 @@ its ``wqkv``); ``gather_leaf`` / ``scatter_leaf`` read and write a leaf
 through it (Adafactor factors and clips those leaves).
 
 The dense (Gemma2's local / global layers included), MoE (Llama-4 Scout's
-chunked-local layers, Grok-1) and Mamba2 hybrid families run.  The others
-(RWKV, encoder-decoder, VLM) raise ``NotImplementedError`` at
+chunked-local layers, Grok-1), Mamba2 hybrid and RWKV6 families run.  The
+others (encoder-decoder, VLM) raise ``NotImplementedError`` at
 ``init_params`` and at the forward passes.  ``lm_loss`` raises on the
-hybrid (the SSD scan has no backward kernel yet) and on a configuration
-with local layers or experts (the attention backward kernel has no masks
-yet).  ROADMAP.md queue 1 lists them.
+hybrid and on RWKV6 (the SSD and WKV6 scans have no backward kernel yet)
+and on a configuration with local layers or experts (the attention
+backward kernel has no masks yet).  ROADMAP.md queue 1 lists them.
 """
 from __future__ import annotations
 
@@ -63,11 +68,17 @@ def _is_hybrid(cfg: ModelConfig) -> bool:
     return cfg.family == "hybrid"
 
 
+def _is_rwkv(cfg: ModelConfig) -> bool:
+    return bool(cfg.rwkv)
+
+
 def supported(cfg: ModelConfig) -> bool:
     """Whether this port runs the configuration's family."""
+    if _is_rwkv(cfg):
+        return True
     decoder = cfg.family in ("dense", "moe") and not cfg.mrope_sections
     hybrid = _is_hybrid(cfg) and cfg.shared_attn_every > 0
-    return not cfg.rwkv and (decoder or hybrid)
+    return decoder or hybrid
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -76,7 +87,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md "
             "queue 1, the model stack's remaining item); the port runs dense and "
-            "MoE decoders and the Mamba2 hybrid"
+            "MoE decoders, the Mamba2 hybrid and RWKV6"
         )
 
 
@@ -136,6 +147,22 @@ def mamba_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             **_norm_shapes(cfg, ["ln1"])}
 
 
+#: the rank of RWKV6's decay LoRA (the reference's ``_rwkv_params``)
+RWKV_LORA_RANK = 32
+
+
+def rwkv_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Shapes of one RWKV6 layer's parameters (the reference's names, the
+    head axes of wr / wk / wv / wg / wo / w_lora_b flattened)."""
+    d, H, P, ff, R = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, RWKV_LORA_RANK
+    shapes = {"wr": (d, H * P), "wk": (d, H * P), "wv": (d, H * P), "wg": (d, H * P),
+              "wo": (H * P, d), "w_lora_a": (d, R), "w_lora_b": (R, H * P),
+              "w_base": (H, P), "u_bonus": (H, P), "ln_x": (P,), "ck": (d, ff),
+              "cv": (ff, d), "cr": (d, d)}
+    shapes.update({f"mu_{n}": (d,) for n in ("r", "k", "v", "g", "w", "ck", "cr")})
+    return {**shapes, **_norm_shapes(cfg, ["ln1", "ln2"])}
+
+
 def shared_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """Shapes of the hybrid's shared attention + MLP block."""
     return {**attn_mlp_shapes(cfg), **_norm_shapes(cfg, ["ln_a", "ln_m"])}
@@ -187,8 +214,9 @@ class DenseLM(_LM):
     def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
                  blocks: List[Dict[str, torch.Tensor]]):
         super().__init__(cfg, top)
-        if _is_hybrid(cfg):
-            raise ValueError(f"{cfg.name} is a hybrid: use HybridLM")
+        if _is_hybrid(cfg) or _is_rwkv(cfg):
+            raise ValueError(f"{cfg.name} is a {cfg.family} model: use "
+                             f"{'HybridLM' if _is_hybrid(cfg) else 'RwkvLM'}")
         self.blocks = nn.ModuleList(_param_dict(b) for b in blocks)
 
 
@@ -205,7 +233,19 @@ class HybridLM(_LM):
         self.shared = _param_dict(shared)
 
 
-LM = Union[DenseLM, HybridLM]
+class RwkvLM(_LM):
+    """Parameters of an RWKV6 (Finch) model: one dict per layer of its time
+    mix, channel mix and the two LayerNorms (``rwkv_shapes``)."""
+
+    def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
+                 blocks: List[Dict[str, torch.Tensor]]):
+        super().__init__(cfg, top)
+        if not _is_rwkv(cfg):
+            raise ValueError(f"{cfg.name} is not an RWKV model: use DenseLM")
+        self.blocks = nn.ModuleList(_param_dict(b) for b in blocks)
+
+
+LM = Union[DenseLM, HybridLM, RwkvLM]
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +276,7 @@ def leaf_map(cfg: ModelConfig) -> Dict[str, Leaf]:
     ``/``-joined paths in ``jax.tree.leaves`` order (sorted keys), each
     with the port tensors that hold it."""
     check_supported(cfg)
-    if cfg.family == "hybrid":
+    if cfg.family not in ("dense", "moe") or _is_rwkv(cfg):
         raise NotImplementedError(f"{cfg.name}: the leaf map covers the dense and MoE "
                                   "families")
     d, H, KV, hd, ff, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -300,6 +340,10 @@ def scatter_leaf(tensors: Dict[str, torch.Tensor], leaf: Leaf, value: torch.Tens
 _MAMBA_CONST = {"dt_bias": -4.6,  # softplus ~ 0.01
                 "a_log": 0.0,  # A = -1
                 "d_skip": 0.1}
+#: and of an RWKV6 layer: w_base is no weight matrix and ln_x an RMSNorm
+#: offset (the model's LayerNorms are not), whatever their names say
+_RWKV_CONST = {"w_base": -0.6, "u_bonus": 0.0, "ln_x": 0.0,
+               **{f"mu_{n}": 0.5 for n in ("r", "k", "v", "g", "w", "ck", "cr")}}
 
 
 @torch.no_grad()
@@ -308,7 +352,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> LM:
     """Random weights (std 0.02, zero biases, zero RMSNorm offsets, unit
     LayerNorm scales, the Mamba2 constants dt_bias -4.6, a_log 0, d_skip
-    0.1, as the reference) drawn from ``generator`` straight into ``dtype``
+    0.1, the RWKV6 ones w_base -0.6, every mu_* 0.5, u_bonus 0, ln_x 0, as
+    the reference) drawn from ``generator`` straight into ``dtype``
     on ``device`` -- no f32 staging copy, so a 32B model in bf16 needs its
     61 GiB and no more.  The generator must live on the device
     (``torch.Generator(device="cuda")`` for the card)."""
@@ -316,11 +361,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     dev = resolve_device(device)
     std = 0.02
 
+    const = {**_MAMBA_CONST, **(_RWKV_CONST if _is_rwkv(cfg) else {})}
+
     def init(name, shape):
-        if name in _MAMBA_CONST:
-            return torch.full(shape, _MAMBA_CONST[name], dtype=dtype, device=dev)
+        if name in const:
+            return torch.full(shape, const[name], dtype=dtype, device=dev)
         if name.startswith(("w", "sw")) or name in ("embed", "out", "router", "in_proj",
-                                                     "out_proj", "conv_w"):
+                                                     "out_proj", "conv_w", "ck", "cv",
+                                                     "cr"):
             return torch.randn(shape, generator=generator, dtype=dtype,
                                device=dev).mul_(std)
         if cfg.norm != "rmsnorm" and name.startswith(("ln", "final_norm")) \
@@ -336,6 +384,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         top_shapes["out"] = (cfg.d_model, cfg.vocab_size)
     top = draw(top_shapes)
+    if _is_rwkv(cfg):
+        return RwkvLM(cfg, top, [draw(rwkv_shapes(cfg)) for _ in range(cfg.n_layers)])
     if _is_hybrid(cfg):
         blocks = [draw(mamba_shapes(cfg)) for _ in range(cfg.n_layers)]
         return HybridLM(cfg, top, blocks, draw(shared_shapes(cfg)))
@@ -419,8 +469,8 @@ def forward_lm(cfg: ModelConfig, params: DenseLM, tokens, *,
     when the parameters are ``trainable()``; the serving steps below run
     it under inference mode."""
     check_supported(cfg)
-    if _is_hybrid(cfg):
-        raise ValueError(f"{cfg.name} is a hybrid: use forward_hybrid")
+    if _is_hybrid(cfg) or _is_rwkv(cfg):
+        raise ValueError(f"{cfg.name} is a {cfg.family} model: use forward")
     S = tokens.shape[1]
     h = _embed(cfg, params, tokens)
     length, rope, lengths = _rope_and_lengths(cfg, h, cache)
@@ -490,8 +540,48 @@ def forward_hybrid(cfg: ModelConfig, params: HybridLM, tokens, *,
     return h, new_cache
 
 
+@torch.inference_mode()
+def forward_rwkv(cfg: ModelConfig, params: RwkvLM, tokens, *,
+                 cache: Optional[dict] = None):
+    """RWKV6: per layer h + time_mix(ln1(h)), then h + channel_mix(ln2(h)).
+    Returns (h_final, new_cache); a given cache is updated in place (the
+    WKV6 kernel writes each layer's state into ``cache["wkv"][i]``, the
+    token shifts are copied into ``tshift`` / ``cshift``) and comes back
+    with length + S."""
+    check_supported(cfg)
+    if not _is_rwkv(cfg):
+        raise ValueError(f"{cfg.name} is not an RWKV model: use forward")
+    S = tokens.shape[1]
+    h = _embed(cfg, params, tokens)
+    if cache is not None and cache["tshift"].dtype != h.dtype:
+        raise ValueError(f"cache dtype {cache['tshift'].dtype} differs from the "
+                         f"activations' {h.dtype}")
+    names = ("wkv", "tshift", "cshift")
+    for i, p in enumerate(params.blocks):
+        c = (dict.fromkeys(names) if cache is None
+             else {n: cache[n][i] for n in names})  # None: zeros, nothing kept
+        a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
+        y, _, tsh = L.rwkv6_time_mix(cfg, p, a_in, state=c["wkv"],
+                                     shift_state=c["tshift"], state_out=c["wkv"])
+        h = h + y
+        c_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
+        y, csh = L.rwkv6_channel_mix(cfg, p, c_in, shift_state=c["cshift"])
+        h = h + y
+        if cache is not None:
+            c["tshift"].copy_(tsh)
+            c["cshift"].copy_(csh)
+    h = L.apply_norm(cfg, h, params.final_norm, params.final_norm_b)
+    new_cache = None
+    if cache is not None:
+        new_cache = {**cache, "length": int(cache["length"]) + S}
+    return h, new_cache
+
+
 def forward(cfg: ModelConfig, params: LM, tokens, *, cache: Optional[dict] = None):
-    """The family's stack over tokens (B, S): forward_hybrid or forward_lm."""
+    """The family's stack over tokens (B, S): forward_rwkv, forward_hybrid
+    or forward_lm."""
+    if _is_rwkv(cfg):
+        return forward_rwkv(cfg, params, tokens, cache=cache)
     if _is_hybrid(cfg):
         return forward_hybrid(cfg, params, tokens, cache=cache)
     return forward_lm(cfg, params, tokens, cache=cache)
@@ -507,6 +597,11 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
     (B, S - 1) of logsumexp(logits) - logits[gold], in f32, as the
     reference's ``lm_loss``.  (The reference takes the gold logit by a
     one-hot contraction for its sharding; here a gather.)"""
+    if _is_rwkv(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training RWKV6 needs a backward kernel for the WKV6 scan "
+            "(csrc/wkv6_scan.cu), which is not written yet (ROADMAP.md queue 1, "
+            "training RWKV6)")
     if _is_hybrid(cfg):
         raise NotImplementedError(
             f"{cfg.name}: training the hybrid needs a backward kernel for the SSD "
@@ -549,9 +644,15 @@ def cache_shapes(cfg: ModelConfig, B: int, max_len: int,
                  dtype: torch.dtype = torch.bfloat16
                  ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Every tensor ``init_cache`` builds, by name: (shape, dtype).  The
-    hybrid's SSM state is float32 whatever ``dtype``; its shared block's
-    caches are named ``attn.<occurrence>.k`` / ``.v``."""
+    hybrid's SSM state and RWKV6's WKV state are float32 whatever
+    ``dtype``; the hybrid's shared block's caches are named
+    ``attn.<occurrence>.k`` / ``.v``.  RWKV6's cache does not grow with
+    ``max_len``."""
     check_supported(cfg)
+    if _is_rwkv(cfg):
+        Ln, H, P, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+        return {"wkv": ((Ln, B, H, P, P), torch.float32),
+                "tshift": ((Ln, B, 1, d), dtype), "cshift": ((Ln, B, 1, d), dtype)}
     kv = (max_len, cfg.n_kv_heads, cfg.head_dim)
     if not _is_hybrid(cfg):
         return {"k": ((cfg.n_layers, B) + kv, dtype), "v": ((cfg.n_layers, B) + kv, dtype)}
@@ -573,7 +674,7 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     dev = resolve_device(device)
     zeros = {name: torch.zeros(shape, dtype=dt, device=dev)
              for name, (shape, dt) in cache_shapes(cfg, B, max_len, dtype).items()}
-    if not _is_hybrid(cfg):
+    if not _is_hybrid(cfg):  # dense, moe, rwkv
         return {**zeros, "length": 0}
     attn = [{"k": zeros[f"attn.{occ}.k"], "v": zeros[f"attn.{occ}.v"]}
             for occ in range(n_shared_occurrences(cfg))]

@@ -42,7 +42,11 @@ too, its launches one SSD scan per Mamba2 layer and step, one flash /
 decode per occurrence of the shared block), the SSD scan kernel at 2e-5
 (f32) and 2e-2 (bf16) against its plain version (the reference's
 kernel-against-naive bar and the attention kernels'; inputs in a Mamba2
-block's regime, see _ssd_inputs), the MMPP sampler
+block's regime, see _ssd_inputs), the WKV6 scan kernel at 2e-5 of the
+largest |entry| of y and of the final state against its plain version
+(both compute in f32 from the same rounded inputs; S 1 / 2 / 63 / 64 / 65 /
+1000, P 16 / 32 / 64, B H 1 and 680, decays 0.9999 to 6e-4, a nonzero
+bonus and incoming state, the state updated in place), the MMPP sampler
 and simulator kernels equal to their plain walks in every output (lanes
 1, 6, 7, 133, 200; n_steps 1, the staged chunk's length +-1 and a long
 run; dwells so short that most steps switch, rates 1e3 apart; a run that
@@ -81,6 +85,7 @@ from repro_torch.kernels import fleet_scan as fk
 from repro_torch.kernels import mmpp_sample as mk
 from repro_torch.kernels import sim_scan as sk
 from repro_torch.kernels import ssd_scan as sd
+from repro_torch.kernels import wkv6_scan as wk
 from repro_torch.kernels import serve_scan as ss
 from repro_torch.launch import serve_llm
 from repro_torch.models import model as M
@@ -1760,6 +1765,110 @@ def test_reduced_hybrid_card_matches_cpu(cuda):
     assert counts["flash_attention"] == n_occ
     assert counts["decode_attention"] == 4 * n_occ
 
+
+
+# --- the WKV6 scan (RWKV6) ----------------------------------------------------
+
+#: of the largest |entry| of y and of the final state: both versions compute
+#: in f32 from the same rounded inputs, the sums in another order
+WKV_TOL = 2e-5
+#: the kernel's edges: one step (decode), two, around and past its 32-step
+#: staging tile and a long walk, each head size it is built for, one block
+#: and 680 (over two waves), then the RWKV6-3B path's prefill and decode
+WKV_CASES = [(B, S, H, P) for S in (1, 2, 63, 64, 65, 1000) for P in (16, 32, 64)
+             for B, H in ((1, 1), (17, 40))] + [(8, 128, 40, 64), (8, 1, 40, 64)]
+
+
+def _wkv_inputs(seed, B, S, H, P, dtype, zero_state, dev):
+    """r, k, v at 0.5 in ``dtype``; decays exp(-exp(w_log)) with w_log
+    uniform on [-9, 2] (w from 0.9999 down to 6e-4); a nonzero bonus; the
+    incoming state random or None."""
+    rng = np.random.default_rng(seed)
+    f = dict(dtype=torch.float32, device=dev)
+    r, k, v = (torch.as_tensor(rng.normal(size=(B, S, H, P)) * 0.5, **f).to(dtype)
+               for _ in range(3))
+    w = torch.as_tensor(np.exp(-np.exp(rng.uniform(-9.0, 2.0, (B, S, H, P)))), **f)
+    u = torch.as_tensor(rng.normal(size=(H, P)) * 0.5, **f)
+    state = None if zero_state else torch.as_tensor(rng.normal(size=(B, H, P, P)) * 0.5, **f)
+    return r, k, v, w, u, state
+
+
+def _wkv_held(got, want, what):
+    err = (got - want).abs().max().item()
+    assert err <= WKV_TOL * want.abs().max().item(), f"{what}: max abs err {err}"
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P", WKV_CASES)
+def test_wkv6_scan_kernel_matches_plain(cuda, B, S, H, P, dtype, zero_state):
+    args = _wkv_inputs(B * S * P + zero_state, B, S, H, P, dtype, zero_state, cuda)
+    before = wk.wkv6_scan.launches
+    y, st = wk.wkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert wk.wkv6_scan.launches == before + 1
+    y_ref, st_ref = wk.wkv6_scan_ref(*args)
+    assert y.dtype == st.dtype == torch.float32
+    _wkv_held(y, y_ref, "y")
+    _wkv_held(st, st_ref, "state")
+
+
+def test_wkv6_scan_kernel_in_place_and_refusals(cuda):
+    """The state updated in place (state_out is state, as a decode step
+    updates the cache); a head size it is not built for, a strided input and
+    a tensor that requires grad under grad mode raise (no fallback)."""
+    for S in (1, 128):
+        r, k, v, w, u, st = _wkv_inputs(S, 8, S, 40, 64, torch.bfloat16, False, cuda)
+        y_ref, st_ref = wk.wkv6_scan_ref(r, k, v, w, u, st)
+        before = wk.wkv6_scan.launches
+        y, out = wk.wkv6_scan(r, k, v, w, u, st, state_out=st)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == st.data_ptr() and wk.wkv6_scan.launches == before + 1
+        _wkv_held(y, y_ref, f"y in place, S={S}")
+        _wkv_held(out, st_ref, f"state in place, S={S}")
+    r, k, v, w, u, st = _wkv_inputs(0, 2, 5, 3, 8, torch.float32, False, cuda)
+    with pytest.raises(ValueError, match="head sizes"):
+        wk.wkv6_scan(r, k, v, w, u, st)
+    r, k, v, w, u, st = _wkv_inputs(0, 2, 5, 3, 16, torch.float32, False, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv6_scan(r.transpose(0, 1).contiguous().transpose(0, 1), k, v, w, u, st)
+    before = wk.wkv6_scan.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        wk.wkv6_scan(r.requires_grad_(True), k, v, w, u, st)
+    assert wk.wkv6_scan.launches == before
+    with torch.no_grad():  # without grad mode the kernel runs
+        wk.wkv6_scan(r, k, v, w, u, st)
+    assert wk.wkv6_scan.launches == before + 1
+
+
+def test_reduced_rwkv_card_matches_cpu(cuda):
+    """Reduced RWKV6 in f32: the kernel on the card against the plain
+    version on the CPU from the same weights (the bonus, decay and ln_x
+    leaves perturbed); prefill + 4 decode steps launch one WKV6 scan per
+    layer and step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["rwkv6-3b"].reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for p in cpu.blocks:
+            p["u_bonus"].copy_(torch.as_tensor(rng.normal(0.0, 0.5, tuple(p["u_bonus"].shape))))
+            p["w_base"].copy_(torch.as_tensor(rng.uniform(-9.0, 2.0, tuple(p["w_base"].shape))))
+            p["ln_x"].copy_(torch.as_tensor(rng.normal(0.0, 0.3, tuple(p["ln_x"].shape))))
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 70)))
+    outs = {}
+    kernels.reset_launch_counts()
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        lg, cache = M.prefill(cfg, p, {"tokens": toks.to(p.device)}, 80, torch.float32)
+        seq = [lg]
+        tok = toks[:, :1].to(p.device)
+        for _ in range(4):
+            lg, cache = M.decode_step(cfg, p, cache, tok)
+            seq.append(lg)
+        outs[name] = torch.cat(seq, 1).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=3e-4, rtol=0)
+    assert kernels.launch_counts()["wkv6_scan"] == 5 * cfg.n_layers
 
 
 # --- attention backward kernel (training) -------------------------------------

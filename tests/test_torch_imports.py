@@ -45,7 +45,7 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "import repro_torch.kernels.mmpp_sample, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.models.layers, repro_torch.models.model\n"
         "import repro_torch.training, repro_torch.launch.train\n"
-        "import repro_torch.kernels.flash_attention_bwd\n"
+        "import repro_torch.kernels.flash_attention_bwd, repro_torch.kernels.wkv6_scan\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -117,6 +117,8 @@ def _entry_points():
     pm = np.full((3, 5), 0.2)
     cfg = ARCHS["qwen2.5-32b"].reduced()
     zamba = ARCHS["zamba2-1.2b"].reduced()
+    rwkv = ARCHS["rwkv6-3b"].reduced()
+    rkvw = np.zeros((1, 3, 2, 16), np.float32)
     xs = np.zeros((1, 3, 2, 4), np.float32)
     bc = np.zeros((1, 3, 5), np.float32)
     dt = np.zeros((1, 3, 2), np.float32)
@@ -177,6 +179,9 @@ def _entry_points():
         "init_cache(hybrid)": lambda: M.init_cache(zamba, 1, 8),
         "ssd_scan": lambda: ops.ssd_scan(
             xs, bc, bc, dt, dt, None, chunk=2),
+        "init_params(rwkv)": lambda: M.init_params(rwkv, torch.Generator()),
+        "init_cache(rwkv)": lambda: M.init_cache(rwkv, 1, 8),
+        "wkv6_scan": lambda: ops.wkv6_scan(rkvw, rkvw, rkvw, rkvw, rkvw[0, 0]),
         "KVCachePool": lambda: KVCachePool(cfg, 2, 8),
         "poisson_times": lambda: poisson_times(0, 1.0, 4),
         "mmpp2_times": lambda: mmpp2_times(0, MMPP2(1.0, 2.0, 5.0, 5.0), 4),
@@ -287,6 +292,15 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
                               torch.empty(1, 3, 5, **x), torch.empty(1, 3, 2, **f32),
                               torch.empty(1, 3, 2, **f32), torch.empty(1, 2, 4, 5, **f32))
     assert ssd_scan.ssd_scan.launches == 0
+    from repro_torch.kernels import wkv6_scan
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = dict(dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            wkv6_scan.wkv6_scan(torch.empty(1, 3, 2, 16, **x), torch.empty(1, 3, 2, 16, **x),
+                                torch.empty(1, 3, 2, 16, **x), torch.empty(1, 3, 2, 16, **f32),
+                                torch.empty(2, 16, **f32), torch.empty(1, 2, 16, 16, **f32))
+    assert wkv6_scan.wkv6_scan.launches == 0
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():

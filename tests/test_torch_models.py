@@ -129,8 +129,9 @@ def test_greedy_segment_tokens_match_reference(qwen):
 
 
 @pytest.mark.parametrize("name,what", [
-    ("rwkv6-3b", "init_params"), ("whisper-small", "init_params"),
-    ("qwen2-vl-7b", "init_params"),
+    ("whisper-small", "init_params"), ("qwen2-vl-7b", "init_params"),
+    # training RWKV6: the WKV6 scan has no backward kernel
+    ("rwkv6-3b", "lm_loss"),
     # training with local masks or experts: the backward kernel has no masks
     ("gemma2-9b", "lm_loss"), ("llama4-scout-17b-a16e", "lm_loss"),
 ])
