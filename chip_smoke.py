@@ -236,12 +236,13 @@
    softcap 30): the kernel path against the plain path on the card.
 8c. Phase 4m, RWKV6 (Finch): the WKV6 scan kernel against its plain
    version at 2e-5 of the largest |entry| of y and of the final state (S 1
-   / 2 / 63 / 64 / 65 / 1000 x P 16 / 32 / 64 x B H 1 / 680, decays 0.9999
-   to 6e-4, a nonzero bonus, zero and random incoming state, f32 and bf16
-   r / k / v; in place) and at the serving path's prefill (8 x 128, 40
-   heads of 64) and decode (8 x 1), timed there beside its plain version
-   and its bound.  Then RWKV6-3B at its published width with 16 of its 32
-   layers (bf16, random weights) through serve_llm.run_pipeline with the
+   / 2 / 16 / 17 / 32 / 33 / 63 / 64 / 65 / 1000 x P 16 / 32 / 64 x B H 1
+   / 680, decays 0.9999 to 6e-4, a nonzero bonus, zero and random incoming
+   state, f32 and bf16 r / k / v; in place) and at the serving path's
+   prefill (8 x 128, 40 heads of 64), decode (8 x 1) and b 1 x 2048, timed
+   at the first two beside its plain version and its bound.  Then
+   RWKV6-3B at its published width with 16 of its 32 layers (bf16, random
+   weights) through serve_llm.run_pipeline with the
    Qwen path's constants, counters zeroed just before and read just after:
    one WKV6 launch a layer a step (16 x 16 a segment), Bellman the solve's
    backups, peak memory.  Long context in f32 at full width, 4 layers, b =
@@ -4779,11 +4780,16 @@ WKV_REPLACES = ("src/repro/models/layers.py:599-627 (the lax.scan of rwkv6_time_
 #: of the largest |entry| of y and of the final state: both versions compute
 #: in f32 from the same rounded inputs, the sums in another order
 WKV_TOL = 2e-5
-#: the kernel's edges: one step (decode), two, around and past its 32-step
-#: staging tile, a long walk; every head size it is built for; one block and
-#: 680 (B, H) blocks (over two waves)
-WKV_EDGE_S, WKV_EDGE_P, WKV_EDGE_BH = (1, 2, 63, 64, 65, 1000), (16, 32, 64), ((1, 1),
-                                                                               (17, 40))
+#: the kernel's edges: one step (decode), two, two of its 8-step tiles and
+#: one step past them, four (its three-slot ring wrapped) and one past,
+#: around 64, a long walk; every head size it is built for, so every
+#: column split; one head and 680 (1360 blocks at P = 64: a ragged last
+#: wave); then the path's prefill and decode and b = 1 at 2048 steps
+#: (WKV_LONG; tools/wkv6_ab.py times it: the plain version's 2048 steps are
+#: too slow to capture in a graph here)
+WKV_EDGE_S = (1, 2, 16, 17, 32, 33, 63, 64, 65, 1000)
+WKV_EDGE_P, WKV_EDGE_BH = (16, 32, 64), ((1, 1), (17, 40))
+WKV_LONG = (1, 2048)
 #: RWKV6-3B's serving depth: 16 of its 32 layers at its published width (a
 #: cut for time: with all 32 the script took 963 s on an H100 80GB HBM3,
 #: over the 950 s it aims at)
@@ -4858,7 +4864,7 @@ def wkv_checks(torch, rows):
     H, P = ARCHS[RWKV_ARCH].n_heads, ARCHS[RWKV_ARCH].head_dim
     cases = [(B, S, Hc, Pc) for S in WKV_EDGE_S for Pc in WKV_EDGE_P
              for B, Hc in WKV_EDGE_BH]
-    cases += [(LLM_B_MAX, LLM_PROMPT, H, P), (LLM_B_MAX, 1, H, P)]
+    cases += [(LLM_B_MAX, LLM_PROMPT, H, P), (LLM_B_MAX, 1, H, P), (*WKV_LONG, H, P)]
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     worst, n = dict.fromkeys(dts, 0.0), 0
     for B, S, Hc, Pc in cases:
@@ -4875,8 +4881,9 @@ def wkv_checks(torch, rows):
                     worst[dt] = max(worst[dt], e)
                 n += 1
     log(f"wkv6_scan against wkv6_scan_ref on the card: {n} cases (S {WKV_EDGE_S} x P "
-        f"{WKV_EDGE_P} x (B, H) {WKV_EDGE_BH}, and the path's 8 x 128 / 8 x 1 at (H, P) "
-        f"{(H, P)}; zero / random state x f32 / bf16): max_abs_err f32 "
+        f"{WKV_EDGE_P} x (B, H) {WKV_EDGE_BH}, and the path's 8 x 128 / 8 x 1 and "
+        f"{WKV_LONG[0]} x {WKV_LONG[1]} at (H, P) {(H, P)}; zero / random state x f32 / "
+        f"bf16): max_abs_err f32 "
         f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e} (each within {WKV_TOL} of "
         f"its output's largest |entry|) ok")
     for S in (1, LLM_PROMPT):

@@ -15,7 +15,9 @@ checkpointing device for training) and pads the last with decay 1 and
 k = v = 0, which leaves the state and the kept outputs as they are; both
 versions here walk the S steps directly.  The kernel is
 ``csrc/wkv6_scan.cu``; its header says how it is laid out and what bounds
-it.
+it.  ``wkv6_scan_grouped`` repeats the kernel's arithmetic in its order
+(row-group partial sums of r^T S, their sum, then the rank-1 bonus) in
+plain torch, for the CPU tests; nothing on the main path calls it.
 
 Inputs: ``r``, ``k``, ``v`` (B, S, H, P) in the activation dtype (float32
 or bfloat16; upcast per step, as the reference does), ``w`` (B, S, H, P)
@@ -40,6 +42,9 @@ from . import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head sizes the kernel is built for (csrc/wkv6_scan.cu's instances)
 HEAD_DIMS = (16, 32, 64)
+#: row groups the kernel's instance for each head size cuts the P rows into:
+#: Layout<P>::G = P / Shape<P>::R in csrc/wkv6_scan.cu, kept in step by hand
+ROW_GROUPS = {16: 4, 32: 4, 64: 8}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -96,6 +101,37 @@ def wkv6_scan_ref(r, k, v, w, u, state=None, *,
     return y, s
 
 
+def wkv6_scan_grouped(r, k, v, w, u, state=None, *, groups: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's split of the arithmetic: per step, the partial sums of
+    r^T S over each of ``groups`` row groups (``ROW_GROUPS[P]`` by
+    default), added in group order, then the hoisted rank-1 bonus a_t v_t
+    with a_t = sum_i r_t[i] u[i] k_t[i]; then S <- w S + k v^T.  It follows
+    the kernel's row groups and its bonus, not its order of sums within a
+    group (einsum's here, one FMA a row there) nor its tree for a_t, so it
+    checks the decomposition, not the kernel's rounding.  Returns (y
+    (B, S, H, P) f32, final state (B, H, P, P) f32)."""
+    check_inputs(r, k, v, w, u, state)
+    B, S, H, P = r.shape
+    G = ROW_GROUPS.get(P, 1) if groups is None else groups
+    if G < 1 or P % G:
+        raise ValueError(f"{G} row groups do not divide P = {P}")
+    s = (torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
+         if state is None else state)
+    rf, kf, vf = r.float(), k.float(), v.float()
+    a = (rf * u * kf).sum(-1)  # (B, S, H): the bonus's weight a step
+    ys = []
+    for t in range(S):
+        parts = torch.einsum("bhgr,bhgrq->bhgq", rf[:, t].reshape(B, H, G, P // G),
+                             s.reshape(B, H, G, P // G, P))
+        yt = parts[:, :, 0]
+        for gi in range(1, G):
+            yt = yt + parts[:, :, gi]
+        ys.append(yt + a[:, t, :, None] * vf[:, t])
+        s = w[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    return torch.stack(ys, dim=1), s
+
+
 def _launch(r, k, v, w, u, state, state_out):
     refuse_grad("wkv6_scan", r, k, v, w, u, state)
     if r.device.type != "cuda":
@@ -106,6 +142,10 @@ def _launch(r, k, v, w, u, state, state_out):
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("state", state)):
         if x is not None and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("state", state),
+                    ("state_out", state_out)):
+        if x is not None and x.data_ptr() % 16:  # the kernel's vector loads and stores
+            raise ValueError(f"{name} must be 16-byte aligned")
     if state_out is None:
         state_out = torch.empty((B, H, P, P), dtype=torch.float32, device=r.device)
     elif (state_out.dtype != torch.float32 or tuple(state_out.shape) != (B, H, P, P)

@@ -1772,11 +1772,16 @@ def test_reduced_hybrid_card_matches_cpu(cuda):
 #: of the largest |entry| of y and of the final state: both versions compute
 #: in f32 from the same rounded inputs, the sums in another order
 WKV_TOL = 2e-5
-#: the kernel's edges: one step (decode), two, around and past its 32-step
-#: staging tile and a long walk, each head size it is built for, one block
-#: and 680 (over two waves), then the RWKV6-3B path's prefill and decode
-WKV_CASES = [(B, S, H, P) for S in (1, 2, 63, 64, 65, 1000) for P in (16, 32, 64)
-             for B, H in ((1, 1), (17, 40))] + [(8, 128, 40, 64), (8, 1, 40, 64)]
+#: the kernel's edges: one step (decode), two, two of its 8-step tiles and
+#: one step past them, four (its three-slot ring wrapped) and one past,
+#: around 64 and a long walk; each head size it is built for, so every
+#: column split (2, 1 and 1 blocks a head at P = 64, 32, 16); one head, 21
+#: and 680 (1360 blocks at P = 64: a ragged last wave at any residency);
+#: then the RWKV6-3B path's prefill and decode and b = 1 at 2048 steps (80
+#: blocks)
+WKV_CASES = [(B, S, H, P) for S in (1, 2, 16, 17, 32, 33, 63, 64, 65, 1000)
+             for P in (16, 32, 64) for B, H in ((1, 1), (3, 7), (17, 40))] + [
+    (8, 128, 40, 64), (8, 1, 40, 64), (1, 2048, 40, 64)]
 
 
 def _wkv_inputs(seed, B, S, H, P, dtype, zero_state, dev):
@@ -1839,6 +1844,22 @@ def test_wkv6_scan_kernel_in_place_and_refusals(cuda):
     with torch.no_grad():  # without grad mode the kernel runs
         wk.wkv6_scan(r, k, v, w, u, st)
     assert wk.wkv6_scan.launches == before + 1
+
+
+def test_wkv6_scan_kernel_refuses_misaligned(cuda):
+    """The kernel loads rows and state entries as vectors: a contiguous view
+    that starts off a 16-byte boundary raises (no fallback)."""
+    r, k, v, w, u, st = _wkv_inputs(0, 2, 5, 3, 16, torch.float32, False, cuda)
+    flat = torch.zeros(r.numel() + 1, device=cuda)
+    shifted = flat[1:].view(r.shape)
+    shifted.copy_(r)
+    before = wk.wkv6_scan.launches
+    with pytest.raises(ValueError, match="aligned"):
+        wk.wkv6_scan(shifted, k, v, w, u, st)
+    flat_s = torch.zeros(st.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        wk.wkv6_scan(r, k, v, w, u, st, state_out=flat_s[1:].view(st.shape))
+    assert wk.wkv6_scan.launches == before
 
 
 def test_reduced_rwkv_card_matches_cpu(cuda):

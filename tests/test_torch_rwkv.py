@@ -11,7 +11,10 @@ kernel-against-naive bar), the channel mix at 1e-5, logits, every cache
 entry and decode against a full forward at 3e-4 (the reference's
 decode-vs-forward bound), the plain scan against a float64 recurrence at
 1e-6.  The WKV6 scan runs its plain version here (CPU tensors); the
-kernel is held against it in test_torch_cuda.py and chip_smoke.py.
+kernel is held against it in test_torch_cuda.py and chip_smoke.py.  The
+kernel's arithmetic in its order (``wkv6_scan_grouped``) is held to the
+plain scan and to the float64 recurrence at 2e-5 of each output's largest
+|entry| (the card's bar), and through the time mix to the reference.
 """
 import jax
 import jax.numpy as jnp
@@ -110,6 +113,10 @@ def _close(got, want, tol, what):
 def test_time_mix_matches_reference(S, carried):
     """S <= 64 is the reference's plain scan, 65 and 130 its segmented,
     padded one; fresh, and from a carried WKV state and shift."""
+    _time_mix_against_reference(S, carried)
+
+
+def _time_mix_against_reference(S, carried):
     cfg = PARCHS[ARCH].reduced()
     rng = np.random.default_rng(10 * S + carried)
     p = _block_params(cfg, rng)
@@ -175,6 +182,70 @@ def test_wkv6_scan_ref_equals_recurrence():
         y1, _ = K.wkv6_scan_ref(rt, kt, vt, w32, u32, torch.zeros_like(s32))
         assert torch.equal(y0, y1)
     assert K.wkv6_scan.launches == 0  # CPU tensors: the plain version
+
+
+#: of the largest |entry| of y and of the final state (test_torch_cuda.py's
+#: and chip_smoke.py's bar for the kernel against the plain scan)
+WKV_TOL = 2e-5
+
+
+def _wkv_recurrence(r, k, v, w, u, s0):
+    """The recurrence in numpy float64 from the inputs' float32 values."""
+    r, k, v, w, u = (a.double().numpy() for a in (r.float(), k.float(), v.float(), w, u))
+    st = np.zeros(r.shape[:1] + r.shape[2:] + r.shape[-1:]) if s0 is None \
+        else s0.double().numpy()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(np.einsum("bhp,bhpq->bhq", r[:, t], st + u[None, :, :, None] * kv))
+        st = w[:, t][..., None] * st + kv
+    return np.stack(ys, 1), st
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_scan_grouped_matches_plain_and_recurrence(dtype, zero_state, P, S):
+    """The kernel's order (row-group partials, their sum, then a_t v_t) on
+    the CPU: against the plain scan and the float64 recurrence, decays from
+    6e-4 to 0.9999, bf16 inputs upcast as the kernel reads them."""
+    rng = np.random.default_rng(P * S + zero_state)
+    B, H = 2, 2
+    r, k, v = (torch.as_tensor(rng.normal(size=(B, S, H, P)) * 0.5,
+                               dtype=torch.float32).to(dtype) for _ in range(3))
+    w = torch.as_tensor(np.exp(-np.exp(rng.uniform(-9.0, 2.0, (B, S, H, P)))),
+                        dtype=torch.float32)
+    u = torch.as_tensor(rng.normal(size=(H, P)) * 0.5, dtype=torch.float32)
+    s0 = None if zero_state else torch.as_tensor(rng.normal(size=(B, H, P, P)) * 0.5,
+                                                 dtype=torch.float32)
+    y, fin = K.wkv6_scan_grouped(r, k, v, w, u, s0)
+    assert y.dtype == fin.dtype == torch.float32
+    y_ref, fin_ref = K.wkv6_scan_ref(r, k, v, w, u, s0)
+    y64, fin64 = _wkv_recurrence(r, k, v, w, u, s0)
+    for what, got, want in (("y", y, y_ref), ("state", fin, fin_ref),
+                            ("y vs f64", y, torch.as_tensor(y64)),
+                            ("state vs f64", fin, torch.as_tensor(fin64))):
+        err = (got.double() - want.double()).abs().max().item()
+        assert err <= WKV_TOL * want.abs().max().item(), f"{what}: max abs err {err}"
+
+
+@pytest.mark.parametrize("S", [65, 200])
+def test_time_mix_with_the_grouped_scan_matches_reference(S, monkeypatch):
+    """rwkv6_time_mix with the kernel's order in place of the plain scan,
+    past the reference's 64-step segments, from a carried state."""
+    calls = []
+
+    def grouped(r, k, v, w, u, state=None, *, state_out=None, device=None):
+        calls.append(r.shape)
+        y, fin = K.wkv6_scan_grouped(r, k, v, w, u, state)
+        if state_out is not None:
+            fin = state_out.copy_(fin)
+        return y, fin
+
+    monkeypatch.setattr(L.ops, "wkv6_scan", grouped)
+    _time_mix_against_reference(S, True)
+    assert len(calls) == 1 and calls[0][1] == S
 
 
 def test_wkv6_scan_checks_its_inputs():
