@@ -251,6 +251,25 @@
    2208 tokens at 3e-4.  Last, 2 layers in f32 with the bonus, the decay
    base and ln_x drawn from a seed: the kernel path against the plain path
    on the card (b 2, prompt 256, 8 steps), logits at 3e-4, tokens equal.
+8d. Phase 4n, Whisper-small and Qwen2-VL-7B: both attention kernels held
+   against their plain versions (bf16, 2e-2) and timed beside SDPA and
+   their bound at the shapes the two paths give them at b = 8 -- Whisper's
+   encoder (1500 x 1500, non-causal, 12 / 12 x 64), cross-attention
+   prefill (128 rows over 1500 keys) and decode (lengths 1500), K / V as
+   views of one projection, Qwen2-VL's prefill (256 patches + 128 tokens,
+   28 / 4 x 128: G = 7) and decode (the edge lists of phase 5 hold them in
+   f32 and bf16 too).  Then, counters zeroed just before and read just
+   after each run, Whisper-small at its published config (all 12 + 12
+   layers, 1500 stub frames a request) and Qwen2-VL-7B at its published
+   width with VLM_SERVE_LAYERS of its 28 layers (256 stub patches a
+   request) through serve_llm.run_pipeline with the Qwen path's traffic,
+   launch counts exact (Whisper: flash 12 + 2 x 12 a segment, decode 2 x
+   12 a step; Qwen2-VL: flash one a layer a segment, decode one a layer a
+   step; Bellman the solve's backups), peak memory.  Last, f32 at full
+   width, b 2 (Whisper whole, Qwen2-VL at 2 layers): prefill and 8 greedy
+   decode steps through the kernels, each position's logits held to a
+   one-shot forward at 3e-4, and to the plain path on the card (logits at
+   3e-4, greedy tokens equal).
 9. Phase 4j, training (examples/train_100m.py --full through the port):
    the attention backward kernel (csrc/flash_attention_bwd.cu) against
    autograd through the plain attention at the path's shape (b 8 x 256,
@@ -363,26 +382,40 @@ FLASH_TEST_SHAPES = [(2, 64, 64, 4, 2, 16, True, None), (1, 33, 70, 4, 4, 8, Fal
 DECODE_TEST_SHAPES = [(2, 300, 8, 2, 16), (3, 128, 4, 4, 32), (1, 77, 8, 1, 64),
                       (4, 64, 16, 4, 8)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: bf16 attention over Whisper-small's CROSS_KEYS (1500) keys also meets
+#: ||got - want||_2 <= ATTN_REL_BF16 ||want||_2: there a typical |o| is
+#: about sqrt(e / 1500) = 0.04, so 2e-2 alone passes a wrong last key tile.
+#: Its 36 padding keys scored as 0 move the output by about 36 / (1500
+#: e^0.5) = 1.5 % of its norm, its 28 ragged keys dropped by about
+#: sqrt(28 / 1500) = 14 %
+CROSS_KEYS, ATTN_REL_BF16 = 1500, 1e-2
 #: the kernel each wrapper's C entry point launches, by dtype
 #: (kernels/csrc/flash_attention.cu, decode_attention.cu)
 VARIANTS = {"flash_attention": {"bfloat16": "wgmma bf16", "float32": "cuda-core f32"},
             "decode_attention": {"bfloat16": "split-K cuda-core", "float32": "split-K cuda-core"}}
 #: edge cases of the tensor-core flash kernel: lengths off its 64-row tiles,
 #: causal rows that see no key (Sq > Sk), several key tiles, softcap, every
-#: head size
+#: head size; Whisper's encoder (1500 x 1500 non-causal: 1500 is off the
+#: tiles on both axes) and cross-attention prefill (128 rows over 1500
+#: keys), Qwen2-VL's prefill at G = 7 (28 / 4 heads of 128)
 FLASH_EDGE_SHAPES = [(2, 100, 100, 4, 2, 64, True, None), (1, 70, 130, 8, 2, 128, False, None),
                      (2, 150, 90, 4, 1, 64, True, None), (1, 130, 70, 2, 2, 128, True, None),
                      (2, 80, 80, 4, 2, 128, True, 30.0), (2, 300, 300, 8, 2, 128, True, None),
-                     (2, 200, 260, 4, 2, 8, True, 30.0)] + [
+                     (2, 200, 260, 4, 2, 8, True, 30.0), (2, 1500, 1500, 12, 12, 64, False, None),
+                     (2, 128, 1500, 12, 12, 64, False, None),
+                     (2, 384, 384, 28, 4, 128, True, None)] + [
     (1, 96, 96, 4, 2, d, True, None) for d in (8, 16, 32, 64, 128, 256)]
 #: edge cases of the split-K decode kernel, (B, S, H, KV, D, lengths or a
 #: tag): lengths 0, 1, S and inside a split; 4096-deep caches (many splits)
 #: at b = 1 and 8; b x KV >= the SM count (one split); G = 16 and 3, D = 8
-#: and 256
+#: and 256; Whisper's cross-attention decode ("cross": lengths all S = 1500,
+#: K / V the halves of one (B, S, 2 KV D) projection, row stride 2 KV D);
+#: Qwen2-VL's G = 7
 DECODE_EDGE_CASES = [(4, 300, 8, 2, 64, "edges"), (1, 4096, 40, 8, 128, "random"),
                      (8, 4096, 40, 8, 128, "random"), (17, 144, 40, 8, 128, "random"),
                      (2, 200, 16, 1, 32, [200, 37]), (2, 200, 12, 4, 256, [200, 37]),
-                     (2, 200, 6, 2, 8, [200, 37])]
+                     (2, 200, 6, 2, 8, [200, 37]), (2, 1500, 12, 12, 64, "cross"),
+                     (2, 400, 28, 4, 128, [400, 129])]
 LOGIT_ATOL = 3e-4  # tests/test_models.py's decode-vs-forward bound
 
 
@@ -3587,13 +3620,23 @@ def _decode_inputs(torch, rng, B, S, H, KV, D, dtype, lengths):
     return q, cache[0, 1], cache[1, 0], lens
 
 
-def _decode_inputs_card(torch, seed, B, S, H, KV, D, dtype, lengths):
+def _fused_kv(torch, gen, B, S, KV, D, dtype):
+    """K and V (B, S, KV, D) as the two halves of one (B, S, 2 KV D)
+    projection, as Whisper's cross-attention reads them (row stride 2 KV D)."""
+    kv = torch.randn((B, S, 2 * KV * D), generator=gen, device="cuda").to(dtype)
+    return tuple(x.reshape(B, S, KV, D) for x in torch.chunk(kv, 2, dim=-1))
+
+
+def _decode_inputs_card(torch, seed, B, S, H, KV, D, dtype, lengths, fused=False):
     """As _decode_inputs, drawn on the card from a seeded generator: the
-    edge cases' 4096-deep caches are too large to draw on the host quickly."""
+    edge cases' 4096-deep caches are too large to draw on the host quickly.
+    ``fused``: K and V are _fused_kv's views."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
-    cache = torch.randn((2, 2, B, S, KV, D), generator=gen, device="cuda").to(dtype)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    if fused:
+        return (q, *_fused_kv(torch, gen, B, S, KV, D, dtype), lens)
+    cache = torch.randn((2, 2, B, S, KV, D), generator=gen, device="cuda").to(dtype)
     return q, cache[0, 1], cache[1, 0], lens
 
 
@@ -3662,6 +3705,26 @@ def attn_decode_row(torch, rng, B, dtype, n_sm, H, KV, D, reps=200):
                 variant=VARIANTS["decode_attention"][dt], n_split=n_split)
 
 
+def attention_checker(torch, err):
+    """held(name, got, want, dt, what, rel=None): got within atol = rtol =
+    ATTN_TOL[dt] of want, and in bf16 with ``rel`` given also within ``rel``
+    of it in relative L2 norm; err[name][dt] keeps the largest abs error."""
+    def held(name, got, want, dt, what, rel=None):
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        e = (g - w).abs().max().item()
+        t = ATTN_TOL[dt]
+        check(torch.allclose(g, w, atol=t, rtol=t), f"{name} {what} {dt}: max abs err {e}")
+        note = ""
+        if rel is not None and dt == "bfloat16":
+            r = (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
+            check(r <= rel, f"{name} {what} {dt}: relative L2 err {r}")
+            note = f", rel_l2_err={r:.3e} (bar {rel})"
+        err[name][dt] = max(err[name][dt], e)
+        log(f"{name} {what} {dt}: max_abs_err={e:.3e} (atol = rtol = {t}){note} ok")
+    return held
+
+
 def attention_phase(torch, np, rows):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -3671,15 +3734,7 @@ def attention_phase(torch, np, rows):
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     full = dict(H=40, KV=8, D=128)  # Qwen2.5-32B's attention
     err = {n: dict.fromkeys(dts, 0.0) for n in ("flash_attention", "decode_attention")}
-
-    def held(name, got, want, dt, what):
-        torch.cuda.synchronize()
-        e = (got.float() - want.float()).abs().max().item()
-        t = ATTN_TOL[dt]
-        check(torch.allclose(got.float(), want.float(), atol=t, rtol=t),
-              f"{name} {what} {dt}: max abs err {e}")
-        err[name][dt] = max(err[name][dt], e)
-        log(f"{name} {what} {dt}: max_abs_err={e:.3e} (atol = rtol = {t}) ok")
+    held = attention_checker(torch, err)
 
     flash_shapes = FLASH_TEST_SHAPES + [(b, LLM_PROMPT, LLM_PROMPT, full["H"], full["KV"],
                                          full["D"], True, None) for b in (1, LLM_B_MAX)]
@@ -3726,7 +3781,8 @@ def attention_phase(torch, np, rows):
             q, k, v = _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype)
             held("flash_attention", fa.flash_attention(q, k, v, causal=causal, softcap=cap),
                  fa.attention_ref(q, k, v, causal=causal, softcap=cap), dt,
-                 f"edge {(B, Sq, Sk, H, KV, D)} causal={causal} softcap={cap}")
+                 f"edge {(B, Sq, Sk, H, KV, D)} causal={causal} softcap={cap}",
+                 rel=ATTN_REL_BF16 if Sk == CROSS_KEYS else None)
     H, KV, D = full["H"], full["KV"], full["D"]
     for dt, dtype in dts.items():  # q / k / v as views of one fused qkv, as layers.py
         qkv = _normal(torch, rng, (LLM_B_MAX, LLM_PROMPT, (H + 2 * KV) * D), dtype)
@@ -3749,18 +3805,23 @@ def attention_phase(torch, np, rows):
     log("misaligned bf16 views (2 bytes off): flash q, decode k_cache and q refused ok")
     for i, (B, S, H, KV, D, lens) in enumerate(DECODE_EDGE_CASES):
         n_split = da._split_plan(B, S, KV, n_sm)
+        fused = lens == "cross"
         if lens == "random":  # S, then anything from 0 to S
             lens = [S] + list(rng.integers(0, S + 1, B - 1))
         elif lens == "edges":  # 0, 1, S and inside the second split
             lens = [0, 1, S, da.split_bounds(S, n_split)[1][0] + 5]
+        elif fused:  # every row of a projection's halves
+            lens = [S] * B
         for cap in (None, 30.0) if D == 64 else (None,):
             for dt, dtype in dts.items():
                 q, kc, vc, ln = _decode_inputs_card(torch, 100 + i, B, S, H, KV, D, dtype,
-                                                    lens)
+                                                    lens, fused)
                 held("decode_attention", da.decode_attention(q, kc, vc, ln, softcap=cap),
                      da.decode_attention_ref(q, kc, vc, ln, softcap=cap), dt,
                      f"edge {(B, S, H, KV, D)} splits={n_split} softcap={cap} "
-                     f"lengths={list(map(int, lens))[:8]}")
+                     f"lengths={list(map(int, lens))[:8]}"
+                     + (f" K / V views, row stride {kc.stride(1)}" if fused else ""),
+                     rel=ATTN_REL_BF16 if S == CROSS_KEYS else None)
     masked_attention(torch, np, rows, held)
     for name in ("flash_attention", "decode_attention"):
         rows[name].update(max_abs_err=max(err[name].values()),
@@ -3813,64 +3874,77 @@ MASKED_DECODE_EDGES = [(4, 300, 8, 2, 64, 5, None, [0, 5, 6, 299]),
                        (3, 2048, 40, 8, 128, None, 1024, [0, 1024, 1025])]
 
 
-def _sdpa_note(lib, cap):
+def _sdpa_note(lib, cap, how="boolean mask"):
     """SDPA computes the same function only without a softcap: with one,
     its time (the mask, no cap) is a yardstick, not the library_ms."""
     if cap is None:
-        return lib, f"library_ms={lib:.6f} (SDPA, enable_gqa, boolean mask)"
-    return None, (f"library_ms=None (SDPA has no softcap; SDPA with the boolean mask and "
+        return lib, f"library_ms={lib:.6f} (SDPA, enable_gqa, {how})"
+    return None, (f"library_ms=None (SDPA has no softcap; SDPA with the {how} and "
                   f"no cap: {lib:.6f} ms)")
 
 
-def masked_flash_row(torch, np, held, what, B, Sq, Sk, H, KV, D, cap, window, chunk):
-    """Both dtypes held against the plain version; bf16 timed beside the
-    plain version, SDPA with the equivalent boolean mask and the bound of
-    the masked work."""
+def masked_flash_row(torch, np, held, what, B, Sq, Sk, H, KV, D, cap, window, chunk, *,
+                     causal=True, fused=False, rel=None):
+    """Both dtypes held against the plain version (``rel``: held's bf16
+    relative bar; ``fused``: K / V are _fused_kv's views); bf16 timed beside
+    the plain version, SDPA (with the equivalent boolean mask under a window
+    or a chunk) and the bound of the visible pairs."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + D)
-    mask = dict(causal=True, softcap=cap, window=window, chunk=chunk)
+    mask = dict(causal=causal, softcap=cap, window=window, chunk=chunk)
     for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
+        k, v = (_fused_kv(torch, gen, B, Sk, KV, D, dtype) if fused else
+                [torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+                 for _ in range(2)])
         held("flash_attention", fa.flash_attention(q, k, v, **mask),
              fa.attention_ref(q, k, v, **mask), dt,
-             f"{what} {(B, Sq, Sk, H, KV, D)} window={window} chunk={chunk} softcap={cap}")
-    ms = call_ms(torch, lambda: fa.flash_attention(q, k, v, **mask), 10)
+             f"{what} {(B, Sq, Sk, H, KV, D)} causal={causal} window={window} chunk={chunk} "
+             f"softcap={cap}" + (f" K / V views, row stride {k.stride(1)}" if fused else ""),
+             rel=rel)
+    ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, **mask), 10)
     plain = call_ms(torch, lambda: fa.attention_ref(q, k, v, **mask), 2)
     keep = fa.visible(torch.arange(Sq, device="cuda") + (Sk - Sq),
-                      torch.arange(Sk, device="cuda"), causal=True, window=window, chunk=chunk)
+                      torch.arange(Sk, device="cuda"), causal=causal, window=window, chunk=chunk)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = call_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=keep, enable_gqa=True), 3)
-    lib, note = _sdpa_note(sdpa, cap)
+    if window is None and chunk is None:
+        how, sdpa_mask = ("is_causal" if causal else "no mask"), dict(is_causal=causal)
+    else:
+        how, sdpa_mask = "boolean mask", dict(attn_mask=keep)
+    sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **sdpa_mask), 3)
+    lib, note = _sdpa_note(sdpa, cap, how)
     pairs = int(keep.sum().item())
-    del keep
+    del keep, sdpa_mask
     item = q.element_size()
     b_ms, b_by = bound(item * (2 * B * Sq * H * D + 2 * B * Sk * KV * D),
                        4 * B * H * D * pairs, BF16_FLOPS)
-    log(f"flash_attention {what} {(B, Sq, Sk, H, KV, D)} window={window} chunk={chunk} "
-        f"softcap={cap} bfloat16: kernel_ms={ms:.6f} plain_ms={plain:.6f} {note} "
-        f"bound_ms={b_ms:.6f} ({b_by}; {pairs} visible pairs a head)")
+    log(f"flash_attention {what} {(B, Sq, Sk, H, KV, D)} causal={causal} window={window} "
+        f"chunk={chunk} softcap={cap} bfloat16: kernel_ms={ms:.6f} plain_ms={plain:.6f} "
+        f"{note} bound_ms={b_ms:.6f} ({b_by}; {pairs} visible pairs a head)")
     return dict(what=what, ms=ms, plain_ms=plain, library_ms=lib, sdpa_mask_ms=sdpa,
-                bound_ms=b_ms, bound_by=b_by, shape=[B, Sq, Sk, H, KV, D], window=window,
-                chunk=chunk, softcap=cap, dtype="bfloat16", visible_pairs=pairs)
+                bound_ms=b_ms, bound_by=b_by, shape=[B, Sq, Sk, H, KV, D], causal=causal,
+                window=window, chunk=chunk, softcap=cap, dtype="bfloat16",
+                visible_pairs=pairs)
 
 
 def masked_decode_row(torch, np, held, n_sm, what, B, S, H, KV, D, cap, window, chunk,
-                      lengths):
+                      lengths, *, fused=False, rel=None):
+    """As masked_flash_row, for the decode kernel over a cache at ``lengths``."""
     from repro_torch.kernels import decode_attention as da
 
     F = torch.nn.functional
     mask = dict(softcap=cap, window=window, chunk=chunk)
     for dt, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        q, kc, vc, ln = _decode_inputs_card(torch, S + D, B, S, H, KV, D, dtype, lengths)
+        q, kc, vc, ln = _decode_inputs_card(torch, S + D, B, S, H, KV, D, dtype, lengths,
+                                            fused)
         held("decode_attention", da.decode_attention(q, kc, vc, ln, **mask),
              da.decode_attention_ref(q, kc, vc, ln, **mask), dt,
              f"{what} {(B, S, H, KV, D)} window={window} chunk={chunk} softcap={cap} "
-             f"lengths={lengths}")
+             f"lengths={lengths}"
+             + (f" K / V views, row stride {kc.stride(1)}" if fused else ""), rel=rel)
     ms = device_ms(torch, lambda: da.decode_attention(q, kc, vc, ln, **mask), 100)
     plain = call_ms(torch, lambda: da.decode_attention_ref(q, kc, vc, ln, **mask), 3)
     lo, hi, _ = da.key_span(ln, S, window, chunk)
@@ -3935,9 +4009,10 @@ def masked_attention(torch, np, rows, held):
 # ---------------------------------------------------------------------------
 
 
-def _greedy_logits(torch, M, cfg, params, tokens, steps, max_len):
-    """Prefill logits, then `steps` greedy decode steps; (B, steps+1, V), tokens."""
-    lg, cache = M.prefill(cfg, params, {"tokens": tokens}, max_len, torch.float32)
+def _greedy_logits(torch, M, cfg, params, tokens, steps, max_len, **inputs):
+    """Prefill logits, then `steps` greedy decode steps; (B, steps+1, V), tokens.
+    ``inputs``: the prefill's frames or patches."""
+    lg, cache = M.prefill(cfg, params, {"tokens": tokens, **inputs}, max_len, torch.float32)
     out, toks = [lg], []
     for _ in range(steps):
         tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
@@ -4578,9 +4653,10 @@ def _free(torch, what):
     log(f"{what} freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
 
 
-def serve_model(torch, np, kernels, arch, cfg, describe, want):
+def serve_model(torch, np, kernels, arch, cfg, describe, want, prompt_len=LLM_PROMPT):
     """``cfg`` (bf16, random weights) through serve_llm.run_pipeline with the
-    Qwen cell's traffic, counters zeroed just before and read just after;
+    Qwen cell's traffic (a prompt of ``prompt_len``), counters zeroed just
+    before and read just after;
     ``want(L, segments)`` gives the exact launch counts by wrapper (the
     Bellman backups are added).  Logs l(b), each scheduler's serve and the
     peak memory, frees the model and returns the counts."""
@@ -4604,7 +4680,7 @@ def serve_model(torch, np, kernels, arch, cfg, describe, want):
     t0 = time.perf_counter()
     res = serve_llm.run_pipeline(
         cfg, params, n_requests=LLM_REQUESTS, rho=LLM_RHO, gen_tokens=LLM_GEN,
-        prompt_len=LLM_PROMPT, b_max=LLM_B_MAX, cache_dtype=torch.bfloat16, seed=0,
+        prompt_len=prompt_len, b_max=LLM_B_MAX, cache_dtype=torch.bfloat16, seed=0,
         log=note)
     counts = kernels.launch_counts()
     wall = time.perf_counter() - t0
@@ -4978,6 +5054,171 @@ def rwkv_phase(torch, np, kernels, rows):
     long_context_check(torch, RWKV_ARCH, **RWKV_LONG)
     rwkv_kernel_vs_plain(torch, np, kernels)
     log(f"phase 4m (RWKV6-3B): {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4n: Whisper-small (the encoder, cross-attention) and Qwen2-VL-7B
+# (M-RoPE, patch inputs) through the hand attention kernels
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-7b"
+#: Qwen2-VL-7B's serving depth: all 28 of its layers at its published width
+VLM_SERVE_LAYERS = 28
+#: the f32 checks at full width, b 2: a prompt of 16 text tokens (after
+#: Qwen2-VL's 256 stub patches), 8 greedy decode steps; Whisper whole (12 +
+#: 12 layers), Qwen2-VL at 2 of its 28 layers (a depth cut)
+ENCDEC_VLM_CHECK = dict(batch=2, prompt=16, steps=8)
+VLM_CHECK_LAYERS = 2
+
+
+def _extra_inputs(torch, cfg, B, dtype, seed):
+    """The stub frontends' inputs of a batch, as model.input_shapes names
+    them (Whisper's frames, Qwen2-VL's patches): unit normals drawn on the
+    card."""
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randn((B,) + shape, generator=gen, device="cuda").to(dtype)
+            for name, shape in M.input_shapes(cfg).items()}
+
+
+def encdec_vlm_kernel_rows(torch, np, rows):
+    """Both kernels at the shapes the two new paths give them, at b = 8:
+    Whisper's encoder (1500 x 1500, non-causal, 12 / 12 x 64), its
+    cross-attention prefill (128 rows over 1500 keys) and decode (lengths
+    1500), both over K / V views of one projection, and Qwen2-VL's prefill
+    (256 patches + 128 tokens, causal, 28 / 4 x 128: G = 7) and decode (a
+    400-deep cache at the path's lengths); each in both dtypes against its
+    plain version, Whisper's also at ATTN_REL_BF16."""
+    from repro_torch.configs import ARCHS
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    w, q = ARCHS[ENCDEC_ARCH], ARCHS[VLM_ARCH]
+    T, P = w.encoder_len, q.n_patches + LLM_PROMPT
+    wh, qh = (w.n_heads, w.n_kv_heads, w.head_dim), (q.n_heads, q.n_kv_heads, q.head_dim)
+    B = LLM_B_MAX
+    names = ("flash_attention", "decode_attention")
+    err = {n: rows[n]["max_abs_err_by_dtype"] for n in names}
+    held = attention_checker(torch, err)
+    none = (None, None, None)  # softcap, window, chunk
+    flash = [masked_flash_row(torch, np, held, "whisper-small encoder", B, T, T, *wh, *none,
+                              causal=False, rel=ATTN_REL_BF16),
+             masked_flash_row(torch, np, held, "whisper-small cross prefill", B, LLM_PROMPT, T,
+                              *wh, *none, causal=False, fused=True, rel=ATTN_REL_BF16),
+             masked_flash_row(torch, np, held, "qwen2-vl-7b prefill", B, P, P, *qh, *none)]
+    torch.cuda.empty_cache()
+    qlens = [P + 1 + (i * (LLM_GEN - 2)) // (B - 1) for i in range(B)]
+    decode = [masked_decode_row(torch, np, held, n_sm, "whisper-small cross decode", B, T,
+                                *wh, *none, [T] * B, fused=True, rel=ATTN_REL_BF16),
+              masked_decode_row(torch, np, held, n_sm, "qwen2-vl-7b decode", B, P + LLM_GEN,
+                                *qh, *none, qlens)]
+    rows["flash_attention"]["encdec_vlm_shapes"] = flash
+    rows["decode_attention"]["encdec_vlm_shapes"] = decode
+    for n in names:
+        rows[n]["max_abs_err"] = max(err[n].values())
+    torch.cuda.empty_cache()
+
+
+def encdec_vlm_serve(torch, np, kernels, rows):
+    """Whisper-small whole (12 + 12 layers) and Qwen2-VL-7B at its published
+    width through serve_model: Whisper's segment launches flash once an
+    encoder layer and twice a decoder layer (self, cross) in its prefill and
+    decode twice a decoder layer a step; Qwen2-VL's (a prompt of its 256
+    patches + LLM_PROMPT tokens) flash once a layer, decode once a layer a
+    step."""
+    from repro_torch.configs import ARCHS
+
+    w = ARCHS[ENCDEC_ARCH]
+    counts = serve_model(
+        torch, np, kernels, ENCDEC_ARCH, w,
+        f"published config, all {w.n_encoder_layers} + {w.n_layers} layers: d={w.d_model} "
+        f"H={w.n_heads}/{w.n_kv_heads} hd={w.head_dim} ff={w.d_ff} ({w.act}) "
+        f"V={w.vocab_size}, {w.encoder_len} stub frames, {w.norm}",
+        lambda L, seg: {"flash_attention": (w.n_encoder_layers + 2 * L) * seg,
+                        "decode_attention": 2 * L * (LLM_GEN - 1) * seg})
+    launches = {ENCDEC_ARCH: counts}
+    full = ARCHS[VLM_ARCH]
+    q = dataclasses.replace(full, n_layers=VLM_SERVE_LAYERS)
+    counts = serve_model(
+        torch, np, kernels, VLM_ARCH, q,
+        f"published width, {q.n_layers} of its {full.n_layers} layers: d={q.d_model} "
+        f"H={q.n_heads}/{q.n_kv_heads} hd={q.head_dim} ff={q.d_ff} V={q.vocab_size} "
+        f"qkv bias, M-RoPE sections {q.mrope_sections}, prompt {q.n_patches} patches + "
+        f"{LLM_PROMPT} tokens",
+        lambda L, seg: {"flash_attention": L * seg,
+                        "decode_attention": L * (LLM_GEN - 1) * seg},
+        prompt_len=q.n_patches + LLM_PROMPT)
+    launches[VLM_ARCH] = counts
+    for name in ("flash_attention", "decode_attention", "bellman_banded"):
+        rows[name]["launches_encdec_vlm_path"] = {a: c[name] for a, c in launches.items()}
+
+
+def encdec_vlm_check(torch, np, kernels, arch, n_layers):
+    """f32 at full width (``n_layers`` decoder layers), b 2: prefill and
+    greedy decode through the kernels (launch counts exact), each position's
+    logits held to a one-shot forward of the same tokens and frames /
+    patches, then the same weights through the plain path on the card
+    (logits and greedy tokens)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    c = ENCDEC_VLM_CHECK
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           torch.float32, "cuda")
+    B, steps = c["batch"], c["steps"]
+    P = c["prompt"] + cfg.n_patches
+    toks = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+    extra = _extra_inputs(torch, cfg, B, torch.float32, 4)
+    kernels.reset_launch_counts()
+    got, got_toks = _greedy_logits(torch, M, cfg, params, toks, steps, P + steps, **extra)
+    counts = kernels.launch_counts()
+    per_layer = 2 if cfg.family == "encdec" else 1
+    want_counts = {"flash_attention": cfg.n_encoder_layers + per_layer * cfg.n_layers,
+                   "decode_attention": per_layer * cfg.n_layers * steps}
+    check(all(counts[k] == n for k, n in want_counts.items()),
+          f"{arch} kernel path launches {counts}, not {want_counts}")
+    with torch.inference_mode():
+        h, _ = M.forward(cfg, params, torch.cat([toks] + got_toks, dim=1), **extra)
+        one = M._unembed(cfg, params, h[:, P - 1:])
+    e_one = (got - one).abs().max().item()
+    check(e_one <= LOGIT_ATOL, f"{arch} decode path vs one-shot: max abs err {e_one}")
+    before = kernels.launch_counts()
+    kernel_ops = L.ops
+    L.ops = _PlainOps
+    try:
+        want, want_toks = _greedy_logits(torch, M, cfg, params, toks, steps, P + steps,
+                                         **extra)
+    finally:
+        L.ops = kernel_ops
+    check(kernels.launch_counts() == before, "the plain path launched a kernel")
+    e = (got - want).abs().max().item()
+    check(e <= LOGIT_ATOL and all(torch.equal(a, b) for a, b in zip(got_toks, want_toks)),
+          f"{arch} kernel path vs plain path: max abs err {e}")
+    depth = (f"{cfg.n_encoder_layers} + " if cfg.n_encoder_layers else "") + str(cfg.n_layers)
+    log(f"{arch} f32 full width ({depth} layers, d={cfg.d_model}, H={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}) b={B}, prompt {P} ({cfg.n_patches} patches) + {steps} decode "
+        f"steps: decode path vs one-shot forward max_abs_err={e_one:.3e}, kernel path vs "
+        f"plain path on the card max_abs_err={e:.3e} (atol {LOGIT_ATOL}), greedy tokens "
+        f"equal; logit scale {got.abs().max().item():.3f}; kernel path launches flash "
+        f"{counts['flash_attention']}, decode {counts['decode_attention']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ok")
+    del params
+    _free(torch, f"{arch} check model")
+
+
+def encdec_vlm_phase(torch, np, kernels, rows):
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    encdec_vlm_kernel_rows(torch, np, rows)
+    encdec_vlm_serve(torch, np, kernels, rows)
+    encdec_vlm_check(torch, np, kernels, ENCDEC_ARCH, ARCHS[ENCDEC_ARCH].n_layers)
+    encdec_vlm_check(torch, np, kernels, VLM_ARCH, VLM_CHECK_LAYERS)
+    log(f"phase 4n (Whisper-small, Qwen2-VL-7B): {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5508,6 +5749,11 @@ def main():
     t0 = time.perf_counter()
     rwkv_phase(torch, np, kernels, rows)
     mark("4m RWKV6", t0)
+
+    # --- Whisper-small and Qwen2-VL-7B: encoder, cross-attention, M-RoPE (4n)
+    t0 = time.perf_counter()
+    encdec_vlm_phase(torch, np, kernels, rows)
+    mark("4n Whisper and Qwen2-VL", t0)
 
     # --- training: the backward kernel, qwen2.5-100m --full, the resume (4j)
     t0 = time.perf_counter()

@@ -13,8 +13,8 @@ it.
     policy into the port's ``SMDPScheduler``;
   * ``params_from_reference(cfg, params)`` turns the reference's
     ``init_params`` tree (layers stacked on a leading axis) into the
-    port's ``DenseLM`` or, for the hybrid family, ``HybridLM`` and, for
-    RWKV6, ``RwkvLM``;
+    port's ``DenseLM`` (a VLM too) or, for the hybrid family, ``HybridLM``,
+    for RWKV6 ``RwkvLM`` and for the encoder-decoder ``EncDecLM``;
   * ``reference_tree(cfg, tensors)`` is the reverse of
     ``params_from_reference`` for any tensors in the port's layout
     (gradients, optimizer moments) of a dense or MoE decoder: the
@@ -36,6 +36,7 @@ from .models.config import ModelConfig
 from .models.model import (
     LM,
     DenseLM,
+    EncDecLM,
     HybridLM,
     RwkvLM,
     block_norms,
@@ -97,7 +98,8 @@ def table_from_reference(result) -> SMDPScheduler:
 def params_from_reference(cfg: ModelConfig, params, *,
                           device: DeviceLike = None) -> LM:
     """The port's DenseLM (HybridLM for the hybrid family, RwkvLM for
-    RWKV6) holding a reference ``init_params`` tree.
+    RWKV6, EncDecLM for the encoder-decoder) holding a reference
+    ``init_params`` tree.
 
     ``params`` is the reference's nested dict with numpy (or array-like)
     leaves.  The stacked leading L axis is split into per-layer tensors;
@@ -109,7 +111,12 @@ def params_from_reference(cfg: ModelConfig, params, *,
     ``shared_attn`` block gets the same attention / MLP layout; an RWKV6
     layer keeps its names, wr / wk / wv / wg (d, H, P) becoming (d, H P)
     and wo (H, P, d) becoming (H P, d), every other leaf as it is; norms
-    and the output matrix carry over, all in the arrays' own dtype.
+    and the output matrix carry over, all in the arrays' own dtype.  An
+    encoder-decoder's ``enc_blocks`` become dense layers, ``enc_pos`` and
+    ``enc_final_norm`` carry over, and a decoder layer's cross-attention
+    leaves x_wq / x_wk / x_wv / x_wo become ``x_wq`` (d, H hd), ``x_wkv``
+    (d, 2 KV hd) and ``x_wo`` (H hd, d), with its norm ``lnx``.  (The
+    reference's cross-attention reads no bias, so none is kept.)
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -152,6 +159,12 @@ def params_from_reference(cfg: ModelConfig, params, *,
     def layer_norm_of(tree, i, name):
         return norm({k: np.asarray(v)[i] for k, v in tree.items()}, name)
 
+    def dense_layer(tree, i, norms):
+        b = attn_mlp(lambda name: np.asarray(tree[name])[i])
+        for n in norms:
+            b.update(layer_norm_of(tree[n], i, n))
+        return b
+
     top = {"embed": t(params["embed"]), **norm(params["final_norm"], "final_norm")}
     if not cfg.tie_embeddings:
         top["out"] = t(params["out"])
@@ -168,13 +181,23 @@ def params_from_reference(cfg: ModelConfig, params, *,
         elif cfg.family == "hybrid":
             b = {n: t(layer(n)) for n in mamba_shapes(cfg) if not n.startswith("ln")}
             b.update(layer_norm_of(blk["ln1"], i, "ln1"))
+        elif cfg.family == "encdec":
+            b = dense_layer(blk, i, ("ln1", "ln2", "lnx"))
+            b["x_wq"] = t(layer("x_wq").reshape(d, -1))
+            b["x_wkv"] = t(np.concatenate(
+                [layer(n).reshape(d, -1) for n in ("x_wk", "x_wv")], axis=1))
+            b["x_wo"] = t(layer("x_wo").reshape(-1, d))
         else:
-            b = attn_mlp(layer)
-            for n in block_norms(cfg):
-                b.update(layer_norm_of(blk[n], i, n))
+            b = dense_layer(blk, i, block_norms(cfg))
         blocks.append(b)
     if cfg.rwkv:
         return RwkvLM(cfg, top, blocks)
+    if cfg.family == "encdec":
+        top.update({"enc_pos": t(params["enc_pos"]),
+                    **norm(params["enc_final_norm"], "enc_final_norm")})
+        enc = [dense_layer(params["enc_blocks"], i, ("ln1", "ln2"))
+               for i in range(cfg.n_encoder_layers)]
+        return EncDecLM(cfg, top, enc, blocks)
     if cfg.family != "hybrid":
         return DenseLM(cfg, top, blocks)
     sa = params["shared_attn"]

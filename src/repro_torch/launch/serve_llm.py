@@ -20,23 +20,28 @@ each with its layer's sliding window (Gemma2's local layers) or
 chunked-local mask (Llama-4's), every step of a hybrid through the SSD
 scan kernel once per Mamba2 layer, and every step of an RWKV6 model (it
 has no attention) through the WKV6 scan kernel once per layer.  An MoE
-layer's experts are batched matmuls (``layers.moe_ffn``).
+layer's experts are batched matmuls (``layers.moe_ffn``).  An
+encoder-decoder (Whisper) runs its encoder once a prefill (a flash launch
+an encoder layer), and its decoder's cross-attention once a layer a step
+(flash in the prefill, decode after); each request carries its stub
+frame embeddings, and a VLM's (Qwen2-VL) its stub patch embeddings, which
+take the place of the prompt's first ``n_patches`` tokens.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cpu
         [--arch qwen2.5-32b | command-r-plus-104b | gemma2-9b | gemma2-27b
-         | llama4-scout-17b-a16e | grok-1-314b | zamba2-1.2b | rwkv6-3b]
+         | llama4-scout-17b-a16e | grok-1-314b | zamba2-1.2b | rwkv6-3b
+         | whisper-small | qwen2-vl-7b]
         [--n-requests 120] [--rho 0.6] [--gen-tokens 8]
 
 The CLI runs the arch's ``reduced()`` config in float32, as the example
-does; ``run_pipeline`` takes any dense, MoE, hybrid or RWKV6 config,
-weights and dtypes.
+does; ``run_pipeline`` takes any config the port runs, weights and dtypes.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,14 +86,18 @@ class SegmentExecutor:
         self.cache_dtype = cache_dtype
         self.segments = 0
 
-    def run(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Greedy tokens (b, gen_tokens) for prompts (b, prompt_len)."""
+    def run(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Greedy tokens (b, gen_tokens) for prompts (b, prompt_len), with an
+        encoder-decoder's ``frames`` (b, T, d) or a VLM's ``patches`` (b, n,
+        d)."""
         b, s = tokens.shape
         if not 1 <= b <= self.b_max or s != self.prompt_len:
             raise ValueError(f"batch {tuple(tokens.shape)} outside "
                              f"(1..{self.b_max}, {self.prompt_len})")
         cfg, params = self.cfg, self.params
-        logits, cache = M.prefill(cfg, params, {"tokens": tokens},
+        batch = {"tokens": tokens, "frames": frames, "patches": patches}
+        logits, cache = M.prefill(cfg, params, batch,
                                   max_len=self.prompt_len + self.gen_tokens,
                                   cache_dtype=self.cache_dtype)
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
@@ -103,7 +112,35 @@ class SegmentExecutor:
         return torch.cat(out, dim=1)
 
     def __call__(self, batch: List[Request]) -> None:
-        self.run(torch.stack([r.payload for r in batch]))
+        self.run(**stack_payloads([r.payload for r in batch]))
+
+
+def stack_payloads(payloads: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """One batch from request payloads (``draw_requests``): each input stacked."""
+    return {k: torch.stack([p[k] for p in payloads]) for k in payloads[0]}
+
+
+def draw_requests(cfg: ModelConfig, n: int, prompt_len: int, *, seed: int,
+                  device: DeviceLike = None, dtype: torch.dtype = torch.float32
+                  ) -> Tuple[List[Dict[str, torch.Tensor]], np.random.Generator]:
+    """n request payloads, each a dict of the model's inputs: ``tokens``
+    (prompt_len,) from ``np.random.default_rng(seed)``, which comes back to
+    draw the arrivals, and the inputs ``M.input_shapes(cfg)`` names (an
+    encoder-decoder's frames, a VLM's patches), unit normals in ``dtype``
+    from a torch generator of their own seeded with ``seed`` -- so every family's
+    prompts and arrivals are the draws they were before frames and patches
+    existed."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    payloads = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, prompt_len),
+                                           dtype=torch.long, device=dev)}
+                for _ in range(n)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, shape in M.input_shapes(cfg).items():
+        draws = torch.randn((n,) + shape, generator=gen, device=dev).to(dtype)
+        for p, x in zip(payloads, draws):
+            p[name] = x
+    return payloads, rng
 
 
 def build_executor(cfg: ModelConfig, params: M.LM, gen_tokens: int,
@@ -112,17 +149,17 @@ def build_executor(cfg: ModelConfig, params: M.LM, gen_tokens: int,
     return SegmentExecutor(cfg, params, gen_tokens, b_max, prompt_len, cache_dtype)
 
 
-def profile_latency(executor: SegmentExecutor, prompts: List[torch.Tensor],
+def profile_latency(executor: SegmentExecutor, prompts: List[Dict[str, torch.Tensor]],
                     b_max: int, log: Callable[[str], None] = print) -> List[float]:
-    """l(b) in ms for b = 1..b_max: a warm call, then a timed call; the
-    table is made non-decreasing (np.maximum.accumulate), as the paper's
-    service model assumes."""
+    """l(b) in ms for b = 1..b_max on the first b request payloads: a warm
+    call, then a timed call; the table is made non-decreasing
+    (np.maximum.accumulate), as the paper's service model assumes."""
     lat_ms = []
     for b in range(1, b_max + 1):
-        toks = torch.stack(prompts[:b])
-        executor.run(toks)  # warm
+        batch = stack_payloads(prompts[:b])
+        executor.run(**batch)  # warm
         t0 = time.perf_counter()
-        executor.run(toks)
+        executor.run(**batch)
         lat_ms.append((time.perf_counter() - t0) * 1e3)
         log(f"l({b})={lat_ms[-1]:.3f}ms")
     return [float(x) for x in np.maximum.accumulate(lat_ms)]
@@ -155,12 +192,8 @@ def run_pipeline(cfg: ModelConfig, params: M.LM, *, n_requests: int,
     """Profile, solve and serve on ``params``' device; see the module doc."""
     dev = params.device
     executor = build_executor(cfg, params, gen_tokens, b_max, prompt_len, cache_dtype)
-    rng = np.random.default_rng(seed)
-    prompts = [
-        torch.as_tensor(rng.integers(0, cfg.vocab_size, prompt_len),
-                        dtype=torch.long, device=dev)
-        for _ in range(max(n_requests, b_max))
-    ]
+    prompts, rng = draw_requests(cfg, max(n_requests, b_max), prompt_len, seed=seed,
+                                 device=dev, dtype=params.dtype)
 
     # -- 1. profile l(b) on this device (paper Sec. III: prior profiling) --
     lat_ms = profile_latency(executor, prompts, b_max, log=log)

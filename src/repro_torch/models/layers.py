@@ -1,8 +1,10 @@
 """Model building blocks (counterpart of repro.models.layers): the dense
-and MoE decoders', the Mamba2 hybrid's and RWKV6's.
+and MoE decoders', the Mamba2 hybrid's, RWKV6's, Whisper's (encoder and
+cross-attention) and Qwen2-VL's (M-RoPE).
 
-Norms, rotary embeddings, the attention block, the MLPs, the MoE FFN, the
-Mamba2 block and RWKV6's time mix and channel mix.  Projections (the
+Norms, rotary embeddings (RoPE and M-RoPE), the attention block,
+cross-attention, the MLPs, the MoE FFN, the Mamba2 block and RWKV6's time
+mix and channel mix.  Projections (the
 experts' included) are plain ``torch.matmul`` / ``torch.bmm``, as the
 reference leaves them to XLA; attention and the two scans go to the
 hand-written kernels through ``kernels.ops``, attention with the layer's
@@ -18,21 +20,31 @@ does):
   * a one-token decode attends over the layer's cache with
     ``lengths = length + 1`` -- ``ops.decode_attention``, which reads the
     cache in place;
+  * Whisper's cross-attention from the decoder's rows to the encoder's T
+    outputs (no mask, no rope; K and V projected from ``enc_out`` on every
+    call, as the reference does): non-causal ``ops.flash_attention`` for a
+    multi-row call, ``ops.decode_attention`` with ``lengths`` all T for a
+    one-token decode, both reading K and V in place as views of the one
+    projection;
   * the Mamba2 block's chunked SSD scan -- ``ops.ssd_scan`` (its plain
     version on CPU tensors);
   * RWKV6's WKV6 recurrence -- ``ops.wkv6_scan`` (likewise).
 
 The caches stay full length, as the reference's: a window or a chunk
-limits the keys read, not the rows kept.  M-RoPE (qwen2-vl) raises
-``NotImplementedError`` on both devices: there is no plain fallback on the
-card.
+limits the keys read, not the rows kept.  M-RoPE (qwen2-vl) splits the
+D/2 rotary frequencies among the (t, h, w) components of (3, B, S)
+positions (``mrope_sections``); its tables, like RoPE's, are computed once
+a forward and shared by its layers.
 
 Weight layout of one attention block (``p``): ``wqkv`` (d, (H + 2 KV) hd)
 -- the reference's wq, wk, wv (d, H|KV, hd) side by side -- with
 ``bqkv``; ``wo`` (H hd, d); ``w13`` (d, 2 ff) = [w1 | w3] for gated MLPs,
 else ``w1`` (d, ff); ``w2`` (ff, d); norm scales ``ln1`` / ``ln2`` (and
 ``ln1_b`` / ``ln2_b`` for LayerNorm, ``ln1_post`` / ``ln2_post`` for
-post-block norms).  An MoE layer has ``router`` (d, E) and the experts
+post-block norms).  A Whisper decoder layer adds its cross-attention's
+``x_wq`` (d, H hd), ``x_wkv`` (d, 2 KV hd) -- the reference's x_wk, x_wv
+side by side -- and ``x_wo`` (H hd, d), and its norm ``lnx`` (``lnx_b``);
+an encoder layer is a dense layer.  An MoE layer has ``router`` (d, E) and the experts
 stacked as ``w13`` (E, d, 2 ff) (``w1`` (E, d, ff) ungated) and ``w2`` (E,
 ff, d), and its shared expert, if any, as ``sw13`` (d, 2 ff) (``sw1``) and
 ``sw2`` (ff, d).  A Mamba2 block keeps the reference's names:
@@ -104,25 +116,57 @@ def rope_tables(positions, head_dim: int, theta: float) -> Tuple[torch.Tensor, t
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
-def apply_rope(x, positions, theta: float, tables=None):
-    """x: (B, S, H, D); positions: (B, S) int.  ``tables`` are
-    rope_tables(positions, D, theta), computed once per forward when given."""
-    cos, sin = tables if tables is not None else rope_tables(positions, x.shape[-1], theta)
+def _rotate(x, tables):
+    """The split-halves rotation of x (B, S, H, D) by (cos, sin) tables, in f32."""
+    cos, sin = tables
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) int."""
+    return _rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def mrope_tables(positions3, head_dim: int, theta: float,
+                 sections) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE's (cos, sin), each (B, S, 1, D/2) f32, for positions3 (3, B, S)
+    of the (t, h, w) components: frequency j turns with the component
+    ``sections`` assigns it (the first sections[0] frequencies with t, the
+    next sections[1] with h, the rest with w)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not split the "
+                         f"{head_dim // 2} frequencies of head_dim {head_dim}")
+    freqs = rope_freqs(head_dim, theta, device=positions3.device)
+    sel = torch.repeat_interleave(torch.arange(3, device=positions3.device),
+                                  torch.as_tensor(sections, device=positions3.device))
+    ang = positions3.float()[sel].permute(1, 2, 0) * freqs  # (B, S, D/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Multimodal RoPE (qwen2-vl): x (B, S, H, D) turned by positions3 (3, B, S)."""
+    return _rotate(x, mrope_tables(positions3, x.shape[-1], theta, sections))
+
+
+def rotary_tables(cfg: ModelConfig, positions):
+    """The rotary tables of positions (B, S) -- or (3, B, S) for M-RoPE --
+    under ``cfg``: M-RoPE's when ``mrope_sections`` is set ((B, S) positions
+    taken as (t, t, t), as the reference broadcasts them), RoPE's when
+    ``rope_theta > 0``, else None (no position signal: Whisper)."""
+    if cfg.mrope_sections is not None:
+        if positions.dim() == 2:
+            positions = positions.expand(3, *positions.shape)
+        return mrope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.rope_theta > 0:
+        return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Attention block (projections + rope + the kernels)
 # ---------------------------------------------------------------------------
-
-
-def _unsupported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, the model stack's "
-        "remaining item)"
-    )
 
 
 def layer_masks(cfg: ModelConfig, layer_is_local: bool):
@@ -144,15 +188,14 @@ def attention(
     layer_is_local: bool = False,
     kv_cache: Optional[dict] = None,  # {"k", "v": (B, S_max, KV, hd), "length": int}
     causal: bool = True,
-    rope=None,  # rope_tables(positions, ...) shared by the layers of a forward
+    rope=None,  # rotary_tables(cfg, positions) shared by the layers of a forward
 ):
     """Returns (out (B, S, d), new_cache or None).  The positions are
-    ``length .. length + S - 1``; the cache is updated in place (slice
-    assignment at ``length``) and ``length`` stays a Python int."""
+    ``length .. length + S - 1`` (``rope`` given: the forward's own tables);
+    the cache is updated in place (slice assignment at ``length``) and
+    ``length`` stays a Python int."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.mrope_sections is not None:
-        raise _unsupported("M-RoPE (qwen2-vl)")
     window, chunk = layer_masks(cfg, layer_is_local)
 
     qkv = torch.matmul(x, p["wqkv"])
@@ -164,10 +207,11 @@ def attention(
     v = v.reshape(B, S, KV, hd)
 
     length = 0 if kv_cache is None else int(kv_cache["length"])
-    if cfg.rope_theta > 0:
+    if rope is None and (cfg.mrope_sections is not None or cfg.rope_theta > 0):
         positions = torch.arange(length, length + S, device=x.device)[None, :].expand(B, S)
-        q = apply_rope(q, positions, cfg.rope_theta, rope)
-        k = apply_rope(k, positions, cfg.rope_theta, rope)
+        rope = rotary_tables(cfg, positions)
+    if rope is not None:
+        q, k = _rotate(q, rope), _rotate(k, rope)
 
     mask = dict(softcap=cfg.attn_softcap, window=window, chunk=chunk, device=x.device)
     if kv_cache is None:
@@ -201,6 +245,27 @@ def attention(
         new_cache = {"k": kbuf, "v": vbuf, "length": length + S}
     out = torch.matmul(out.reshape(B, S, H * hd), p["wo"])
     return out, new_cache
+
+
+def cross_attention(cfg: ModelConfig, p, x, enc_out):
+    """Whisper's decoder cross-attention: x (B, S, d) attends to all T rows
+    of enc_out (B, T, d), no mask, no rope; K and V are projected from
+    enc_out on every call (``x_wkv``), as the reference does.  S > 1 runs
+    non-causal ``ops.flash_attention``; S = 1 runs ``ops.decode_attention``
+    with lengths all T; both read K and V in place as views of the
+    projection."""
+    B, S, _ = x.shape
+    T = enc_out.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.matmul(x, p["x_wq"]).reshape(B, S, H, hd)
+    k, v = (t.reshape(B, T, KV, hd)
+            for t in torch.chunk(torch.matmul(enc_out, p["x_wkv"]), 2, dim=-1))
+    if S == 1:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q[:, 0], k, v, lengths, device=x.device)[:, None]
+    else:
+        out = ops.flash_attention(q, k, v, causal=False, device=x.device)
+    return torch.matmul(out.reshape(B, S, H * hd), p["x_wo"])
 
 
 # ---------------------------------------------------------------------------

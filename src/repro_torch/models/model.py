@@ -1,6 +1,6 @@
-"""The decoder stacks: init / forward / train loss / prefill / decode
-(counterpart of repro.models.model: the dense, MoE, hybrid and RWKV6
-families).
+"""The model stacks: init / forward / train loss / prefill / decode
+(counterpart of repro.models.model: the dense, MoE, VLM, encoder-decoder,
+hybrid and RWKV6 families).
 
 The parameters are an ``nn.Module``: ``DenseLM`` (the embedding, the final
 norm, the untied output matrix and one ``nn.ParameterDict`` per layer; an
@@ -8,13 +8,20 @@ MoE layer holds its router and stacked experts in place of the MLP),
 ``HybridLM`` (the same top, one ``nn.ParameterDict`` of Mamba2 weights per
 layer and one ``shared`` attention + MLP block) or ``RwkvLM`` (the same
 top, one ``nn.ParameterDict`` of time-mix and channel-mix weights per
-layer, under the reference's leaf names); layouts in ``layers``.  The
-reference stacks layers on a leading axis and scans them; here a Python
-loop walks the per-layer dicts.
+layer, under the reference's leaf names) or ``EncDecLM`` (Whisper: the
+same top, the encoder's ``enc_blocks`` -- dense layers -- with its
+``enc_final_norm`` and its positions ``enc_pos`` (encoder_len, d), and
+decoder ``blocks`` that add cross-attention weights and ``lnx``); layouts
+in ``layers``.  A VLM (Qwen2-VL) is a ``DenseLM``.  The reference stacks
+layers on a leading axis and scans them; here a Python loop walks the
+per-layer dicts.
 
 Cache conventions (``init_cache``):
 
-  dense, moe : {"k": (L, B, S, KV, hd), "v": ..., "length": int}
+  dense, moe, vlm : {"k": (L, B, S, KV, hd), "v": ..., "length": int}
+  encdec : the same, + {"enc_out": (B, T, d)} in the activations' dtype,
+           set by ``prefill`` (the encoder runs once a prefill; decode
+           steps read it)
   hybrid : {"ssm": (L, B, H, P, N) float32, "conv": (L, B, K-1, C),
             "attn": one {"k", "v": (B, S, KV, hd)} per occurrence of the
             shared block, "length": int}
@@ -37,10 +44,13 @@ reference's stacked leaves (a layer's ``wq`` is the first H hd columns of
 its ``wqkv``); ``gather_leaf`` / ``scatter_leaf`` read and write a leaf
 through it (Adafactor factors and clips those leaves).
 
-The dense (Gemma2's local / global layers included), MoE (Llama-4 Scout's
-chunked-local layers, Grok-1), Mamba2 hybrid and RWKV6 families run.  The
-others (encoder-decoder, VLM) raise ``NotImplementedError`` at
-``init_params`` and at the forward passes.  ``lm_loss`` raises on the
+Every family of the reference runs: dense (Gemma2's local / global
+layers included), MoE (Llama-4 Scout's chunked-local layers, Grok-1),
+VLM (Qwen2-VL: M-RoPE, its stub patch embeddings in place of the first
+``n_patches`` token embeddings of a prefill), encoder-decoder (Whisper:
+its stub frame embeddings through the encoder, no decoder position
+signal), the Mamba2 hybrid and RWKV6.  ``lm_loss`` raises on the
+encoder-decoder and VLM families (their training is not ported), on the
 hybrid and on RWKV6 (the SSD and WKV6 scans have no backward kernel yet)
 and on a configuration with local layers or experts (the attention
 backward kernel has no masks yet).  ROADMAP.md queue 1 lists them.
@@ -72,13 +82,18 @@ def _is_rwkv(cfg: ModelConfig) -> bool:
     return bool(cfg.rwkv)
 
 
+def _is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.family == "encdec"
+
+
 def supported(cfg: ModelConfig) -> bool:
     """Whether this port runs the configuration's family."""
     if _is_rwkv(cfg):
         return True
-    decoder = cfg.family in ("dense", "moe") and not cfg.mrope_sections
+    decoder = cfg.family in ("dense", "moe", "vlm")
     hybrid = _is_hybrid(cfg) and cfg.shared_attn_every > 0
-    return decoder or hybrid
+    encdec = _is_encdec(cfg) and cfg.n_encoder_layers > 0
+    return decoder or hybrid or encdec
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -86,8 +101,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if not supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md "
-            "queue 1, the model stack's remaining item); the port runs dense and "
-            "MoE decoders, the Mamba2 hybrid and RWKV6"
+            "queue 1, the model stack's remaining item); the port runs dense, MoE "
+            "and VLM decoders, the encoder-decoder, the Mamba2 hybrid and RWKV6"
         )
 
 
@@ -134,8 +149,17 @@ def attn_mlp_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Shapes of one dense layer's parameters in the port's layout."""
+    """Shapes of one dense layer's parameters in the port's layout (also a
+    Whisper encoder layer's)."""
     return {**attn_mlp_shapes(cfg), **_norm_shapes(cfg, block_norms(cfg))}
+
+
+def encdec_block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Shapes of one Whisper decoder layer: a dense layer, its cross-attention
+    (``x_wq``, ``x_wkv`` = [x_wk | x_wv], ``x_wo``) and the norm ``lnx``."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {**block_shapes(cfg), "x_wq": (d, H * hd), "x_wkv": (d, 2 * KV * hd),
+            "x_wo": (H * hd, d), **_norm_shapes(cfg, ["lnx"])}
 
 
 def mamba_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -208,15 +232,43 @@ class _LM(nn.Module):
         return self.embed.dtype
 
 
+def _lm_class(cfg: ModelConfig) -> str:
+    if _is_rwkv(cfg):
+        return "RwkvLM"
+    if _is_hybrid(cfg):
+        return "HybridLM"
+    return "EncDecLM" if _is_encdec(cfg) else "DenseLM"
+
+
 class DenseLM(_LM):
-    """Parameters of a dense decoder, on one device, in one dtype."""
+    """Parameters of a dense (or MoE, or VLM) decoder, on one device, in one
+    dtype."""
 
     def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
                  blocks: List[Dict[str, torch.Tensor]]):
         super().__init__(cfg, top)
-        if _is_hybrid(cfg) or _is_rwkv(cfg):
-            raise ValueError(f"{cfg.name} is a {cfg.family} model: use "
-                             f"{'HybridLM' if _is_hybrid(cfg) else 'RwkvLM'}")
+        if _lm_class(cfg) != "DenseLM":
+            raise ValueError(f"{cfg.name} is a {cfg.family} model: use {_lm_class(cfg)}")
+        self.blocks = nn.ModuleList(_param_dict(b) for b in blocks)
+
+
+class EncDecLM(_LM):
+    """Parameters of an encoder-decoder (Whisper): the encoder's dense layers
+    ``enc_blocks``, its final norm ``enc_final_norm`` (``enc_final_norm_b``)
+    and positions ``enc_pos`` (encoder_len, d); decoder ``blocks``
+    (``encdec_block_shapes``)."""
+
+    def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
+                 enc_blocks: List[Dict[str, torch.Tensor]],
+                 blocks: List[Dict[str, torch.Tensor]]):
+        super().__init__(cfg, top)
+        if not _is_encdec(cfg):
+            raise ValueError(f"{cfg.name} is not an encoder-decoder: use {_lm_class(cfg)}")
+        self.enc_pos = _frozen(top["enc_pos"])
+        self.enc_final_norm = _frozen(top["enc_final_norm"])
+        self.enc_final_norm_b = (_frozen(top["enc_final_norm_b"])
+                                 if "enc_final_norm_b" in top else None)
+        self.enc_blocks = nn.ModuleList(_param_dict(b) for b in enc_blocks)
         self.blocks = nn.ModuleList(_param_dict(b) for b in blocks)
 
 
@@ -245,7 +297,7 @@ class RwkvLM(_LM):
         self.blocks = nn.ModuleList(_param_dict(b) for b in blocks)
 
 
-LM = Union[DenseLM, HybridLM, RwkvLM]
+LM = Union[DenseLM, HybridLM, RwkvLM, EncDecLM]
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +402,10 @@ _RWKV_CONST = {"w_base": -0.6, "u_bonus": 0.0, "ln_x": 0.0,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device: DeviceLike = None) -> LM:
-    """Random weights (std 0.02, zero biases, zero RMSNorm offsets, unit
-    LayerNorm scales, the Mamba2 constants dt_bias -4.6, a_log 0, d_skip
-    0.1, the RWKV6 ones w_base -0.6, every mu_* 0.5, u_bonus 0, ln_x 0, as
-    the reference) drawn from ``generator`` straight into ``dtype``
+    """Random weights (std 0.02, Whisper's ``enc_pos`` too; zero biases,
+    zero RMSNorm offsets, unit LayerNorm scales, the Mamba2 constants
+    dt_bias -4.6, a_log 0, d_skip 0.1, the RWKV6 ones w_base -0.6, every
+    mu_* 0.5, u_bonus 0, ln_x 0, as the reference) drawn from ``generator`` straight into ``dtype``
     on ``device`` -- no f32 staging copy, so a 32B model in bf16 needs its
     61 GiB and no more.  The generator must live on the device
     (``torch.Generator(device="cuda")`` for the card)."""
@@ -366,13 +418,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def init(name, shape):
         if name in const:
             return torch.full(shape, const[name], dtype=dtype, device=dev)
-        if name.startswith(("w", "sw")) or name in ("embed", "out", "router", "in_proj",
-                                                     "out_proj", "conv_w", "ck", "cv",
-                                                     "cr"):
+        if name.startswith(("w", "sw", "x_w")) or name in (
+                "embed", "out", "router", "in_proj", "out_proj", "conv_w", "ck", "cv",
+                "cr", "enc_pos"):
             return torch.randn(shape, generator=generator, dtype=dtype,
                                device=dev).mul_(std)
-        if cfg.norm != "rmsnorm" and name.startswith(("ln", "final_norm")) \
-                and not name.endswith("_b"):
+        if cfg.norm != "rmsnorm" and not name.endswith("_b") and name.startswith(
+                ("ln", "final_norm", "enc_final_norm")):
             return torch.ones(shape, dtype=dtype, device=dev)  # LayerNorm scale
         return torch.zeros(shape, dtype=dtype, device=dev)  # biases, RMSNorm offsets
 
@@ -389,6 +441,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if _is_hybrid(cfg):
         blocks = [draw(mamba_shapes(cfg)) for _ in range(cfg.n_layers)]
         return HybridLM(cfg, top, blocks, draw(shared_shapes(cfg)))
+    if _is_encdec(cfg):
+        top.update(draw({"enc_pos": (cfg.encoder_len, cfg.d_model),
+                         **_norm_shapes(cfg, ["enc_final_norm"])}))
+        enc = [draw(block_shapes(cfg)) for _ in range(cfg.n_encoder_layers)]
+        return EncDecLM(cfg, top, enc,
+                        [draw(encdec_block_shapes(cfg)) for _ in range(cfg.n_layers)])
     return DenseLM(cfg, top, [draw(block_shapes(cfg)) for _ in range(cfg.n_layers)])
 
 
@@ -397,13 +455,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params: LM, tokens):
+def _embed(cfg: ModelConfig, params: LM, tokens, patches=None):
+    """Token embeddings (B, S, d); a VLM's stub patch embeddings (B, n, d)
+    replace the first n of them (the reference's concatenation)."""
     # F.embedding, not params.embed[tokens]: the same rows, and a backward
     # that sums repeated tokens in one fixed order on the CPU too (indexing's
     # backward accumulates there in a nondeterministic order)
     h = F.embedding(tokens, params.embed)
     if cfg.embed_scale:
         h = (h.float() * math.sqrt(cfg.d_model)).to(h.dtype)
+    if cfg.n_patches and patches is not None:
+        n = patches.shape[1]
+        if tokens.shape[1] < n:
+            raise ValueError(f"a prompt of {tokens.shape[1]} tokens cannot hold "
+                             f"{n} patches")
+        h = torch.cat([patches.to(h.dtype), h[:, n:]], dim=1)
     return h
 
 
@@ -444,35 +510,46 @@ def _remat_block(cfg: ModelConfig, p, h, is_local: bool, rope):
     return _block(cfg, p, h, is_local, rope=rope)[0]
 
 
+def _mrope_positions(cfg: ModelConfig, B: int, S: int, offset: int = 0, device=None):
+    """Stub M-RoPE positions (3, B, S): every row, patch or text, gets (t, t,
+    t) with t = offset .. offset + S - 1, as the reference's."""
+    pos = torch.arange(offset, offset + S, device=device)[None, :].expand(B, S)
+    return pos.expand(3, B, S)
+
+
 def _rope_and_lengths(cfg: ModelConfig, h, cache: Optional[dict]):
-    """One forward's rope tables (positions length .. length + S - 1) and,
-    for a one-token decode, the decode kernel's valid prefix per sequence;
-    every attention layer of the step shares them."""
+    """One forward's rotary tables (positions length .. length + S - 1; M-RoPE's
+    from ``_mrope_positions``) and, for a one-token decode, the decode
+    kernel's valid prefix per sequence; every attention layer of the step
+    shares them."""
     B, S = h.shape[:2]
     length = 0 if cache is None else int(cache["length"])
     rope = None
-    if cfg.rope_theta > 0:
+    if cfg.mrope_sections is not None:
+        rope = L.rotary_tables(cfg, _mrope_positions(cfg, B, S, length, h.device))
+    elif cfg.rope_theta > 0:
         positions = torch.arange(length, length + S, device=h.device)[None, :].expand(B, S)
-        rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        rope = L.rotary_tables(cfg, positions)
     lengths = None
     if cache is not None and length > 0 and S == 1:
         lengths = torch.full((B,), length + 1, dtype=torch.int32, device=h.device)
     return length, rope, lengths
 
 
-def forward_lm(cfg: ModelConfig, params: DenseLM, tokens, *,
+def forward_lm(cfg: ModelConfig, params: DenseLM, tokens, *, patches=None,
                cache: Optional[dict] = None, remat: bool = False):
-    """Dense decoder stack over tokens (B, S).  Returns (h_final, new_cache);
+    """Dense decoder stack over tokens (B, S) (a VLM's ``patches`` (B, n, d)
+    in place of the first n embeddings).  Returns (h_final, new_cache);
     a given cache is updated in place and comes back with length + S.
     ``remat`` (cache-free, under grad mode) checkpoints each block, as the
     reference's ``jax.checkpoint`` of its scanned body.  Gradients flow
     when the parameters are ``trainable()``; the serving steps below run
     it under inference mode."""
     check_supported(cfg)
-    if _is_hybrid(cfg) or _is_rwkv(cfg):
+    if _lm_class(cfg) != "DenseLM":
         raise ValueError(f"{cfg.name} is a {cfg.family} model: use forward")
     S = tokens.shape[1]
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, patches)
     length, rope, lengths = _rope_and_lengths(cfg, h, cache)
     for i, p in enumerate(params.blocks):
         kv = None
@@ -577,14 +654,80 @@ def forward_rwkv(cfg: ModelConfig, params: RwkvLM, tokens, *,
     return h, new_cache
 
 
-def forward(cfg: ModelConfig, params: LM, tokens, *, cache: Optional[dict] = None):
-    """The family's stack over tokens (B, S): forward_rwkv, forward_hybrid
-    or forward_lm."""
+@torch.inference_mode()
+def forward_encoder(cfg: ModelConfig, params: EncDecLM, frames):
+    """Whisper's encoder over stub frame embeddings (B, T, d), T <=
+    encoder_len, taken in the model's dtype: frames + enc_pos[:T], the
+    non-causal dense layers, the final norm.  Returns enc_out (B, T, d)."""
+    if not _is_encdec(cfg):
+        raise ValueError(f"{cfg.name} has no encoder")
+    T = frames.shape[1]
+    if T > cfg.encoder_len:
+        raise ValueError(f"{T} frames exceed the encoder's {cfg.encoder_len} positions")
+    h = frames.to(params.dtype) + params.enc_pos[:T]
+    for p in params.enc_blocks:
+        a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
+        y, _ = L.attention(cfg, p, a_in, causal=False)
+        h = h + y
+        m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
+        h = h + L.mlp(cfg, p, m_in)
+    return L.apply_norm(cfg, h, params.enc_final_norm, params.enc_final_norm_b)
+
+
+@torch.inference_mode()
+def forward_encdec(cfg: ModelConfig, params: EncDecLM, tokens, frames=None, *,
+                   cache: Optional[dict] = None):
+    """Whisper's decoder over tokens (B, S): per layer causal self-attention
+    (on the KV cache when given), cross-attention to enc_out -- the cache's
+    ``enc_out`` when it holds one, else ``forward_encoder(frames)`` -- and
+    the MLP.  No decoder position signal (rope_theta 0, as the reference).
+    Returns (h_final, new_cache); a given cache is updated in place and
+    comes back with length + S and ``enc_out``."""
+    check_supported(cfg)
+    if not _is_encdec(cfg):
+        raise ValueError(f"{cfg.name} is not an encoder-decoder: use forward")
+    S = tokens.shape[1]
+    enc_out = None if cache is None else cache.get("enc_out")
+    if enc_out is None:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the encoder needs frames (B, T, d)")
+        enc_out = forward_encoder(cfg, params, frames)
+    h = _embed(cfg, params, tokens)
+    if enc_out.dtype != h.dtype:
+        raise ValueError(f"enc_out dtype {enc_out.dtype} differs from the "
+                         f"activations' {h.dtype}")
+    length, rope, lengths = _rope_and_lengths(cfg, h, cache)
+    for i, p in enumerate(params.blocks):
+        kv = None
+        if cache is not None:
+            kv = {"k": cache["k"][i], "v": cache["v"][i], "length": length,
+                  "lengths": lengths}
+        a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
+        y, _ = L.attention(cfg, p, a_in, kv_cache=kv, rope=rope)
+        h = h + y
+        x_in = L.apply_norm(cfg, h, p["lnx"], p.get("lnx_b"))
+        h = h + L.cross_attention(cfg, p, x_in, enc_out)
+        m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
+        h = h + L.mlp(cfg, p, m_in)
+    h = L.apply_norm(cfg, h, params.final_norm, params.final_norm_b)
+    new_cache = None
+    if cache is not None:
+        new_cache = {**cache, "length": length + S, "enc_out": enc_out}
+    return h, new_cache
+
+
+def forward(cfg: ModelConfig, params: LM, tokens, *, cache: Optional[dict] = None,
+            frames=None, patches=None):
+    """The family's stack over tokens (B, S): forward_rwkv, forward_hybrid,
+    forward_encdec (with ``frames``, unless the cache holds enc_out) or
+    forward_lm (with a VLM's ``patches``)."""
     if _is_rwkv(cfg):
         return forward_rwkv(cfg, params, tokens, cache=cache)
     if _is_hybrid(cfg):
         return forward_hybrid(cfg, params, tokens, cache=cache)
-    return forward_lm(cfg, params, tokens, cache=cache)
+    if _is_encdec(cfg):
+        return forward_encdec(cfg, params, tokens, frames, cache=cache)
+    return forward_lm(cfg, params, tokens, patches=patches, cache=cache)
 
 
 # ---------------------------------------------------------------------------
@@ -597,6 +740,10 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
     (B, S - 1) of logsumexp(logits) - logits[gold], in f32, as the
     reference's ``lm_loss``.  (The reference takes the gold logit by a
     one-hot contraction for its sharding; here a gather.)"""
+    if _is_encdec(cfg) or cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported yet "
+            "(ROADMAP.md queue 1, training Whisper and Qwen2-VL)")
     if _is_rwkv(cfg):
         raise NotImplementedError(
             f"{cfg.name}: training RWKV6 needs a backward kernel for the WKV6 scan "
@@ -621,15 +768,35 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
     return torch.mean(logz - gold)
 
 
+def input_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """What a prefill's batch holds beside ``tokens``, by name, with each
+    request's shape -- as the reference's serving cells give it: an
+    encoder-decoder's ``frames`` (encoder_len, d), a VLM's ``patches``
+    (n_patches, d); nothing for the other families."""
+    shapes = {}
+    if _is_encdec(cfg):
+        shapes["frames"] = (cfg.encoder_len, cfg.d_model)
+    if cfg.n_patches:
+        shapes["patches"] = (cfg.n_patches, cfg.d_model)
+    return shapes
+
+
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict, max_len: int,
             cache_dtype: torch.dtype = torch.bfloat16):
-    """Run the prompt, build a cache of capacity max_len.
-    Returns (logits of the last position (B, 1, V), cache)."""
+    """Run the prompt -- the reference's batch: ``tokens`` (B, S), plus
+    ``frames`` (B, T, d) for an encoder-decoder and ``patches`` (B, n, d)
+    for a VLM -- and build a cache of capacity max_len; an encoder-decoder's
+    encoder runs once here and its output stays in the cache as
+    ``enc_out``.  Returns (logits of the last position (B, 1, V), cache)."""
     tokens = batch["tokens"]
     B, _ = tokens.shape
     cache = init_cache(cfg, B, max_len, dtype=cache_dtype, device=tokens.device)
-    h, cache = forward(cfg, params, tokens, cache=cache)
+    if _is_encdec(cfg):
+        if batch.get("frames") is None:
+            raise ValueError(f"{cfg.name}: a prefill needs the batch's frames")
+        cache["enc_out"] = forward_encoder(cfg, params, batch["frames"])
+    h, cache = forward(cfg, params, tokens, cache=cache, patches=batch.get("patches"))
     return _unembed(cfg, params, h[:, -1:, :]), cache
 
 
@@ -647,7 +814,8 @@ def cache_shapes(cfg: ModelConfig, B: int, max_len: int,
     hybrid's SSM state and RWKV6's WKV state are float32 whatever
     ``dtype``; the hybrid's shared block's caches are named
     ``attn.<occurrence>.k`` / ``.v``.  RWKV6's cache does not grow with
-    ``max_len``."""
+    ``max_len``.  An encoder-decoder's ``enc_out`` is not among them: its
+    prefill adds it (as the reference's ``init_cache`` leaves it out)."""
     check_supported(cfg)
     if _is_rwkv(cfg):
         Ln, H, P, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model

@@ -192,14 +192,18 @@ def test_attention_block_routes_prefill_and_decode_to_the_kernels(monkeypatch):
 
 
 def test_unported_attention_cases_raise():
-    """M-RoPE (qwen2-vl) is the attention case still unported; a multi-token
-    append and the window / chunk masks run (tests/test_torch_local_moe.py)."""
+    """No attention case is left unported: M-RoPE (qwen2-vl) runs -- under its
+    default (t, t, t) positions it turns q and k as plain RoPE does, bit for
+    bit (distinct positions: tests/test_torch_vlm.py) -- and so do a
+    multi-token append and the window / chunk masks
+    (tests/test_torch_local_moe.py)."""
     cfg = PARCHS["qwen2.5-32b"].reduced()
     p = params_from_reference(cfg, _tree(cfg), device="cpu").blocks[0]
-    x = torch.zeros(1, 3, cfg.d_model)
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(1, 3, cfg.d_model)),
+                        dtype=torch.float32)
     vlm = dataclasses.replace(cfg, mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        PL.attention(vlm, p, x)
+    out, _ = PL.attention(vlm, p, x)
+    torch.testing.assert_close(out, PL.attention(cfg, p, x)[0], atol=0, rtol=0)
     kv = {"k": torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim), "length": 2}
     kv["v"] = torch.zeros_like(kv["k"])
     out, kv = PL.attention(cfg, p, x, kv_cache=kv)

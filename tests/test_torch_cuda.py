@@ -826,7 +826,9 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
 
 #: edge cases of the tensor-core flash kernel: lengths that are not
 #: multiples of its 64-row tiles, causal rows that see no key (Sq > Sk),
-#: every head size, softcap
+#: every head size, softcap; Whisper's encoder (1500 x 1500, non-causal,
+#: 1500 off the tiles on both axes) and cross-attention prefill (128 rows
+#: over 1500 keys), Qwen2-VL's G = 7 (28 / 4 heads of 128)
 FLASH_EDGE_SHAPES = [
     (2, 100, 100, 4, 2, 64, True, None),
     (1, 70, 130, 8, 2, 128, False, None),
@@ -836,6 +838,9 @@ FLASH_EDGE_SHAPES = [
     (2, 300, 300, 8, 2, 128, True, None),
     (2, 200, 260, 4, 2, 8, True, 30.0),
     (1, 70, 330, 4, 4, 64, False, None),
+    (2, 1500, 1500, 12, 12, 64, False, None),
+    (2, 128, 1500, 12, 12, 64, False, None),
+    (2, 384, 384, 28, 4, 128, True, None),
 ] + [(1, 96, 96, 4, 2, d, True, None) for d in (8, 16, 32, 64, 128, 256)]
 
 
@@ -938,10 +943,10 @@ def test_decode_kernel_single_split(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,D", [(16, 1, 32), (12, 4, 256), (6, 2, 8)])
+@pytest.mark.parametrize("H,KV,D", [(16, 1, 32), (12, 4, 256), (6, 2, 8), (28, 4, 128)])
 def test_decode_kernel_head_groups(cuda, H, KV, D, dtype):
-    """G = 16 (two chunks of 8 q heads), G = 3 (a padded chunk of 4), and
-    the head sizes at both ends."""
+    """G = 16 (two chunks of 8 q heads), G = 3 (a padded chunk of 4), G = 7
+    (Qwen2-VL's), and the head sizes at both ends."""
     rng = np.random.default_rng(H * D)
     _decode_case(rng, 2, 200, H, KV, D, dtype, cuda, [200, 37])
 
@@ -967,6 +972,62 @@ def test_decode_kernel_matches_split_ref(cuda, B, S, H, KV, D, lengths):
     torch.cuda.synchronize()
     want = da.decode_attention_split_ref(q, kc, vc, lens, n)
     torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8])
+def test_decode_kernel_reads_cross_kv_views(cuda, B, dtype):
+    """Whisper's cross-attention decode: one query over all T = 1500 encoder
+    rows (lengths T), K and V the two halves of one (B, T, 2 KV D)
+    projection, read in place (row stride 2 KV D)."""
+    T, H, KV, D = 1500, 12, 12, 64
+    rng = np.random.default_rng(B)
+    q = _normal(rng, (B, H, D), dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    kv = torch.randn((B, T, 2 * KV * D), generator=gen, device=cuda).to(dtype)
+    k, v = (x.reshape(B, T, KV, D) for x in torch.chunk(kv, 2, dim=-1))
+    assert k.stride(1) == 2 * KV * D and not k.is_contiguous()
+    lens = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-7b"])
+def test_encdec_and_vlm_card_match_cpu(cuda, arch):
+    """Reduced Whisper and Qwen2-VL in f32: the kernels on the card against
+    the plain versions on the CPU, from the same weights and frames /
+    patches; a serving segment launches flash once an encoder layer and
+    twice a decoder layer (Whisper: self and cross) in its prefill, decode
+    as often a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    P, steps = 16, 4
+    payloads, _ = serve_llm.draw_requests(cfg, 3, P, seed=0, device="cpu")
+    batch = serve_llm.stack_payloads(payloads)
+    outs = {}
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        on = {k: x.to(p.device) for k, x in batch.items()}
+        lg, cache = M.prefill(cfg, p, on, P + steps, torch.float32)
+        seq = [lg]
+        tok = on["tokens"][:, :1]
+        for _ in range(steps):
+            lg, cache = M.decode_step(cfg, p, cache, tok)
+            seq.append(lg)
+        outs[name] = torch.cat(seq, 1).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=3e-4, rtol=0)
+    kernels.reset_launch_counts()
+    ex = serve_llm.build_executor(cfg, card, steps + 1, b_max=4, prompt_len=P)
+    ex.run(**{k: x.to(cuda) for k, x in batch.items()})
+    counts = kernels.launch_counts()
+    per_layer = 2 if cfg.family == "encdec" else 1
+    assert counts["flash_attention"] == cfg.n_encoder_layers + per_layer * cfg.n_layers
+    assert counts["decode_attention"] == per_layer * cfg.n_layers * steps
 
 
 def test_reduced_model_card_matches_cpu(cuda):
