@@ -193,7 +193,7 @@
    Qwen2.5-32B at full width with 2 layers, decode path (decode kernel)
    against a fresh prefill (flash kernel), both at atol 3e-4.
 7. LLM serving path, counters zeroed just before and read just after:
-   Qwen2.5-32B at its published width with 16 of its 64 layers (bf16,
+   Qwen2.5-32B at its published width with 8 of its 64 layers (bf16,
    random weights from a seed) -- l(b) profile for b = 1..8 (prompt 128, 16 tokens),
    SMDP solve on it through the Bellman kernel, then 32 Poisson requests
    at rho = 0.6 served in wall-clock executor mode by the SMDP, greedy and
@@ -274,9 +274,9 @@
    the attention backward kernel (csrc/flash_attention_bwd.cu) against
    autograd through the plain attention at the path's shape (b 8 x 256,
    8 / 4 heads of 64, causal, f32), at Qwen2.5-32B's 40 / 8 x 128 and
-   Zamba2's 32 / 32 x 64 in bf16, and over 64 edge cases in f32 and bf16
-   (Sq != Sk, lengths off the tiles, G 1 / 2 / 5 / 8, D 64 / 128, softcap,
-   causal on and off), at f32 1e-4 and bf16 2e-2 of each gradient's
+   Zamba2's 32 / 32 x 64 in bf16, and over 120 edge cases in f32 and bf16
+   (Sq != Sk, lengths off the tiles, G 1 / 2 / 5 / 7 / 8, D 64 / 128 / 256,
+   softcap, causal on and off), at f32 1e-4 and bf16 2e-2 of each gradient's
    largest |entry|; timed beside its plain version's and SDPA's backward
    alone, the first design's times quoted in the log beside them.  Then
    qwen2.5-100m at full width with 2 layers: lm_loss
@@ -294,6 +294,32 @@
    1e-6) and parameters (atol 1e-6) equal to the uninterrupted run's.
    Last, a profiled train step (busy share, time by kernel group).  TF32
    stays off (asserted).
+9b. Phase 4o, training through the masked and cross attention: the
+   backward kernel under sliding windows and chunks against its plain
+   version over 864 edge cases in f32 and bf16 (window 1 / 16 / 100, chunk
+   1 / 16 / 64; (Sq, Sk) (100, 100), (70, 130), (130, 70) -- rows that see
+   no key; G 1 / 2 / 5 / 7, D 64 / 128 / 256, softcap and causal on and
+   off; f32 1e-4, bf16 2e-2 of each gradient's largest |entry|, a gradient
+   the plain version gives as exactly zero at the largest |entry| of the
+   three); then timed in bf16 at the training paths' shapes -- Gemma2-9B's
+   local layer (1 x 8192, 16 / 8 x 256, window 4096, softcap 50), Llama-4
+   Scout's (1 x 9216 across the 8192 chunk edge, 40 / 8 x 128), Whisper's
+   encoder (8 x 1500 x 1500, non-causal) and cross-attention (8 x 128 over
+   1500 keys, K / V views of one projection), Qwen2-VL (8 x 384, 28 / 4 x
+   128, causal) -- beside the plain backward (a kv-head group at a time
+   where its scores exceed 4 GB), SDPA's backward (the boolean mask, no
+   cap) and the bound of the visible pairs, held at 2e-2 and over 1500
+   keys also at 1e-2 in relative L2 norm.  Then lm_loss with remat through
+   the kernels on the card against the plain versions on the CPU from the
+   same weights (loss rtol 1e-5, every gradient within 1e-4 of its largest
+   |entry|), launches exact (the forward twice and the backward once an
+   attention call): the six families' reduced configs on 48 tokens (window
+   and chunk 32 bite), then at full width Whisper-small whole (b 2 x 64 +
+   1500 frames), Qwen2-VL-7B at 2 of 28 layers (b 2 x (256 patches + 64)),
+   Gemma2-9B at 2 of 42 (a local and a global layer) and Llama-4 Scout at 1
+   of 48 (a chunked MoE layer), b 2 x 64.  Last, Whisper-small whole
+   trained on the card for 40 AdamW steps of 8 x 128 tokens with stub
+   frames: the loss falls, launches exact, ms a step and tokens/s.
 10. Prints each phase's wall time and their summary, a `kernels` JSON line,
    then the one-line verdict.
 
@@ -371,10 +397,10 @@ MAX_TIES_PER_SPEC, MAX_TIES, TIE_MASS = 1, 4, 1e-12
 
 # --- the LLM serving path (examples/serve_llm.py on Qwen2.5-32B) ---------
 LLM_ARCH = "qwen2.5-32b"
-#: the serving path's depth: Qwen2.5-32B at its published width with 16 of
+#: the serving path's depth: Qwen2.5-32B at its published width with 8 of
 #: its 64 layers (a depth cut that keeps the script inside its time limit on
-#: a slow host, with phase 4l beside it)
-LLM_LAYERS = 16
+#: a slow host, with phases 4l and 4o beside it)
+LLM_LAYERS = 8
 LLM_B_MAX, LLM_PROMPT, LLM_GEN, LLM_REQUESTS, LLM_RHO = 8, 128, 16, 32, 0.6
 #: tests/test_kernels.py's attention shapes
 FLASH_TEST_SHAPES = [(2, 64, 64, 4, 2, 16, True, None), (1, 33, 70, 4, 4, 8, False, None),
@@ -5062,8 +5088,9 @@ def rwkv_phase(torch, np, kernels, rows):
 # ---------------------------------------------------------------------------
 
 ENCDEC_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-7b"
-#: Qwen2-VL-7B's serving depth: all 28 of its layers at its published width
-VLM_SERVE_LAYERS = 28
+#: Qwen2-VL-7B's serving depth: 14 of its 28 layers at its published width
+#: (a depth cut for the time limit, with phase 4o beside it)
+VLM_SERVE_LAYERS = 14
 #: the f32 checks at full width, b 2: a prompt of 16 text tokens (after
 #: Qwen2-VL's 256 stub patches), 8 greedy decode steps; Whisper whole (12 +
 #: 12 layers), Qwen2-VL at 2 of its 28 layers (a depth cut)
@@ -5236,9 +5263,10 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_PATH = (8, 256, 8, 4, 64, "float32")
 BWD_OTHER = [(8, 256, 40, 8, 128, "bfloat16"), (8, 256, 32, 32, 64, "bfloat16")]
 #: edge cases: (Sq, Sk) with Sq != Sk or lengths off the 64 / 32 tiles, G, D,
-#: softcap, causal -- 64 cases, each in f32 and bf16
+#: softcap, causal -- 120 cases, each in f32 and bf16 (G = 7 is Qwen2-VL's,
+#: D = 256 Gemma2's)
 BWD_EDGE_LENGTHS = [(100, 100), (70, 130)]
-BWD_EDGE_G, BWD_EDGE_D, BWD_EDGE_CAP = (1, 2, 5, 8), (64, 128), (None, 30.0)
+BWD_EDGE_G, BWD_EDGE_D, BWD_EDGE_CAP = (1, 2, 5, 7, 8), (64, 128, 256), (None, 30.0)
 #: the first design's times at bwd_row's shapes, quoted in the log (not
 #: measured in this run): an earlier run of this script on an NVIDIA H100
 #: 80GB HBM3 at 700.00 W, as PERF.md records it
@@ -5273,15 +5301,18 @@ def _held_to_max(torch, got, want, tol):
     return err, err <= tol * scale
 
 
-def bwd_case(torch, np, rng, B, Sq, Sk, H, KV, D, dtype, causal, cap):
-    """The backward kernel against its plain version on one input; returns
-    the largest absolute error and the largest error relative to each
-    gradient's largest |entry|."""
+def bwd_case(torch, np, gen, B, Sq, Sk, H, KV, D, dtype, causal, cap):
+    """The backward kernel against its plain version on one input (unit
+    normals from the card's generator ``gen``); returns the largest absolute
+    error and the largest error relative to each gradient's largest
+    |entry|."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
-    q, k, v = _flash_inputs(torch, rng, B, Sq, Sk, H, KV, D, dtype)
-    do = _normal(torch, rng, (B, Sq, H, D), dtype)
+    q, do = (torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
     out, lse = fa.flash_attention(q, k, v, causal=causal, softcap=cap, return_lse=True)
     got = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
     want = fb.flash_attention_bwd_ref(q, k, v, do, causal=causal, softcap=cap)
@@ -5345,11 +5376,12 @@ def bwd_kernel_checks(torch, np, rows):
     """The backward kernel against its plain version at the path's shape,
     at the two bf16 shapes and over the edge cases; then timed."""
     rng = np.random.default_rng(22)
+    gen = torch.Generator(device="cuda").manual_seed(22)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     err, rel = dict.fromkeys(dts, 0.0), dict.fromkeys(dts, 0.0)
     t0 = time.perf_counter()
     for B, S, H, KV, D, dt in [BWD_PATH] + BWD_OTHER:
-        e, r = bwd_case(torch, np, rng, B, S, S, H, KV, D, dts[dt], True, None)
+        e, r = bwd_case(torch, np, gen, B, S, S, H, KV, D, dts[dt], True, None)
         err[dt], rel[dt] = max(err[dt], e), max(rel[dt], r)
         log(f"flash_attention_bwd {(B, S, S, H, KV, D)} {dt} causal: max_abs_err={e:.3e}, "
             f"over max |grad| {r:.3e} (bar {BWD_TOL[dt]}) ok")
@@ -5360,7 +5392,7 @@ def bwd_kernel_checks(torch, np, rows):
                 for cap in BWD_EDGE_CAP:
                     for causal in (True, False):
                         for dt, dtype in dts.items():
-                            e, r = bwd_case(torch, np, rng, 2, Sq, Sk, 2 * G, 2, D,
+                            e, r = bwd_case(torch, np, gen, 2, Sq, Sk, 2 * G, 2, D,
                                             dtype, causal, cap)
                             err[dt], rel[dt] = max(err[dt], e), max(rel[dt], r)
                         n += 1
@@ -5370,7 +5402,7 @@ def bwd_kernel_checks(torch, np, rows):
         f"{err['float32']:.3e} bf16 {err['bfloat16']:.3e}; over max |grad| f32 "
         f"{rel['float32']:.3e} bf16 {rel['bfloat16']:.3e} ok "
         f"({time.perf_counter() - t0:.2f} s)")
-    check(n >= 48, f"only {n} edge cases")
+    check(n >= 120, f"only {n} edge cases")
     main = bwd_row(torch, np, rng, *BWD_PATH)
     others = [bwd_row(torch, np, rng, *shape) for shape in BWD_OTHER]
     rows["flash_attention_bwd"] = dict(
@@ -5572,6 +5604,411 @@ def train_phase(torch, np, kernels, rows):
     log(f"phase 4j (training): {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4o: training through the masked and cross attention (Whisper-small,
+# Qwen2-VL-7B, Gemma2, Llama-4 Scout, Grok-1)
+# ---------------------------------------------------------------------------
+
+#: the masked backward kernel's edge cases, each in f32 and bf16 at B = 2,
+#: KV = 2, H = 2 G: every (window, chunk) below x (Sq, Sk) x G x D x softcap
+#: x causal (864 cases); (130, 70) has rows that see no key under causal or
+#: a chunk, a window or a chunk of 1 leaves every row one key
+BWD_MASKS = [(1, None), (16, None), (100, None), (None, 1), (None, 16), (None, 64)]
+BWD_MASKED_LENGTHS = [(100, 100), (70, 130), (130, 70)]
+BWD_MASKED_G, BWD_MASKED_D, BWD_MASKED_CAP = (1, 2, 5, 7), (64, 128, 256), (None, 30.0)
+#: the training paths' attention, timed in bf16: (what, B, Sq, Sk, H, KV, D,
+#: causal, softcap, window, chunk, K / V views of one projection)
+BWD_TRAIN_ROWS = [
+    ("gemma2-9b local", 1, 8192, 8192, 16, 8, 256, True, 50.0, 4096, None, False),
+    ("llama4-scout chunked", 1, 9216, 9216, 40, 8, 128, True, None, None, 8192, False),
+    ("whisper-small encoder", 8, 1500, 1500, 12, 12, 64, False, None, None, None, False),
+    ("whisper-small cross", 8, 128, 1500, 12, 12, 64, False, None, None, None, True),
+    ("qwen2-vl-7b", 8, 384, 384, 28, 4, 128, True, None, None, None, False),
+]
+#: above this many bytes of f32 scores the plain version runs one kv-head
+#: group at a time (its autograd keeps several (B, H, Sq, Sk) tensors)
+PLAIN_SCORES_BYTES = 4e9
+#: full-width training parity, card against CPU, f32: (arch, layers (None:
+#: all), batch, text tokens, the card work its CPU side runs beside (None:
+#: none; masked_train_phase)); Qwen2-VL's 256 stub patches come before its
+#: text, Whisper's 1500 stub frames go through its encoder.  The reduced
+#: configs' parity is tests/test_torch_cuda.py's
+FAMILY_PARITY = [("whisper-small", None, 2, 64, "edges"), ("qwen2-vl-7b", 2, 2, 64, "timed"),
+                 ("llama4-scout-17b-a16e", 1, 2, 64, "train"), ("gemma2-9b", 2, 2, 64, None)]
+#: Whisper-small whole, trained on the card with AdamW: steps of batch x
+#: seq tokens, each sequence with 1500 stub frames drawn from the step's seed
+WHISPER_TRAIN = dict(steps=40, batch=8, seq=128, lr=6e-4, data_seed=17)
+
+
+def _attention_calls(cfg):
+    """Attention calls of one forward: a layer's self-attention, and for the
+    encoder-decoder its encoder layers and each decoder layer's cross."""
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def bwd_masked_edges(torch):
+    """The masked backward kernel against its plain version over the
+    BWD_MASK* cases in both dtypes, one host read a case; returns (cases,
+    {dtype: [max abs err, max err over its gradient's largest |entry|]}).
+    A window or a chunk of 1 leaves every row one key, and softmax over one
+    key has no gradient: dq and dk are exactly zero in the plain version and
+    rounding noise in the kernel's p (dp - Dv), so a gradient whose largest
+    |entry| is 0 is held at the largest |entry| of the three."""
+    import itertools
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {dt: [0.0, 0.0] for dt in dts}
+    t0 = time.perf_counter()
+    cases = list(itertools.product(BWD_MASKS, BWD_MASKED_LENGTHS, BWD_MASKED_G, BWD_MASKED_D,
+                                   BWD_MASKED_CAP, (True, False)))
+    for (window, chunk), (Sq, Sk), G, D, cap, causal in cases:
+        mask = dict(causal=causal, softcap=cap, window=window, chunk=chunk)
+        for dt, dtype in dts.items():
+            q, do = (torch.randn((2, Sq, 2 * G, D), generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((2, Sk, 2, D), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+            got = fb.flash_attention_bwd(q, k, v, out, lse, do, **mask)
+            want = fb.flash_attention_bwd_ref(q, k, v, do, **mask)
+            stats = torch.stack([t for g, w in zip(got, want) for t in (
+                (g.float() - w.float()).abs().max(), w.float().abs().max())]).tolist()
+            top = max(stats[1::2])
+            for name, e, s in zip("qkv", stats[0::2], stats[1::2]):
+                s = s or top
+                check(e <= BWD_TOL[dt] * s,
+                      f"flash_attention_bwd masked edge (2, {Sq}, {Sk}, {2 * G}, 2, {D}) {dt} "
+                      f"causal={causal} window={window} chunk={chunk} softcap={cap}: d{name} "
+                      f"max abs err {e} over {s}")
+                worst[dt] = [max(worst[dt][0], e), max(worst[dt][1], e / s)]
+    log(f"flash_attention_bwd masked edge cases: {len(cases)} cases x (f32, bf16): (window, "
+        f"chunk) in {BWD_MASKS}, (Sq, Sk) in {BWD_MASKED_LENGTHS}, G in {BWD_MASKED_G}, D in "
+        f"{BWD_MASKED_D}, softcap {BWD_MASKED_CAP}, causal on / off: max_abs_err f32 "
+        f"{worst['float32'][0]:.3e} bf16 {worst['bfloat16'][0]:.3e}; over max |grad| f32 "
+        f"{worst['float32'][1]:.3e} bf16 {worst['bfloat16'][1]:.3e} (bars {BWD_TOL}) ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return len(cases), worst
+
+
+def plain_bwd(torch, q, k, v, do, mask):
+    """The plain backward (autograd through attention_ref) on q, k, v,
+    one kv-head group at a time when the scores exceed PLAIN_SCORES_BYTES:
+    returns ((dq, dk, dv), ms of the backward alone -- CUDA events around
+    one autograd.grad a group after a warm-up one, summed)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, H = q.shape[:3]
+    Sk, KV = k.shape[1], k.shape[2]
+    n = KV if 4 * B * H * Sq * Sk > PLAIN_SCORES_BYTES else 1
+    G, KG = H // n, KV // n
+    parts, ms = [], 0.0
+    for i in range(n):
+        ins = [x[:, :, j * s:(j + 1) * s].detach().requires_grad_(True)
+               for x, j, s in ((q, i, G), (k, i, KG), (v, i, KG))]
+        dog = do[:, :, i * G:(i + 1) * G]
+        with torch.enable_grad():
+            out = fa.attention_ref(*ins, **mask)
+            torch.autograd.grad(out, ins, dog, retain_graph=True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            grads = torch.autograd.grad(out, ins, dog)
+            end.record()
+        end.synchronize()
+        ms += start.elapsed_time(end)
+        parts.append(grads)
+        del out
+    grads = tuple(torch.cat([p[j] for p in parts], dim=2) for j in range(3))
+    return grads, ms
+
+
+def bwd_train_row(torch, what, B, Sq, Sk, H, KV, D, causal, cap, window, chunk, fused):
+    """The backward kernel at a training path's shape in bf16: held against
+    its plain version (2e-2 of each gradient's largest |entry|; over 1500
+    keys also ATTN_REL_BF16 in relative L2 norm), timed in a CUDA graph of
+    back-to-back calls beside the plain backward, SDPA's backward alone
+    (the boolean mask under a window or a chunk, no cap) and the bound of
+    the visible pairs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    t0 = time.perf_counter()
+    F = torch.nn.functional
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + H)
+    q, do = (torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (_fused_kv(torch, gen, B, Sk, KV, D, dtype) if fused else
+            [torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+             for _ in range(2)])
+    mask = dict(causal=causal, softcap=cap, window=window, chunk=chunk)
+    shape = (B, Sq, Sk, H, KV, D)
+    desc = (f"{what} {shape} causal={causal} window={window} chunk={chunk} softcap={cap}"
+            + (f" K / V views, row stride {k.stride(1)}" if fused else ""))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, **mask)
+    want, plain = plain_bwd(torch, q, k, v, do, mask)
+    rel_l2 = []
+    for name, g, w in zip("qkv", got, want):
+        e, ok = _held_to_max(torch, g, w, BWD_TOL["bfloat16"])
+        check(ok, f"flash_attention_bwd {desc} bfloat16: d{name} max abs err {e}")
+        if Sk == CROSS_KEYS:
+            r = (torch.linalg.vector_norm(g.float() - w.float())
+                 / torch.linalg.vector_norm(w.float())).item()
+            check(r <= ATTN_REL_BF16, f"flash_attention_bwd {desc}: d{name} relative L2 {r}")
+            rel_l2.append(r)
+    err = max(_held_to_max(torch, g, w, 1.0)[0] for g, w in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    reps = 3 if Sq * Sk > 10 ** 7 else 20
+    ms = device_ms(torch, lambda: fb.flash_attention_bwd(q, k, v, out, lse, do, **mask), reps)
+    keep = fa.visible(torch.arange(Sq, device="cuda") + (Sk - Sq),
+                      torch.arange(Sk, device="cuda"), causal=causal, window=window, chunk=chunk)
+    pairs = int(keep.sum().item())
+    if window is None and chunk is None:
+        how, sdpa_mask = ("is_causal" if causal else "no mask"), dict(is_causal=causal)
+    else:
+        how, sdpa_mask = "boolean mask", dict(attn_mask=keep)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    try:
+        sdpa = grad_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **sdpa_mask), (qt, kt, vt), do.transpose(1, 2),
+            min(reps, 5))
+    except torch.cuda.OutOfMemoryError:  # a yardstick only: no such call then
+        sdpa = None
+        torch.cuda.empty_cache()
+    lib, note = (None, "library_ms=None (SDPA's backward ran out of memory)") if sdpa is None \
+        else _sdpa_note(sdpa, cap, how)
+    del keep, sdpa_mask, qt, kt, vt
+    torch.cuda.empty_cache()
+    # bytes: q, out, dO, dq and k, v, dk, dv once, lse read; operations: the
+    # recomputed score, dP, dV, dK and dQ (2 D each) per visible pair a head
+    b_ms, b_by = bound(2 * (4 * B * Sq * H * D + 4 * B * Sk * KV * D) + 4 * B * H * Sq,
+                       10 * B * H * D * pairs, BF16_FLOPS)
+    log(f"flash_attention_bwd {desc} bfloat16: kernel_ms={ms:.6f} plain_ms={plain:.6f} "
+        f"(autograd through attention_ref, backward alone"
+        f"{', a kv-head group at a time' if 4 * B * H * Sq * Sk > PLAIN_SCORES_BYTES else ''}) "
+        f"{note.replace('SDPA', 'SDPA backward')} bound_ms={b_ms:.6f} ({b_by}; {pairs} "
+        f"visible pairs a head); max_abs_err={err:.3e}"
+        + (f", rel_l2_err dq / dk / dv {', '.join(f'{r:.3e}' for r in rel_l2)} (bar "
+           f"{ATTN_REL_BF16})" if rel_l2 else "") + f" ok ({time.perf_counter() - t0:.2f} s)")
+    return dict(what=what, ms=ms, plain_ms=plain, library_ms=lib, sdpa_mask_ms=sdpa,
+                bound_ms=b_ms, bound_by=b_by, shape=list(shape), causal=causal, window=window,
+                chunk=chunk, softcap=cap, dtype="bfloat16", visible_pairs=pairs,
+                max_abs_err=err, rel_l2_err=rel_l2 or None)
+
+
+class Parity:
+    """lm_loss with remat and its gradients through the kernels on the card,
+    against the same weights through the plain versions on the CPU: the
+    card's side runs in ``__init__``, the CPU's in ``cpu_side`` (on a worker
+    thread, while the card does other work), ``finish`` compares -- loss at
+    rtol 1e-5, every gradient within 1e-4 of its largest |entry| (on the
+    card, a CPU gradient copied up at a time) -- and checks the attention
+    launches (the forward twice a call, the backward's three kernels once)
+    and that nothing else launched.  The CPU runs without remat: a
+    recompute there changes no bit of the gradients and costs a quarter
+    more work."""
+
+    def __init__(self, torch, kernels, cfg, card, cpu, batch, what):
+        from repro_torch.models import model as M
+
+        self.torch, self.cfg, self.cpu, self.what = torch, cfg, cpu, what
+        self.batch_cpu = {n: x.cpu() for n, x in batch.items()}
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        self.loss_c = M.lm_loss(cfg, card, batch, remat=True)
+        self.g_card = torch.autograd.grad(self.loss_c, list(card.parameters()))
+        torch.cuda.synchronize()
+        self.counts = kernels.launch_counts()
+        self.card_s = time.perf_counter() - t0
+
+    def cpu_side(self):
+        from repro_torch.models import model as M
+
+        t0 = time.perf_counter()
+        self.loss_p = M.lm_loss(self.cfg, self.cpu, self.batch_cpu, remat=False)
+        self.g_cpu = self.torch.autograd.grad(self.loss_p, list(self.cpu.parameters()))
+        self.cpu_s = time.perf_counter() - t0
+
+    def finish(self):
+        torch, what = self.torch, self.what
+        t0 = time.perf_counter()
+        calls = _attention_calls(self.cfg)
+        want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls,
+                **{f"flash_attention_bwd:{k}": calls for k in ("dot", "dkdv", "dq")}}
+        counts = self.counts
+        check(all(counts[k] == n for k, n in want.items()),
+              f"{what} parity launches {counts}, not {want}")
+        others = {k: n for k, n in counts.items() if n and k not in want}
+        check(not others, f"{what} training launched other kernels: {others}")
+        lc, lp = self.loss_c.item(), self.loss_p.item()
+        check(abs(lc - lp) <= 1e-5 * abs(lp), f"{what} loss card {lc} cpu {lp}")
+        worst = (0.0, "")
+        for (name, _), g, w in zip(self.cpu.named_parameters(), self.g_card, self.g_cpu):
+            e, scale = torch.stack(_err_and_scale(torch, g, w.to(g.device))).tolist()
+            check(e <= 1e-4 * scale, f"{what} gradient {name}: card vs CPU max err {e} over "
+                                     f"{scale}")
+            worst = max(worst, (e / scale if scale else 0.0, name))
+        log(f"training parity {what}: loss card {lc:.7f} cpu {lp:.7f}; every gradient within "
+            f"1e-4 of its largest |entry| (worst {worst[0]:.3e}, {worst[1]}); launches flash "
+            f"{counts['flash_attention']} bwd {counts['flash_attention_bwd']} ({calls} "
+            f"attention call{'s' * (calls > 1)} a forward); card {self.card_s:.2f} s, CPU "
+            f"{self.cpu_s:.2f} s, compared in {time.perf_counter() - t0:.2f} s")
+        return {k: counts[k] for k in want}
+
+
+def _err_and_scale(torch, got, want):
+    """(max |got - want|, max |want|) as two tensors on got's device."""
+    inf = float("inf")
+    return (torch.linalg.vector_norm(got.float() - want.float(), inf),
+            torch.linalg.vector_norm(want.float(), inf))
+
+
+def parity_start(torch, kernels, arch, cfg, B, n_text, seed):
+    """Draw cfg's weights on the card (f32), copy them to the CPU, and run the
+    card's side of a Parity on B x (n_patches + n_text) tokens (and the
+    family's stub frames / patches)."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    card = M.init_params(cfg, gen, torch.float32, "cuda")
+    cpu = copy.deepcopy(card).to("cpu").trainable()
+    card.trainable()
+    S = cfg.n_patches + n_text
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda"),
+             **_extra_inputs(torch, cfg, B, torch.float32, seed + 1)}
+    n_params = sum(p.numel() for p in card.parameters())
+    copy_s = time.perf_counter() - t0
+    full = ARCHS[arch]
+    what = (f"{cfg.name} ({cfg.n_layers} of {full.n_layers} layers"
+            + (f" + {cfg.n_encoder_layers} encoder" if cfg.family == "encdec" else "")
+            + f", {n_params / 1e9:.3f} B params, b {B} x {S} tokens"
+            + (f" ({cfg.n_patches} patches)" if cfg.n_patches else "")
+            + (f" + {cfg.encoder_len} frames" if cfg.family == "encdec" else "")
+            + f", window {cfg.sliding_window} chunk {cfg.chunk_size}, f32; init and copy "
+              f"{copy_s:.2f} s)")
+    return Parity(torch, kernels, cfg, card, cpu, batch, what)
+
+
+def whisper_train_run(torch, np, kernels):
+    """Whisper-small whole trained on the card: make_train_step with AdamW
+    and remat, WHISPER_TRAIN's steps of data-pipeline tokens with stub
+    frames; the loss must fall (last-10 mean below first-10 mean), the
+    launches exact, TF32 off."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+    from repro_torch.training.data import DataConfig, batch_at_step
+    from repro_torch.training.optimizer import AdamWConfig, opt_init
+    from repro_torch.training.train_step import make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on: training in f32 must run in IEEE f32")
+    w = WHISPER_TRAIN
+    cfg = ARCHS["whisper-small"]
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(9), torch.float32,
+                           "cuda").trainable()
+    opt = AdamWConfig(lr=w["lr"])
+    state = opt_init(params, opt)
+    step = make_train_step(cfg, opt, remat=True)
+    data = DataConfig(cfg.vocab_size, w["seq"], w["batch"], seed=w["data_seed"])
+    frames = torch.Generator(device="cuda")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    t0 = time.perf_counter()
+    for i in range(w["steps"]):
+        batch = batch_at_step(data, i, device="cuda")
+        frames.manual_seed(1000 + i)
+        batch["frames"] = torch.randn((w["batch"], cfg.encoder_len, cfg.d_model),
+                                      generator=frames, device="cuda")
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    calls = _attention_calls(cfg) * w["steps"]
+    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls,
+            **{f"flash_attention_bwd:{k}": calls for k in ("dot", "dkdv", "dq")}}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"whisper training launches {counts}, not {want}")
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    check(not others, f"whisper training launched other kernels: {others}")
+    check(all(np.isfinite(losses)), "whisper training losses finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"whisper training loss did not fall: {first} -> {last}")
+    step_ms = 1e3 * float(np.median(times))
+    tokens = w["batch"] * w["seq"]
+    log(f"train whisper-small whole ({cfg.n_encoder_layers} + {cfg.n_layers} layers, f32, "
+        f"AdamW lr {w['lr']}, remat): "
+        f"{w['steps']} steps of {w['batch']} x {w['seq']} tokens + {w['batch']} x "
+        f"{cfg.encoder_len} stub frames: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 10 "
+        f"mean {first:.4f}, last 10 mean {last:.4f}); wall {wall:.2f} s, median step "
+        f"{step_ms:.3f} ms, {tokens / step_ms * 1e3:.0f} tokens/s and "
+        f"{w['batch'] * cfg.encoder_len / step_ms * 1e3:.0f} frames/s at the median step on "
+        f"{CARD[0]}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"launches flash {counts['flash_attention']} bwd {counts['flash_attention_bwd']} "
+        f"({_attention_calls(cfg)} attention calls a forward)")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(steps=w["steps"], loss_first=losses[0], loss_last=losses[-1],
+                step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                launches={k: counts[k] for k in want})
+
+
+def masked_train_phase(torch, np, kernels, rows):
+    """Phase 4o.  The full-width parity's CPU sides run on a worker thread,
+    one at a time, each beside a piece of card work: the edge cases, the
+    timed rows, the Whisper training run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    card_work = {"edges": lambda: bwd_masked_edges(torch),
+                 "timed": lambda: [bwd_train_row(torch, *r) for r in BWD_TRAIN_ROWS],
+                 "train": lambda: whisper_train_run(torch, np, kernels)}
+    check(sorted(w for *_, w in FAMILY_PARITY if w) == sorted(card_work),
+          "each piece of phase 4o's card work runs beside one parity's CPU side")
+    with ThreadPoolExecutor(1) as pool:
+        for i, (arch, layers, B, n_text, name) in enumerate(FAMILY_PARITY):
+            cfg = ARCHS[arch] if layers is None else dataclasses.replace(ARCHS[arch],
+                                                                         n_layers=layers)
+            par = parity_start(torch, kernels, arch, cfg, B, n_text, 5 + i)
+            job = pool.submit(par.cpu_side)
+            if name:
+                t1 = time.perf_counter()
+                out[name] = card_work[name]()
+                log(f"phase 4o {name}: {time.perf_counter() - t1:.2f} s (beside the CPU side "
+                    f"of {arch}'s parity)")
+            job.result()
+            launches[arch] = par.finish()
+            del par
+            torch.cuda.empty_cache()
+    (n, worst), timed, run = out["edges"], out["timed"], out["train"]
+    row = rows["flash_attention_bwd"]
+    row["max_abs_err"] = max([row["max_abs_err"]] + [w[0] for w in worst.values()]
+                             + [t["max_abs_err"] for t in timed])
+    row.update(masked_shapes=timed, masked_edge_cases=dict(
+        cases=n, dtypes=2, max_abs_err={dt: w[0] for dt, w in worst.items()},
+        max_rel_err={dt: w[1] for dt, w in worst.items()}),
+        launches_training_families=launches, whisper_training=run)
+    log(f"phase 4o (training through the masked and cross attention): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 PHASE_WALLS = {}
 
 
@@ -5759,6 +6196,12 @@ def main():
     t0 = time.perf_counter()
     train_phase(torch, np, kernels, rows)
     mark("4j training", t0)
+
+    # --- training Whisper, Qwen2-VL, Gemma2, Llama-4, Grok-1: the masked and
+    # cross attention's backward (4o)
+    t0 = time.perf_counter()
+    masked_train_phase(torch, np, kernels, rows)
+    mark("4o masked and cross training", t0)
 
     order = ("bellman_banded", "bellman_banded_batched", "serve_scan",
              "serve_scan_qman", "serve_scan_adaptive", "serve_scan_qman_adaptive",

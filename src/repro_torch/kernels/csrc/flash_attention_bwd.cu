@@ -2,8 +2,11 @@
 // the forward kernel's function (flash_attention.cu),
 //
 //   x = q . k / sqrt(D);  c = softcap * tanh(x / softcap) (or x);
-//   s = c, or -1e30 where masked (bottom-right causal k > q + Sk - Sq);
-//   P = softmax_k(s);  out = P . v.
+//   s = c, or -1e30 where masked;  P = softmax_k(s);  out = P . v,
+//
+// under the forward's masks: query row i sits at p = i + Sk - Sq (bottom-
+// right), and key k is visible when k <= p (causal), p - k < window
+// (window > 0) and floor(p / chunk) == floor(k / chunk) (chunk > 0).
 //
 // Replaces no TPU kernel: the JAX package trains through the jnp
 // flash_attention (src/repro/models/layers.py:112) under jax.grad, and its
@@ -24,13 +27,26 @@
 // Every sum is taken in one fixed order, so the gradient is the same bit
 // for bit from run to run.
 //
-// Masking follows the forward: a masked score is the constant -1e30, so it
-// passes no gradient to q or k; a key past Sk has p = 0; a row that sees
-// no key at all (causal with q + Sk - Sq < 0) averages every key with
-// p = 1 / Sk, as the reference's softmax over all -1e30 does -- it gives
-// dV its share and dQ nothing.  A tile step whose pairs all take part
-// (most of a causal sweep) skips the tests; p = exp(c - lse) is one FMA
-// and an exp2 from lse * log2(e).
+// Masking follows the forward: a row's visible keys are one span [lo(p),
+// hi(p)) (span_lo / span_hi, the forward's KeySpan), and a masked score is
+// the constant -1e30, so it passes no gradient to q or k; a key past Sk
+// has p = 0; a row that sees no key at all (an empty span: p < 0 under
+// causal or chunk, Sq > Sk) averages every key with p = 1 / Sk, as the
+// reference's softmax over all -1e30 does -- it gives dV its share and dQ
+// nothing.  lo and hi never decrease with p, so a key tile's query rows
+// and a query tile's keys are intervals: a dK / dV block walks only the
+// query tiles with a row that sees one of its keys (QTiles; plus the
+// blind rows' tiles) and a dQ block only the key tiles of its rows' spans
+// (a 6144-row local layer under a 4096 window walks at most 4096 + 64
+// keys a tile).  A tile step whose pairs all take part (most of a causal
+// sweep, the inside of a window or a chunk) skips the tests; p =
+// exp(c - lse) is one FMA and an exp2 from lse * log2(e).  The edge
+// steps test each pair against its row's span (dQ, the f32 dK / dV) or
+// its key's rows (SeenBy; the bf16 dK / dV, whose threads each hold two
+// keys and sixteen rows), kept in shared memory.
+// kernels/flash_attention_bwd.py mirrors this arithmetic in Python (spans,
+// seen_by, query_tiles, key_tiles, tile_open), and the CPU tests hold it
+// to the mask.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA
 // cores, 3.35 TB/s): a call does 10 D flops per visible (q, k) pair and
@@ -72,9 +88,10 @@
 //   * the streamed tiles (Q and dO, or K and V) are double-buffered: the
 //     next one arrives by 16-byte cp.async while the current one computes
 //     (a misaligned operand is staged by plain loads instead);
-//   * the pair formulas are compiled once for each of four cases (the
-//     whole tile takes part or not; softcap or not) and a tile step runs
-//     one of them straight through, masks as selects.  A step's code has
+//   * the pair formulas are compiled once for each of six cases (the
+//     whole tile takes part, or an edge of a window / chunk, or of the
+//     causal mask alone; softcap or not) and a tile step runs one of them
+//     straight through, masks as selects.  A step's code has
 //     to stay in the instruction cache: with the masked formula, the cap
 //     and its division inlined into every pair, and the misaligned-row
 //     staging inlined at every staging call, a kernel compiled to over
@@ -139,9 +156,31 @@ constexpr float LOG2E = 1.4426950408889634f;
 struct Geo {
   int Sq, Sk, H, G;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh;
-  int causal, has_cap;
+  int causal, window, chunk, has_cap;  // window / chunk: 0 for none
   float softcap, scale, scale_log2, inv_cap;  // scale * log2(e); 1 / softcap (0: none)
 };
+
+// floor(a / b) for b > 0 (C++ division truncates toward zero)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// The keys [span_lo(p), span_hi(p)) a query at absolute position p sees
+// (the forward's KeySpan); empty (hi <= lo) for a row that sees no key.
+// Both never decrease with p.
+__device__ __forceinline__ int span_lo(int p, const Geo& g) {
+  long long l = 0;
+  if (g.window > 0) l = max(l, static_cast<long long>(p) - g.window + 1);
+  if (g.chunk > 0) l = max(l, static_cast<long long>(floor_div(p, g.chunk)) * g.chunk);
+  return static_cast<int>(min(l, static_cast<long long>(g.Sk)));
+}
+__device__ __forceinline__ int span_hi(int p, const Geo& g) {
+  long long h = g.Sk;
+  if (g.causal) h = min(h, static_cast<long long>(p) + 1);
+  if (g.chunk > 0) h = min(h, (floor_div(p, g.chunk) + 1LL) * g.chunk);
+  return static_cast<int>(max(h, 0LL));
+}
 
 // p and dS of one (query, key) pair from its score s = q . k, dp = dO . v,
 // its row's lse2 = lse * log2(e) and Dv: p = exp(c - lse) as one FMA and
@@ -149,12 +188,14 @@ struct Geo {
 // CAP); dS is the gradient with respect to x, before the 1 / sqrt(D)
 // scale, which the callers apply at the end.  Unless the whole tile takes
 // part (OPEN), p and dS are then selected, without branches: zero past
-// Sq / Sk and under the causal mask, 1 / Sk (and no gradient) for a row
-// that sees no key.  The two flags are template arguments so that a tile
-// step runs one short straight-line variant.
+// Sq / Sk (inside) and where the key is masked (seen), 1 / Sk (and no
+// gradient) for a row that sees no key (blind), as the caller's row_vis
+// (or SeenBy) found them.  The two flags are template arguments so that a
+// tile step runs one short straight-line variant.
 template <bool OPEN, bool CAP>
-__device__ __forceinline__ void pair(float s, float dp, int qpos, int key, float lse2, float dvq,
-                                     const Geo& g, float inv_sk, float& p, float& ds) {
+__device__ __forceinline__ void pair(float s, float dp, bool inside, bool seen, bool blind,
+                                     float lse2, float dvq, const Geo& g, float inv_sk,
+                                     float& p, float& ds) {
   float po, dso;
   if (CAP) {
     const float th = tanhf(s * g.scale * g.inv_cap);
@@ -169,57 +210,118 @@ __device__ __forceinline__ void pair(float s, float dp, int qpos, int key, float
     ds = dso;
     return;
   }
-  const int off = g.Sk - g.Sq;  // bottom-right causal alignment
-  const bool inside = qpos < g.Sq && key < g.Sk;
-  const bool blind = g.causal && qpos + off < 0;
-  const bool seen = !g.causal || key <= qpos + off;
   p = inside ? (blind ? inv_sk : (seen ? po : 0.0f)) : 0.0f;
-  ds = inside && !blind && seen ? dso : 0.0f;
+  ds = inside && seen ? dso : 0.0f;
 }
 
-// runs f(open, cap) with the two flags as std::bool_constant, so that the
-// elementwise pass of a tile step is compiled once for each of the four
-template <typename F>
-__device__ __forceinline__ void dispatch_pairs(bool open, bool cap, F&& f) {
-  if (cap) {
-    if (open) {
-      f(std::true_type{}, std::true_type{});
-    } else {
-      f(std::false_type{}, std::true_type{});
-    }
-  } else if (open) {
-    f(std::true_type{}, std::false_type{});
+// whether a pair takes part (seen) and whether its row, at position pos,
+// sees no key (blind): under a window or a chunk (LOCAL) from the row's
+// span [lo, hi), read only then; else from the causal edge alone
+struct Vis {
+  bool seen, blind;
+};
+template <bool LOCAL>
+__device__ __forceinline__ Vis row_vis(int key, int pos, const int& lo, const int& hi,
+                                       const Geo& g) {
+  if constexpr (LOCAL) {
+    return {key >= lo && key < hi, hi <= lo};
   } else {
-    f(std::false_type{}, std::false_type{});
+    return {!g.causal || key <= pos, g.causal && pos < 0};
+  }
+}
+
+// runs f(open, local, cap) with the flags as std::bool_constant, so that
+// the elementwise pass of a tile step is compiled once for each of the six:
+// a whole tile (open; its masks are moot), or an edge step under a window
+// or a chunk (local) or under the causal edge alone, each with and without
+// the softcap.  Keeping the causal-only edge apart keeps the unmasked
+// kernels within 3% of their time before the masks (tools/attn_bwd_ab.py;
+// one masked formula for every edge step cost 4% at D = 128)
+template <typename F>
+__device__ __forceinline__ void dispatch_pairs(bool open, bool local, bool cap, F&& f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  if (cap) {
+    if (open) f(T{}, N{}, T{});
+    else if (local) f(N{}, T{}, T{});
+    else f(N{}, N{}, T{});
+  } else if (open) {
+    f(T{}, N{}, N{});
+  } else if (local) {
+    f(N{}, T{}, N{});
+  } else {
+    f(N{}, N{}, N{});
   }
 }
 
 // whether every pair of query rows [q0, q0 + nr) and keys [k0, k0 + nk)
-// takes part: all inside Sq x Sk, and under causality no row blind and the
-// last key seen by the first row
+// takes part: all inside Sq x Sk and every key in every row's span -- in
+// [span_lo(last row), span_hi(first row)), as the spans never shrink from
+// the front or the back as p grows (a blind row's empty span fails it)
 __device__ __forceinline__ bool tile_open(int q0, int nr, int k0, int nk, const Geo& g) {
   const int off = g.Sk - g.Sq;
-  return q0 + nr <= g.Sq && k0 + nk <= g.Sk &&
-         (!g.causal || (q0 + off >= 0 && k0 + nk - 1 <= q0 + off));
+  return q0 + nr <= g.Sq && k0 + nk <= g.Sk && k0 >= span_lo(q0 + nr - 1 + off, g) &&
+         k0 + nk <= span_hi(q0 + off, g);
 }
 
-// The query tiles (of TILE rows) that take part for the key tile at k0:
-// those with a row that sees one of its keys, [lo, nq) -- a row q sees key
-// k0 when q >= k0 - (Sk - Sq) -- and, causal with Sq > Sk, those with a
-// row that sees no key at all (p = 1 / Sk for every key), [0, nblind).
-// at(v) is the v-th of the n tiles, in order.
+// The positions [first, last] of the rows that see key k (span_lo(p) <= k <
+// span_hi(p): one interval, as both never decrease): p >= k (causal), p >=
+// k's chunk start; p <= k + window - 1, p < the end of k's chunk.  A row
+// that sees no key is never among them.  Clamped to +-2^30.
+struct SeenBy {
+  int first, last;
+  __device__ __forceinline__ SeenBy(int k, const Geo& g) {
+    long long lo = -(1LL << 30), hi = 1LL << 30;
+    if (g.causal) lo = k;
+    if (g.chunk > 0) {
+      const long long c0 = static_cast<long long>(floor_div(k, g.chunk)) * g.chunk;
+      lo = max(lo, c0);
+      hi = c0 + g.chunk - 1;
+    }
+    if (g.window > 0) hi = min(hi, static_cast<long long>(k) + g.window - 1);
+    first = static_cast<int>(lo);
+    last = static_cast<int>(min(hi, 1LL << 30));
+  }
+};
+
+// The query tiles (of TILE rows) that take part for the keys [k0, k0 + nk):
+// those with a row that sees one of them -- the rows from the first that
+// sees k0 to the last that sees the last key (SeenBy) -- [lo, hi), and,
+// under causal or chunk with Sq > Sk, those with a row that sees no key
+// at all (p < 0: p = 1 / Sk for every key), [0, nblind).  at(v) is the
+// v-th of the n tiles, in order.  flash_attention_bwd.query_tiles is its
+// Python mirror.
 struct QTiles {
   int nblind, lo, n;
-  __device__ __forceinline__ QTiles(int k0, const Geo& g) {
+  __device__ __forceinline__ QTiles(int k0, int nk, const Geo& g) {
     const int nq = (g.Sq + TILE - 1) / TILE;
     const int off = g.Sk - g.Sq;
-    nblind = g.causal && off < 0 ? min(nq, (-off + TILE - 1) / TILE) : 0;
-    const int need = k0 - off;
-    lo = !g.causal || need <= 0 ? 0 : need >= g.Sq ? nq : need / TILE;
+    nblind = (g.causal || g.chunk > 0) && off < 0 ? min(nq, (-off + TILE - 1) / TILE) : 0;
+    // rows from the first that sees key k0 to the last that sees the last key
+    const int r_lo = max(SeenBy(k0, g).first - off, 0);
+    const int r_hi = min(SeenBy(min(k0 + nk, g.Sk) - 1, g).last - off, g.Sq - 1);
+    lo = r_lo <= r_hi ? r_lo / TILE : 0;
+    const int hi = r_lo <= r_hi ? r_hi / TILE + 1 : 0;
     lo = max(lo, nblind);
-    n = nblind + nq - lo;
+    n = nblind + max(hi - lo, 0);
   }
   __device__ __forceinline__ int at(int v) const { return v < nblind ? v : lo + v - nblind; }
+};
+
+// The key tiles (of KT keys) a query tile's rows [q0, q_last] walk for dQ:
+// those of the spans of its rows that see a key, [span_lo(first such row),
+// span_hi(last row)); a blind row (p < 0 under causal or chunk) takes no
+// gradient and adds no key.  flash_attention_bwd.key_tiles is its Python
+// mirror.
+template <int KT>
+struct KTiles {
+  int begin, end;
+  __device__ __forceinline__ KTiles(int q0, int q_last, const Geo& g) {
+    const int off = g.Sk - g.Sq;
+    const int k_lo = span_lo(max(q0 + off, 0), g), k_hi = span_hi(q_last + off, g);
+    begin = k_lo / KT;
+    end = k_hi > k_lo ? (k_hi + KT - 1) / KT : begin;
+  }
 };
 
 // Dv = rowsum(dO * O): one warp a (b, q, h) row; O is (B, Sq, H, D)
@@ -255,9 +357,10 @@ __host__ __device__ constexpr int bf_groups(int D) { return D > 128 ? 2 : 1; }
 
 template <int D>
 constexpr int bf_smem_bytes() {
-  // six 64-row operand tiles, the double-buffered rows' lse and Dv, and
-  // slack to align the tiles to 1024 bytes
-  return 6 * ((D + 63) / 64) * BLOCK_BYTES + 4 * TILE * 4 + 1024;
+  // six 64-row operand tiles, the double-buffered rows' lse and Dv and the
+  // keys' rows (dQ: the rows' spans), and slack to align the tiles to 1024
+  // bytes
+  return 6 * ((D + 63) / 64) * BLOCK_BYTES + 6 * TILE * 4 + 1024;
 }
 
 // rows row0 .. row0 + 63 gathered by two-byte loads and stored as whole
@@ -362,10 +465,12 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   float* rows_s = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + 6 * OP);
+  int* seen_s = reinterpret_cast<int*>(rows_s + 256);
   const uint32_t sk = base;
   const uint32_t sv = base + OP;
   // buffer u: Q at base + (2 + 2 u) OP, dO right after it; lse and Dv of
-  // its rows at rows_s[u * 128], rows_s[u * 128 + 64]
+  // its rows at rows_s[u * 128], rows_s[u * 128 + 64]; the positions of
+  // the first and last rows that see key k0 + j at seen_s[j], seen_s[64 + j]
 
   const int b = blockIdx.x / KV;
   const int kvh = blockIdx.x - b * KV;
@@ -375,12 +480,18 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const float inv_sk = 1.0f / static_cast<float>(g.Sk);
+  const bool masked = g.window > 0 || g.chunk > 0;  // edge steps test spans
 
   stage_bf16<D, CH, NT>(sk, k + b * g.ksb + kvh * g.ksh, g.kss, k0, g.Sk, tid);
   stage_bf16<D, CH, NT>(sv, v + b * g.vsb + kvh * g.vsh, g.vss, k0, g.Sk, tid);
+  if (tid < TILE) {
+    const SeenBy sb(k0 + tid, g);
+    seen_s[tid] = sb.first;
+    seen_s[64 + tid] = sb.last;
+  }
 
   // the (head, query tile) items that take part, heads outermost
-  const QTiles tiles(k0, g);
+  const QTiles tiles(k0, TILE, g);
   const int n_items = g.G * tiles.n;
   auto stage = [&](int u, int it) {
     const int gi = it / tiles.n;
@@ -410,6 +521,7 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 
   const int key_r0 = k0 + 16 * warp + (lane >> 2);  // this thread's keys: +0, +8
   const int col = 2 * (lane & 3);
+  const bool can_blind = g.causal || g.chunk > 0;  // a row at p < 0 sees no key
   for (int it = 0; it < n_items; ++it) {
     const int u = it & 1;
     if (it + 1 < n_items) stage(u ^ 1, it + 1);
@@ -425,18 +537,26 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     const int q0 = tiles.at(it % tiles.n) * TILE;
     float s[32], dp[32];
     score_pair<KS>(s, dp, sk, sq, sv, sdo);  // S^T = K Q^T, dP^T = V dO^T
-    auto elementwise = [&](auto open, auto cap) {
+    auto elementwise = [&](auto open, auto local, auto cap) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ql = 8 * i + col + (e & 1);
+          const int kl = key_r0 - k0 + 8 * (e >> 1);
+          const int pos = q0 + ql + g.Sk - g.Sq;
+          Vis vis;
+          if constexpr (decltype(local)::value) {  // the key's rows [first, last]
+            vis = {pos >= seen_s[kl] && pos <= seen_s[64 + kl], can_blind && pos < 0};
+          } else {
+            vis = {!g.causal || k0 + kl <= pos, g.causal && pos < 0};
+          }
           pair<decltype(open)::value, decltype(cap)::value>(
-              s[4 * i + e], dp[4 * i + e], q0 + ql, key_r0 + 8 * (e >> 1), lse_s[ql],
-              dv_s[ql], g, inv_sk, s[4 * i + e], dp[4 * i + e]);
+              s[4 * i + e], dp[4 * i + e], q0 + ql < g.Sq && k0 + kl < g.Sk, vis.seen,
+              vis.blind, lse_s[ql], dv_s[ql], g, inv_sk, s[4 * i + e], dp[4 * i + e]);
         }
     };
-    dispatch_pairs(tile_open(q0, TILE, k0, TILE, g), g.has_cap, elementwise);
+    dispatch_pairs(tile_open(q0, TILE, k0, TILE, g), masked, g.has_cap, elementwise);
     uint32_t pa[4][4], da[4][4];
     to_a_frags(s, pa);
     to_a_frags(dp, da);
@@ -497,7 +617,9 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
   const uint32_t sdo = base + OP;
-  // buffer u: K at base + (2 + 2 u) OP, V right after it
+  // buffer u: K at base + (2 + 2 u) OP, V right after it; the rows' spans'
+  // lo and hi at span_s[0], span_s[64]
+  int* span_s = reinterpret_cast<int*>(smem_raw + (base - smem_u32(smem_raw)) + 6 * OP);
 
   const int b = blockIdx.x / g.H;
   const int h = blockIdx.x - b * g.H;
@@ -508,21 +630,25 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  const int off = g.Sk - g.Sq;
   const float inv_sk = 1.0f / static_cast<float>(g.Sk);
+  const bool masked = g.window > 0 || g.chunk > 0;  // edge steps test spans
 
   stage_bf16<D, CH, NT>(sq, q + b * g.qsb + h * g.qsh, g.qss, q0, g.Sq, tid);
   stage_bf16<D, CH, NT>(sdo, dout + b * g.dsb + h * g.dsh, g.dss, q0, g.Sq, tid);
   const __nv_bfloat16* kb = k + b * g.ksb + kvh * g.ksh;
   const __nv_bfloat16* vb = v + b * g.vsb + kvh * g.vsh;
-  // keys a row of this tile sees with a gradient (none past q_last + off)
-  const int k_end = g.causal ? min(g.Sk, q_last + off + 1) : g.Sk;
-  const int nk = k_end > 0 ? (k_end + TILE - 1) / TILE : 0;
+  // the key tiles of the rows' spans: [kt.begin, kt.end)
+  const KTiles<TILE> kt(q0, q_last, g);
+  const int nk = kt.end - kt.begin;
   if (nk > 0) {
-    stage_bf16<D, CH, NT>(base + 2 * OP, kb, g.kss, 0, g.Sk, tid);
-    stage_bf16<D, CH, NT>(base + 3 * OP, vb, g.vss, 0, g.Sk, tid);
+    stage_bf16<D, CH, NT>(base + 2 * OP, kb, g.kss, kt.begin * TILE, g.Sk, tid);
+    stage_bf16<D, CH, NT>(base + 3 * OP, vb, g.vss, kt.begin * TILE, g.Sk, tid);
   }
   cp_commit();
+  if (tid < TILE) {
+    span_s[tid] = span_lo(q0 + tid + g.Sk - g.Sq, g);
+    span_s[64 + tid] = span_hi(q0 + tid + g.Sk - g.Sq, g);
+  }
 
   const int r0 = 16 * warp + (lane >> 2);  // this thread's rows: +0, +8
   const int col = 2 * (lane & 3);
@@ -546,8 +672,8 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     const int u = t & 1;
     if (t + 1 < nk) {
       const uint32_t nb = base + (2 + 2 * (u ^ 1)) * OP;
-      stage_bf16<D, CH, NT>(nb, kb, g.kss, (t + 1) * TILE, g.Sk, tid);
-      stage_bf16<D, CH, NT>(nb + OP, vb, g.vss, (t + 1) * TILE, g.Sk, tid);
+      stage_bf16<D, CH, NT>(nb, kb, g.kss, (kt.begin + t + 1) * TILE, g.Sk, tid);
+      stage_bf16<D, CH, NT>(nb + OP, vb, g.vss, (kt.begin + t + 1) * TILE, g.Sk, tid);
     }
     cp_commit();
     cp_wait_one();
@@ -555,21 +681,25 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     __syncthreads();
 
     const uint32_t sk = base + (2 + 2 * u) * OP;
-    const int k0 = t * TILE;
+    const int k0 = (kt.begin + t) * TILE;
     float s[32], dp[32];
     score_pair<KS>(s, dp, sq, sk, sdo, sk + OP);  // S = Q K^T, dP = dO V^T
-    auto elementwise = [&](auto open, auto cap) {
+    auto elementwise = [&](auto open, auto local, auto cap) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int rr = e >> 1;
+          const int rl = r0 + 8 * rr;
+          const int key = k0 + 8 * i + col + (e & 1);
+          const Vis vis = row_vis<decltype(local)::value>(key, q0 + rl + g.Sk - g.Sq,
+                                                          span_s[rl], span_s[64 + rl], g);
           pair<decltype(open)::value, decltype(cap)::value>(
-              s[4 * i + e], dp[4 * i + e], q0 + r0 + 8 * rr, k0 + 8 * i + col + (e & 1),
+              s[4 * i + e], dp[4 * i + e], q0 + rl < g.Sq && key < g.Sk, vis.seen, vis.blind,
               lse_r[rr], dv_r[rr], g, inv_sk, s[4 * i + e], dp[4 * i + e]);
         }
     };
-    dispatch_pairs(tile_open(q0, TILE, k0, TILE, g), g.has_cap, elementwise);
+    dispatch_pairs(tile_open(q0, TILE, k0, TILE, g), masked, g.has_cap, elementwise);
     uint32_t da[4][4];
     to_a_frags(dp, da);
     // dQ += dS K: B = K, 16 key rows a step, MN-major
@@ -617,14 +747,16 @@ __host__ __device__ constexpr int f_stride(int D) { return f_cols(D) + 4; }  // 
 
 template <int D>
 constexpr int f_dkdv_smem_bytes() {
-  // K, V (32 rows); Q, dO (64 rows), lse, Dv; P^T and dS^T ([64 queries][36])
-  return 4 * (2 * F_KT * f_stride(D) + 2 * TILE * (f_stride(D) + 1) + 2 * TILE * (F_KT + 4));
+  // K, V (32 rows); Q, dO (64 rows), lse, Dv, the rows' spans; P^T and
+  // dS^T ([64 queries][36])
+  return 4 * (2 * F_KT * f_stride(D) + 2 * TILE * (f_stride(D) + 2) + 2 * TILE * (F_KT + 4));
 }
 
 template <int D>
 constexpr int f_dq_smem_bytes() {
-  // Q, dO (64 rows), lse, Dv; K, V (32 rows); dS^T ([32 keys][68])
-  return 4 * (2 * TILE * (f_stride(D) + 1) + 2 * F_KT * f_stride(D) + F_KT * F_PS);
+  // Q, dO (64 rows), lse, Dv, the rows' spans; K, V (32 rows); dS^T
+  // ([32 keys][68])
+  return 4 * (2 * TILE * (f_stride(D) + 2) + 2 * F_KT * f_stride(D) + F_KT * F_PS);
 }
 
 // rows row0 .. row0 + NR - 1 of a (rows, D) f32 matrix (row stride rs)
@@ -719,7 +851,9 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* dos = qs + TILE * DS;      // [64][DS]
   float* lse_s = dos + TILE * DS;   // [64], lse * log2(e)
   float* dv_s = lse_s + TILE;       // [64]
-  float* ps = dv_s + TILE;          // P^T as [64 queries][PS]
+  int* lo_s = reinterpret_cast<int*>(dv_s + TILE);  // [64], the rows' spans
+  int* hi_s = lo_s + TILE;                          // [64]
+  float* ps = reinterpret_cast<float*>(hi_s + TILE);  // P^T as [64 queries][PS]
   float* dss = ps + TILE * PS;      // dS^T as [64 queries][PS]
 
   const int b = blockIdx.x / KV;
@@ -733,6 +867,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kp = tid >> 4;
   const int cg = tid & 15;
   const float inv_sk = 1.0f / static_cast<float>(g.Sk);
+  const bool masked = g.window > 0 || g.chunk > 0;  // edge steps test spans
 
   load_f32<D, F_KT>(ks, k + b * g.ksb + kvh * g.ksh, g.kss, k0, g.Sk, tid);
   load_f32<D, F_KT>(vs, v + b * g.vsb + kvh * g.vsh, g.vss, k0, g.Sk, tid);
@@ -747,7 +882,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   cp_commit();
   // the (head, query tile) items that take part, heads outermost
-  const QTiles tiles(k0, g);
+  const QTiles tiles(k0, F_KT, g);
   for (int it = 0; it < g.G * tiles.n; ++it) {
     const int gi = it / tiles.n;
     const int h = kvh * g.G + gi;
@@ -760,27 +895,33 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       const long long at = (static_cast<long long>(b) * g.H + h) * g.Sq + row;
       lse_s[tid] = row < g.Sq ? lse[at] * LOG2E : 0.0f;
       dv_s[tid] = row < g.Sq ? dvec[at] : 0.0f;
+      lo_s[tid] = span_lo(row + g.Sk - g.Sq, g);
+      hi_s[tid] = span_hi(row + g.Sk - g.Sq, g);
     }
     cp_wait_all();  // this thread's copies
     __syncthreads();
     float s[4][2], dp[4][2];
     f_scores<D, 2>(ks, vs, qs, dos, kg, qg, s, dp);  // S^T = K Q^T, dP^T = V dO^T
-    auto elementwise = [&](auto open, auto cap) {
+    auto elementwise = [&](auto open, auto local, auto cap) {
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const int ql = qg + 32 * m;
         float p[4], ds[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + 4 * kg + i;
+          const Vis vis = row_vis<decltype(local)::value>(key, q0 + ql + g.Sk - g.Sq,
+                                                          lo_s[ql], hi_s[ql], g);
           pair<decltype(open)::value, decltype(cap)::value>(
-              s[i][m], dp[i][m], q0 + ql, k0 + 4 * kg + i, lse_s[ql], dv_s[ql], g, inv_sk,
-              p[i], ds[i]);
+              s[i][m], dp[i][m], q0 + ql < g.Sq && key < g.Sk, vis.seen, vis.blind, lse_s[ql],
+              dv_s[ql], g, inv_sk, p[i], ds[i]);
+        }
         *reinterpret_cast<float4*>(ps + ql * PS + 4 * kg) = make_float4(p[0], p[1], p[2], p[3]);
         *reinterpret_cast<float4*>(dss + ql * PS + 4 * kg) =
             make_float4(ds[0], ds[1], ds[2], ds[3]);
       }
     };
-    dispatch_pairs(tile_open(q0, TILE, k0, F_KT, g), g.has_cap, elementwise);
+    dispatch_pairs(tile_open(q0, TILE, k0, F_KT, g), masked, g.has_cap, elementwise);
     __syncthreads();
     // dV[key] += sum_r P[r, key] dO[r];  dK[key] += sum_r dS[r, key] Q[r]
     const int r_end = min(TILE, g.Sq - q0);
@@ -839,7 +980,9 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* dos = qs + TILE * DS;      // [64][DS]
   float* lse_s = dos + TILE * DS;   // [64], lse * log2(e)
   float* dv_s = lse_s + TILE;       // [64]
-  float* ks = dv_s + TILE;          // [32][DS]
+  int* lo_s = reinterpret_cast<int*>(dv_s + TILE);  // [64], the rows' spans
+  int* hi_s = lo_s + TILE;                          // [64]
+  float* ks = reinterpret_cast<float*>(hi_s + TILE);  // [32][DS]
   float* vs = ks + F_KT * DS;       // [32][DS]
   float* dst = vs + F_KT * DS;      // dS^T as [32 keys][F_PS]
 
@@ -854,8 +997,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qg = tid & 31;
   const int qp = tid >> 4;
   const int dg = tid & 15;
-  const int off = g.Sk - g.Sq;
   const float inv_sk = 1.0f / static_cast<float>(g.Sk);
+  const bool masked = g.window > 0 || g.chunk > 0;  // edge steps test spans
 
   load_f32<D, TILE>(qs, q + b * g.qsb + h * g.qsh, g.qss, q0, g.Sq, tid);
   load_f32<D, TILE>(dos, dout + b * g.dsb + h * g.dsh, g.dss, q0, g.Sq, tid);
@@ -864,6 +1007,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     const long long at = (static_cast<long long>(b) * g.H + h) * g.Sq + row;
     lse_s[tid] = row < g.Sq ? lse[at] * LOG2E : 0.0f;
     dv_s[tid] = row < g.Sq ? dvec[at] : 0.0f;
+    lo_s[tid] = span_lo(row + g.Sk - g.Sq, g);
+    hi_s[tid] = span_hi(row + g.Sk - g.Sq, g);
   }
 
   float adq[4][NC][4];
@@ -874,13 +1019,12 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) adq[i][m][c] = 0.0f;
 
-  // keys a row of this tile sees with a gradient (none past q_last + off)
-  const int k_end = g.causal ? min(g.Sk, q_last + off + 1) : g.Sk;
-  const int nk = k_end > 0 ? (k_end + F_KT - 1) / F_KT : 0;
+  // the key tiles of the rows' spans
+  const KTiles<F_KT> kt(q0, q_last, g);
   const float* kb = k + b * g.ksb + kvh * g.ksh;
   const float* vb = v + b * g.vsb + kvh * g.vsh;
   cp_commit();
-  for (int t = 0; t < nk; ++t) {
+  for (int t = kt.begin; t < kt.end; ++t) {
     const int k0 = t * F_KT;
     load_f32<D, F_KT>(ks, kb, g.kss, k0, g.Sk, tid);
     load_f32<D, F_KT>(vs, vb, g.vss, k0, g.Sk, tid);
@@ -889,20 +1033,23 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     float s[4][2], dp[4][2];
     f_scores<D, 2>(ks, vs, qs, dos, kg, qg, s, dp);  // s[i][m] = K[4 kg + i] . Q[qg + 32 m]
-    auto elementwise = [&](auto open, auto cap) {
+    auto elementwise = [&](auto open, auto local, auto cap) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           const int ql = qg + 32 * m;
           float p, ds;
+          const int key = k0 + 4 * kg + i;
+          const Vis vis = row_vis<decltype(local)::value>(key, q0 + ql + g.Sk - g.Sq,
+                                                          lo_s[ql], hi_s[ql], g);
           pair<decltype(open)::value, decltype(cap)::value>(
-              s[i][m], dp[i][m], q0 + ql, k0 + 4 * kg + i, lse_s[ql], dv_s[ql], g, inv_sk,
-              p, ds);
+              s[i][m], dp[i][m], q0 + ql < g.Sq && key < g.Sk, vis.seen, vis.blind, lse_s[ql],
+              dv_s[ql], g, inv_sk, p, ds);
           dst[(4 * kg + i) * F_PS + ql] = ds;
         }
     };
-    dispatch_pairs(tile_open(q0, TILE, k0, F_KT, g), g.has_cap, elementwise);
+    dispatch_pairs(tile_open(q0, TILE, k0, F_KT, g), masked, g.has_cap, elementwise);
     __syncthreads();
     // dQ[r] += sum_c dS[r, c] K[c]
     const int c_end = min(F_KT, g.Sk - k0);
@@ -1034,7 +1181,8 @@ int launch_d(int dtype, const Ptrs& p, int B, int KV, const Geo& g, cudaStream_t
 // their batch / sequence / head strides (in elements; the last axis
 // contiguous); out: the forward's output (B, Sq, H, D) contiguous; lse:
 // (B, H, Sq) f32 from the forward; dvec: (B, H, Sq) f32 scratch; dq / dk /
-// dv: contiguous outputs in the inputs' dtype (0 = float32, 1 = bfloat16).
+// dv: contiguous outputs in the inputs' dtype (0 = float32, 1 = bfloat16);
+// window / chunk: the forward's masks' widths, 0 for none.
 // Launches bwd_dot, the dK / dV kernel and the dQ kernel of the dtype, in
 // that order, on `stream`.  Returns 0 on success, -1 for an unsupported
 // head size or dtype, else the first failed launch's cudaGetLastError().
@@ -1043,13 +1191,13 @@ extern "C" int flash_attention_bwd_launch(
     const float* lse, float* dvec, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
     int H, int KV, int D, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-    long long dsb, long long dss, long long dsh, int causal, int has_cap, float softcap,
-    int dtype, void* stream) {
+    long long dsb, long long dss, long long dsh, int causal, int window, int chunk,
+    int has_cap, float softcap, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0) return 0;
-  if ((dtype != 0 && dtype != 1) || KV <= 0 || H % KV) return -1;
+  if ((dtype != 0 && dtype != 1) || KV <= 0 || H % KV || window < 0 || chunk < 0) return -1;
   const Ptrs p{q, k, v, out, dout, lse, dvec, dq, dk, dv};
   const Geo g{Sq, Sk, H, H / KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-              dsb, dss, dsh, causal, has_cap, softcap,
+              dsb, dss, dsh, causal, window, chunk, has_cap, softcap,
               1.0f / sqrtf(static_cast<float>(D)),
               LOG2E / sqrtf(static_cast<float>(D)), has_cap ? 1.0f / softcap : 0.0f};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

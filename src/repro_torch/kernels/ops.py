@@ -12,8 +12,8 @@ Gradients.  On the CPU the plain versions are differentiable by autograd.
 On a CUDA device, under grad mode, ``flash_attention`` sends a tensor that
 requires grad through ``FlashAttentionFn``: the forward kernel with its
 log-sum-exp saved, then the hand backward kernel
-(``kernels/flash_attention_bwd.py``), which has no window or chunk mask
-yet: a masked call there raises ``NotImplementedError``.  Every other
+(``kernels/flash_attention_bwd.py``), both under the call's causal,
+window and chunk masks.  Every other
 kernel has no backward and its wrapper raises on such a tensor, so no
 gradient is dropped in silence.
 """
@@ -66,11 +66,12 @@ class FlashAttentionFn(torch.autograd.Function):
     before the backward, and the saved tensors are that run's.)"""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, softcap: Optional[float]):
+    def forward(ctx, q, k, v, causal: bool, softcap: Optional[float],
+                window: Optional[int], chunk: Optional[int]):
         out, lse = _flash.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                                          return_lse=True)
+                                          return_lse=True, window=window, chunk=chunk)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.softcap = causal, softcap
+        ctx.mask = dict(causal=causal, softcap=softcap, window=window, chunk=chunk)
         return out
 
     @staticmethod
@@ -78,10 +79,8 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout.stride(-1) != 1:  # the kernel reads rows of dO in place
             dout = dout.contiguous()
-        dq, dk, dv = _flash_bwd.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                    causal=ctx.causal,
-                                                    softcap=ctx.softcap)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _flash_bwd.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -93,19 +92,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q (B, Sq, H, D), k / v (B, Sk, KV, D); returns (B, Sq, H, D) in q's dtype.
     ``window`` / ``chunk``: a sliding-window or chunked-local mask (None
     for none).  On a CUDA device, under grad mode, inputs that require grad
-    go through ``FlashAttentionFn`` (forward and backward kernels); a masked
-    call there raises ``NotImplementedError``.
+    go through ``FlashAttentionFn`` (forward and backward kernels, masked
+    alike).
     """
     dev = resolve_device(device)
     q, k, v = _on(q, dev), _on(k, dev), _on(v, dev)
     if (dev.type == "cuda" and torch.is_grad_enabled()
             and any(x.requires_grad for x in (q, k, v))):
-        if window is not None or chunk is not None:
-            raise NotImplementedError(
-                "the attention backward kernel (csrc/flash_attention_bwd.cu) has no "
-                "window or chunk mask yet (ROADMAP.md queue 1, training with local "
-                "masks and experts)")
-        return FlashAttentionFn.apply(q, k, v, causal, softcap)
+        return FlashAttentionFn.apply(q, k, v, causal, softcap, window, chunk)
     return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap,
                                   block_q=block_q, block_k=block_k,
                                   window=window, chunk=chunk)

@@ -33,12 +33,17 @@ states by the scans writing into their slices, the conv tail and the
 token shifts by a copy) and ``length`` is a Python int on the host, so a
 decode step never waits on the card to read it.
 
-Training (dense family): the tensors are built frozen; ``params.trainable()``
-turns ``requires_grad`` on in place (the same storage).  ``lm_loss`` is the
-reference's next-token cross-entropy; with ``remat`` each block runs under
-``torch.utils.checkpoint`` (non-reentrant), so its forward -- the flash
-kernel included -- runs again in the backward.  On the card the attention
-gradient is the hand backward kernel (``kernels.ops.FlashAttentionFn``).
+Training (every family but the hybrid and RWKV6): the tensors are built
+frozen; ``params.trainable()`` turns ``requires_grad`` on in place (the
+same storage).  ``lm_loss`` is the reference's next-token cross-entropy
+over the family's forward of the reference's batch (``tokens``, plus
+``frames`` for the encoder-decoder and ``patches`` for a VLM); with
+``remat`` each block -- an encoder layer, a decoder layer with its
+cross-attention -- runs under ``torch.utils.checkpoint`` (non-reentrant),
+so its forward, the flash kernel included, runs again in the backward.
+On the card the attention gradient is the hand backward kernel
+(``kernels.ops.FlashAttentionFn``) under the layer's causal, window or
+chunk mask.
 ``leaf_map(cfg)`` says which slices of which tensors hold each of the
 reference's stacked leaves (a layer's ``wq`` is the first H hd columns of
 its ``wqkv``); ``gather_leaf`` / ``scatter_leaf`` read and write a leaf
@@ -49,11 +54,9 @@ layers included), MoE (Llama-4 Scout's chunked-local layers, Grok-1),
 VLM (Qwen2-VL: M-RoPE, its stub patch embeddings in place of the first
 ``n_patches`` token embeddings of a prefill), encoder-decoder (Whisper:
 its stub frame embeddings through the encoder, no decoder position
-signal), the Mamba2 hybrid and RWKV6.  ``lm_loss`` raises on the
-encoder-decoder and VLM families (their training is not ported), on the
-hybrid and on RWKV6 (the SSD and WKV6 scans have no backward kernel yet)
-and on a configuration with local layers or experts (the attention
-backward kernel has no masks yet).  ROADMAP.md queue 1 lists them.
+signal), the Mamba2 hybrid and RWKV6.  ``lm_loss`` raises on the hybrid
+and on RWKV6 (the SSD and WKV6 scans have no backward kernel yet);
+ROADMAP.md queue 1 lists them.
 """
 from __future__ import annotations
 
@@ -324,13 +327,13 @@ class Leaf(NamedTuple):
 
 
 def leaf_map(cfg: ModelConfig) -> Dict[str, Leaf]:
-    """The reference ``init_params`` leaves of a dense or MoE decoder, by their
-    ``/``-joined paths in ``jax.tree.leaves`` order (sorted keys), each
-    with the port tensors that hold it."""
+    """The reference ``init_params`` leaves of a dense, MoE or VLM decoder or
+    of the encoder-decoder, by their ``/``-joined paths in ``jax.tree.leaves``
+    order (sorted keys), each with the port tensors that hold it."""
     check_supported(cfg)
-    if cfg.family not in ("dense", "moe") or _is_rwkv(cfg):
-        raise NotImplementedError(f"{cfg.name}: the leaf map covers the dense and MoE "
-                                  "families")
+    if cfg.family not in ("dense", "moe", "vlm", "encdec") or _is_rwkv(cfg):
+        raise NotImplementedError(f"{cfg.name}: the leaf map covers the dense, MoE, "
+                                  "VLM and encoder-decoder families")
     d, H, KV, hd, ff, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                            cfg.d_ff, cfg.n_experts)
     qkv = {"q": (0, H * hd, H), "k": (H * hd, (H + KV) * hd, KV),
@@ -355,19 +358,42 @@ def leaf_map(cfg: ModelConfig) -> Dict[str, Leaf]:
         per_layer["router"] = ("router", None, None, (d, E))
         if cfg.n_shared_experts:
             ffn("s", ())
-    for n in block_norms(cfg):
-        per_layer[f"{n}/s"] = (n, None, None, (d,))
-        if cfg.norm != "rmsnorm":
-            per_layer[f"{n}/b"] = (n + "_b", None, None, (d,))
-    leaves = {"embed": Leaf([Piece("embed", None, None, (cfg.vocab_size, d))], False),
-              "final_norm/s": Leaf([Piece("final_norm", None, None, (d,))], False)}
-    if cfg.norm != "rmsnorm":
-        leaves["final_norm/b"] = Leaf([Piece("final_norm_b", None, None, (d,))], False)
+    def norms(table, names):
+        for n in names:
+            table[f"{n}/s"] = (n, None, None, (d,))
+            if cfg.norm != "rmsnorm":
+                table[f"{n}/b"] = (n + "_b", None, None, (d,))
+
+    leaves = {"embed": Leaf([Piece("embed", None, None, (cfg.vocab_size, d))], False)}
     if not cfg.tie_embeddings:
         leaves["out"] = Leaf([Piece("out", None, None, (d, cfg.vocab_size))], False)
-    for path, (name, lo, hi, shape) in per_layer.items():
-        leaves[f"blocks/{path}"] = Leaf(
-            [Piece(f"blocks.{i}.{name}", lo, hi, shape) for i in range(cfg.n_layers)], True)
+    top: Dict[str, Tuple[str, Optional[int], Optional[int], tuple]] = {}
+    norms(top, ["final_norm"])
+
+    def stack(prefix, table, n_layers):
+        for path, (name, lo, hi, shape) in table.items():
+            leaves[f"{prefix}/{path}"] = Leaf(
+                [Piece(f"{prefix}.{i}.{name}", lo, hi, shape) for i in range(n_layers)], True)
+
+    if _is_encdec(cfg):
+        # the encoder's layers are dense layers; a decoder layer adds the
+        # cross-attention x_wq / x_wk / x_wv / x_wo (x_wk and x_wv the
+        # halves of x_wkv) and the norm lnx
+        enc = dict(per_layer)
+        norms(enc, ["ln1", "ln2"])
+        stack("enc_blocks", enc, cfg.n_encoder_layers)
+        norms(top, ["enc_final_norm"])
+        leaves["enc_pos"] = Leaf([Piece("enc_pos", None, None, (cfg.encoder_len, d))], False)
+        per_layer["x_wq"] = ("x_wq", None, None, (d, H, hd))
+        per_layer["x_wk"] = ("x_wkv", 0, KV * hd, (d, KV, hd))
+        per_layer["x_wv"] = ("x_wkv", KV * hd, 2 * KV * hd, (d, KV, hd))
+        per_layer["x_wo"] = ("x_wo", None, None, (H, hd, d))
+        norms(per_layer, ["ln1", "ln2", "lnx"])
+    else:
+        norms(per_layer, block_norms(cfg))
+    for path, (name, lo, hi, shape) in top.items():
+        leaves[path] = Leaf([Piece(name, lo, hi, shape)], False)
+    stack("blocks", per_layer, cfg.n_layers)
     return dict(sorted(leaves.items()))
 
 
@@ -556,7 +582,7 @@ def forward_lm(cfg: ModelConfig, params: DenseLM, tokens, *, patches=None,
         if cache is not None:
             kv = {"k": cache["k"][i], "v": cache["v"][i], "length": length,
                   "lengths": lengths}
-        if remat and kv is None and torch.is_grad_enabled():
+        if kv is None and _checkpointed(remat):
             h = checkpoint(_remat_block, cfg, p, h, _layer_is_local(cfg, i), rope,
                            use_reentrant=False)
         else:
@@ -654,11 +680,36 @@ def forward_rwkv(cfg: ModelConfig, params: RwkvLM, tokens, *,
     return h, new_cache
 
 
-@torch.inference_mode()
-def forward_encoder(cfg: ModelConfig, params: EncDecLM, frames):
+def _enc_block(cfg: ModelConfig, p, h):
+    """One Whisper encoder layer: non-causal self-attention and the MLP."""
+    a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
+    y, _ = L.attention(cfg, p, a_in, causal=False)
+    h = h + y
+    m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
+    return h + L.mlp(cfg, p, m_in)
+
+
+def _dec_block(cfg: ModelConfig, p, h, enc_out, kv_cache=None, rope=None):
+    """One Whisper decoder layer: causal self-attention, cross-attention to
+    enc_out, the MLP."""
+    a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
+    y, _ = L.attention(cfg, p, a_in, kv_cache=kv_cache, rope=rope)
+    h = h + y
+    x_in = L.apply_norm(cfg, h, p["lnx"], p.get("lnx_b"))
+    h = h + L.cross_attention(cfg, p, x_in, enc_out)
+    m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
+    return h + L.mlp(cfg, p, m_in)
+
+
+def _checkpointed(remat: bool) -> bool:
+    return remat and torch.is_grad_enabled()
+
+
+def forward_encoder(cfg: ModelConfig, params: EncDecLM, frames, *, remat: bool = False):
     """Whisper's encoder over stub frame embeddings (B, T, d), T <=
     encoder_len, taken in the model's dtype: frames + enc_pos[:T], the
-    non-causal dense layers, the final norm.  Returns enc_out (B, T, d)."""
+    non-causal dense layers, the final norm.  Returns enc_out (B, T, d).
+    ``remat`` (under grad mode) checkpoints each layer."""
     if not _is_encdec(cfg):
         raise ValueError(f"{cfg.name} has no encoder")
     T = frames.shape[1]
@@ -666,23 +717,24 @@ def forward_encoder(cfg: ModelConfig, params: EncDecLM, frames):
         raise ValueError(f"{T} frames exceed the encoder's {cfg.encoder_len} positions")
     h = frames.to(params.dtype) + params.enc_pos[:T]
     for p in params.enc_blocks:
-        a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
-        y, _ = L.attention(cfg, p, a_in, causal=False)
-        h = h + y
-        m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
-        h = h + L.mlp(cfg, p, m_in)
+        if _checkpointed(remat):
+            h = checkpoint(_enc_block, cfg, p, h, use_reentrant=False)
+        else:
+            h = _enc_block(cfg, p, h)
     return L.apply_norm(cfg, h, params.enc_final_norm, params.enc_final_norm_b)
 
 
-@torch.inference_mode()
 def forward_encdec(cfg: ModelConfig, params: EncDecLM, tokens, frames=None, *,
-                   cache: Optional[dict] = None):
+                   cache: Optional[dict] = None, remat: bool = False):
     """Whisper's decoder over tokens (B, S): per layer causal self-attention
     (on the KV cache when given), cross-attention to enc_out -- the cache's
     ``enc_out`` when it holds one, else ``forward_encoder(frames)`` -- and
     the MLP.  No decoder position signal (rope_theta 0, as the reference).
     Returns (h_final, new_cache); a given cache is updated in place and
-    comes back with length + S and ``enc_out``."""
+    comes back with length + S and ``enc_out``.  ``remat`` (cache-free,
+    under grad mode) checkpoints each encoder and decoder layer, the
+    cross-attention inside its decoder layer, as the reference's
+    ``jax.checkpoint`` of its scanned bodies."""
     check_supported(cfg)
     if not _is_encdec(cfg):
         raise ValueError(f"{cfg.name} is not an encoder-decoder: use forward")
@@ -691,7 +743,7 @@ def forward_encdec(cfg: ModelConfig, params: EncDecLM, tokens, frames=None, *,
     if enc_out is None:
         if frames is None:
             raise ValueError(f"{cfg.name}: the encoder needs frames (B, T, d)")
-        enc_out = forward_encoder(cfg, params, frames)
+        enc_out = forward_encoder(cfg, params, frames, remat=remat and cache is None)
     h = _embed(cfg, params, tokens)
     if enc_out.dtype != h.dtype:
         raise ValueError(f"enc_out dtype {enc_out.dtype} differs from the "
@@ -702,13 +754,10 @@ def forward_encdec(cfg: ModelConfig, params: EncDecLM, tokens, frames=None, *,
         if cache is not None:
             kv = {"k": cache["k"][i], "v": cache["v"][i], "length": length,
                   "lengths": lengths}
-        a_in = L.apply_norm(cfg, h, p["ln1"], p.get("ln1_b"))
-        y, _ = L.attention(cfg, p, a_in, kv_cache=kv, rope=rope)
-        h = h + y
-        x_in = L.apply_norm(cfg, h, p["lnx"], p.get("lnx_b"))
-        h = h + L.cross_attention(cfg, p, x_in, enc_out)
-        m_in = L.apply_norm(cfg, h, p["ln2"], p.get("ln2_b"))
-        h = h + L.mlp(cfg, p, m_in)
+        if kv is None and _checkpointed(remat):
+            h = checkpoint(_dec_block, cfg, p, h, enc_out, None, rope, use_reentrant=False)
+        else:
+            h = _dec_block(cfg, p, h, enc_out, kv_cache=kv, rope=rope)
     h = L.apply_norm(cfg, h, params.final_norm, params.final_norm_b)
     new_cache = None
     if cache is not None:
@@ -717,17 +766,18 @@ def forward_encdec(cfg: ModelConfig, params: EncDecLM, tokens, frames=None, *,
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, *, cache: Optional[dict] = None,
-            frames=None, patches=None):
+            frames=None, patches=None, remat: bool = False):
     """The family's stack over tokens (B, S): forward_rwkv, forward_hybrid,
     forward_encdec (with ``frames``, unless the cache holds enc_out) or
-    forward_lm (with a VLM's ``patches``)."""
+    forward_lm (with a VLM's ``patches``); ``remat`` as forward_lm's (the
+    hybrid and RWKV6 run without a graph)."""
     if _is_rwkv(cfg):
         return forward_rwkv(cfg, params, tokens, cache=cache)
     if _is_hybrid(cfg):
         return forward_hybrid(cfg, params, tokens, cache=cache)
     if _is_encdec(cfg):
-        return forward_encdec(cfg, params, tokens, frames, cache=cache)
-    return forward_lm(cfg, params, tokens, patches=patches, cache=cache)
+        return forward_encdec(cfg, params, tokens, frames, cache=cache, remat=remat)
+    return forward_lm(cfg, params, tokens, patches=patches, cache=cache, remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -738,12 +788,11 @@ def forward(cfg: ModelConfig, params: LM, tokens, *, cache: Optional[dict] = Non
 def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
     """Next-token cross-entropy (predict t + 1 from t): the mean over
     (B, S - 1) of logsumexp(logits) - logits[gold], in f32, as the
-    reference's ``lm_loss``.  (The reference takes the gold logit by a
-    one-hot contraction for its sharding; here a gather.)"""
-    if _is_encdec(cfg) or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported yet "
-            "(ROADMAP.md queue 1, training Whisper and Qwen2-VL)")
+    reference's ``lm_loss``, over the family's forward of the reference's
+    batch: ``tokens`` (B, S), and ``frames`` (B, T, d) for the
+    encoder-decoder, ``patches`` (B, n, d) for a VLM.  (The reference takes
+    the gold logit by a one-hot contraction for its sharding; here a
+    gather.)"""
     if _is_rwkv(cfg):
         raise NotImplementedError(
             f"{cfg.name}: training RWKV6 needs a backward kernel for the WKV6 scan "
@@ -754,13 +803,9 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict, *, remat: bool = True):
             f"{cfg.name}: training the hybrid needs a backward kernel for the SSD "
             "scan (csrc/ssd_scan.cu), which is not written yet (ROADMAP.md queue 1, "
             "hybrid training)")
-    if cfg.n_experts or cfg.layer_pattern != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: training with local masks or experts needs masks in the "
-            "attention backward kernel (csrc/flash_attention_bwd.cu), which it has "
-            "not yet (ROADMAP.md queue 1, training with local masks and experts)")
     tokens = batch["tokens"]
-    h, _ = forward_lm(cfg, params, tokens, remat=remat)
+    h, _ = forward(cfg, params, tokens, frames=batch.get("frames"),
+                   patches=batch.get("patches"), remat=remat)
     logits = _unembed(cfg, params, h[:, :-1, :]).float()
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)

@@ -59,10 +59,15 @@ refused there.  The attention backward kernel
 (flash_attention_bwd.cu) is held against autograd through the plain
 attention at f32 1e-4 and bf16 2e-2 of each gradient's largest |entry|,
 the forward's saved log-sum-exp against the plain one at 1e-5 (f32) and
-2e-2 (bf16); a reduced Qwen2.5's training gradients through the kernels
-(autograd Function, remat) against the same model's through the plain
-versions on the CPU at 1e-4 of each tensor's largest |gradient|; and the
-kernels without a backward refuse tensors that require grad.
+2e-2 (bf16), also under sliding windows and chunks (windows and chunks of
+1 to 100 keys, off the tiles, Sq > Sk with rows that see no key, G up to
+7, D up to 256, softcap and causal on and off); a reduced Qwen2.5's
+training gradients through the kernels (autograd Function, remat) against
+the same model's through the plain versions on the CPU at 1e-4 of each
+tensor's largest |gradient|, and so for reduced Whisper, Qwen2-VL,
+Gemma2-9B / 27B, Llama-4 Scout and Grok-1 on 48 tokens (the window and
+the chunk of 32 bite), with their launch counts; and the kernels without a
+backward refuse tensors that require grad.
 """
 import copy
 import dataclasses
@@ -1149,13 +1154,21 @@ def test_decode_kernel_masks(cuda, B, S, H, KV, D, window, chunk, lengths, dtype
 
 
 def test_masked_flash_under_grad_raises(cuda):
-    """The backward kernel has no masks: a masked call on tensors that
-    require grad raises instead of dropping the mask."""
-    q, k, v, _ = _bwd_inputs(5, 1, 64, 64, 4, 2, 64, torch.float32, cuda)
-    q.requires_grad_(True)
+    """A masked call on tensors that require grad raises nothing and drops
+    no mask: it launches the forward kernel once and, on backward, the
+    backward kernel once, with the plain version's gradients."""
+    q, k, v, do = _bwd_inputs(5, 1, 64, 64, 4, 2, 64, torch.float32, cuda)
     for mask in (dict(window=16), dict(chunk=32)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.flash_attention(q, k, v, **mask)
+        ins = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        before = fa.flash_attention.launches, fb.flash_attention_bwd.launches
+        out = ops.flash_attention(*ins, **mask)
+        grads = torch.autograd.grad(out, ins, do)
+        torch.cuda.synchronize()
+        assert (fa.flash_attention.launches - before[0],
+                fb.flash_attention_bwd.launches - before[1]) == (1, 1)
+        want = fb.flash_attention_bwd_ref(q, k, v, do, causal=True, **mask)
+        for g, w, n in zip(grads, want, ("dq", "dk", "dv")):
+            _held_to_max(g, w, 1e-4, f"{n} {mask}")
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "llama4-scout-17b-a16e", "grok-1-314b"])
@@ -1983,10 +1996,13 @@ def _bwd_inputs(seed, B, Sq, Sk, H, KV, D, dtype, dev):
     return q, k, v, _normal(rng, (B, Sq, H, D), dtype, dev)
 
 
-def _held_to_max(got, want, tol, what):
+def _held_to_max(got, want, tol, what, scale=None):
+    """max |got - want| within tol of want's largest |entry| (of ``scale``
+    where one is given)."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    assert err <= tol * want.abs().max().item(), f"{what}: {err}"
+    scale = want.abs().max().item() if scale is None else scale
+    assert err <= tol * scale, f"{what}: {err}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2008,6 +2024,53 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal, cap, 
         _held_to_max(g, w, BWD_TOL[dtype], f"d{name}")
     again = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, softcap=cap)
     for g, h in zip(got, again):  # no atomics: the same bits every run
+        assert torch.equal(g, h)
+
+
+#: (B, Sq, Sk, H, KV, D, causal, softcap, window, chunk): windows and chunks
+#: below, at and off the 64 / 32 tiles, spans that start mid-tile, Sq > Sk
+#: (rows that see no key, under causal and under a chunk alone), causal off,
+#: G 5 and 7, D 256
+BWD_MASKED = [
+    (2, 100, 100, 4, 2, 64, True, None, 1, None),
+    (2, 100, 100, 4, 2, 64, True, 30.0, 16, None),
+    (1, 130, 130, 10, 2, 128, True, None, 100, None),
+    (1, 70, 130, 14, 2, 128, True, None, 37, None),
+    (1, 130, 70, 7, 1, 256, True, 50.0, 40, None),
+    (1, 150, 150, 4, 2, 64, False, None, 33, None),
+    (2, 100, 100, 4, 2, 64, True, None, None, 1),
+    (2, 100, 100, 4, 1, 64, True, None, None, 16),
+    (1, 200, 200, 5, 1, 128, True, None, None, 64),
+    (1, 70, 130, 8, 2, 128, True, 30.0, None, 50),
+    (1, 130, 70, 4, 2, 64, True, None, None, 33),
+    (1, 130, 70, 4, 2, 64, False, None, None, 33),
+    (1, 200, 200, 16, 8, 256, True, 50.0, 64, None),
+    (1, 200, 200, 4, 2, 64, True, None, 30, 50),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,cap,window,chunk", BWD_MASKED)
+def test_flash_bwd_masked_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal, cap, window,
+                                               chunk, dtype):
+    q, k, v, do = _bwd_inputs(Sq + Sk + H + D, B, Sq, Sk, H, KV, D, dtype, cuda)
+    mask = dict(causal=causal, softcap=cap, window=window, chunk=chunk)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, **mask)
+    want = fb.flash_attention_bwd_ref(q, k, v, do, **mask)
+    # a window or a chunk of 1 leaves every row one key, and softmax over one
+    # key has no gradient: dq and dk are exactly zero in the plain version,
+    # rounding noise in the kernel's p (dp - Dv); such a gradient is held at
+    # the largest |entry| of the three
+    top = max(w.float().abs().max().item() for w in want)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape and g.is_contiguous()
+        _held_to_max(g, w, BWD_TOL[dtype], f"d{name}", w.float().abs().max().item() or top)
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    b0 = fb.flash_attention_bwd.launches
+    grads = torch.autograd.grad(ops.flash_attention(qg, kg, vg, **mask), (qg, kg, vg), do)
+    assert fb.flash_attention_bwd.launches == b0 + 1
+    for g, h in zip(got, grads):  # the autograd Function: the same kernels, the same bits
         assert torch.equal(g, h)
 
 
@@ -2079,5 +2142,37 @@ def test_training_gradients_on_the_card_match_the_cpu(cuda):
     counts = kernels.launch_counts()
     assert counts["flash_attention"] == 2 * cfg.n_layers
     assert counts["flash_attention_bwd"] == cfg.n_layers
+    for (n, _), g, w in zip(cpu.named_parameters(), grads["cuda"], grads["cpu"]):
+        _held_to_max(g.cpu(), w, 1e-4, n)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-7b", "gemma2-9b", "gemma2-27b",
+                                  "llama4-scout-17b-a16e", "grok-1-314b"])
+def test_training_families_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced configs (f32, 48 tokens: the window and the chunk of 32
+    bite; Whisper's 32 frames, Qwen2-VL's 8 patches): lm_loss with remat
+    through the kernels on the card against the CPU's plain versions, each
+    attention call launching the forward twice and the backward once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].reduced()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(1), torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 48)))}
+    for name, shape in M.input_shapes(cfg).items():
+        batch[name] = torch.as_tensor(rng.normal(size=(2,) + shape).astype(np.float32))
+    grads, losses = {}, {}
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        p.trainable()
+        kernels.reset_launch_counts()
+        loss = M.lm_loss(cfg, p, {k: x.to(p.device) for k, x in batch.items()}, remat=True)
+        grads[name] = torch.autograd.grad(loss, list(p.parameters()))
+        losses[name] = loss.item()
+    counts = kernels.launch_counts()
+    calls = cfg.n_layers + (cfg.n_encoder_layers + cfg.n_layers if cfg.family == "encdec"
+                            else 0)
+    assert counts["flash_attention"] == 2 * calls
+    assert counts["flash_attention_bwd"] == calls
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
     for (n, _), g, w in zip(cpu.named_parameters(), grads["cuda"], grads["cpu"]):
         _held_to_max(g.cpu(), w, 1e-4, n)
